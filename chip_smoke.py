@@ -8,12 +8,21 @@ Phases (each raises on failure, so any failure exits non-zero):
   3. kernel vs plain: the projection matcher kernel against its plain torch
      version on the card at the tracking shapes (768 map points x 1032
      features), exact equality with planted ties, and their median times;
-  4. slice: renders a 60-frame 752x480 sequence on the card, seeds a map
+  4. fusion kernel: the same kernel at landmark fusion's shape and settings
+     (4096 map points x 1032 features, radius 3 * 1.2^level, max_dist 35,
+     ratio 1.0), exact with planted ties, and their median times;
+  5. slice: renders a 60-frame 752x480 sequence on the card, seeds a map
      from rendered depth at ground-truth keyframe poses, and tracks frames
      1..59 with ``MonoSlam`` in localization mode; requires no lost frame,
      metric ATE <= 0.01 m and that every tracking pass launched the kernel;
-  5. card vs CPU: the first 5 frames again on the CPU, poses within 5 mm /
-     5 mrad of the card's.
+  6. card vs CPU: the first 5 frames of phase 5 again on the CPU, poses
+     within 5 mm / 5 mrad of the card's;
+  7. mapping: ``MonoSlam`` maps a 120-frame 752x480 sequence from frame 0
+     (two-view initialization, keyframes, fusion, covisibility local BA,
+     culling) at ``bench.py``'s configuration; requires initialization by
+     frame 4, no frame lost after it, >= 12 keyframes, Sim(3) ATE <= 0.02 m,
+     and kernel launches equal to the tracking passes plus 2 for each
+     fusing keyframe.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -29,8 +38,10 @@ import numpy as np
 
 H, W, N_FEATURES, N_FRAMES, KF_EVERY = 480, 752, 1000, 60, 6
 P_TRACK = 768
+P_FUSE = 4096  # landmark fusion searches the whole point table
 WARM = 5
 ATE_LIMIT = 0.01
+MAP_FRAMES, MAP_INIT_BY, MAP_MIN_KF, MAP_ATE_LIMIT = 120, 4, 12, 0.02
 
 
 def check(cond, msg: str) -> None:
@@ -57,46 +68,49 @@ def cuda_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
-def search_inputs(seed: int, P: int, N: int):
+def search_inputs(seed: int, P: int, N: int, radius_px: float):
     """The tests' projection-search case (``synth.make_search_case``: +-1
-    descriptors, octaves 0..7, planted ties) with tracking's first-pass
-    radii, 60 * 1.2^level px, as the matcher's nine input arrays."""
+    descriptors, octaves 0..7, planted ties) with radii of ``radius_px`` *
+    1.2^level px, as the matcher's nine input arrays."""
     from orb_slam3_ros_tpu_torch.utils.synth import make_search_case
 
     d = make_search_case(seed, P, N, W=W, H=H)
-    radius = (60.0 * 1.2 ** d["proj_level"].astype(np.float32)).astype(np.float32)
+    radius = (radius_px * 1.2 ** d["proj_level"].astype(np.float32)).astype(np.float32)
     return (d["proj_uv"], d["proj_valid"], d["proj_level"], d["proj_sign"], radius,
             d["feat_xy"], d["feat_level"], d["feat_valid"], d["feat_sign"])
 
 
-def phase_kernel(torch, project_match) -> dict:
+def phase_kernel(torch, project_match, P: int, radius_px: float, min_match: int, **kw) -> dict:
+    """The kernel against its plain version on three seeded cases of P
+    rows x 1032 features (launches outside the counted runs), then both
+    timed on the last case. ``kw``: the search settings (max_dist, ratio)."""
     dev = torch.device("cuda")
     max_err = 0
     for seed in range(3):
-        args = [torch.from_numpy(a).to(dev) for a in search_inputs(seed, P_TRACK, 1032)]
-        ik, dk = project_match.project_match(*args)
-        ir, dr = project_match.project_match_reference(*args)
+        args = [torch.from_numpy(a).to(dev) for a in search_inputs(seed, P, 1032, radius_px)]
+        ik, dk = project_match.project_match(*args, **kw)
+        ir, dr = project_match.project_match_reference(*args, **kw)
         torch.cuda.synchronize()
         err = max(int((ik - ir).abs().max()), int((dk - dr).abs().max()))
         n_match = int((ir >= 0).sum())
-        print(f"kernel vs plain, seed {seed}: matches {n_match}, max |diff| {err}")
-        check(n_match > 50, "the comparison case matched too little to mean anything")
+        print(f"kernel vs plain at P={P}, seed {seed}: matches {n_match}, max |diff| {err}")
+        check(n_match > min_match, "the comparison case matched too little to mean anything")
         max_err = max(max_err, err)
     check(max_err == 0, f"kernel disagrees with its plain version (max |diff| {max_err})")
-    ms = cuda_ms(lambda: project_match.project_match(*args), 100)
-    plain_ms = cuda_ms(lambda: project_match.project_match_reference(*args), 100)
-    print(f"project_match at P={P_TRACK} N=1032: kernel {ms * 1e3:.1f} us, plain torch "
+    ms = cuda_ms(lambda: project_match.project_match(*args, **kw), 100)
+    plain_ms = cuda_ms(lambda: project_match.project_match_reference(*args, **kw), 100)
+    print(f"project_match at P={P} N=1032 {kw}: kernel {ms * 1e3:.1f} us, plain torch "
           f"{plain_ms * 1e3:.1f} us (per call with its wrapper, median of 100, CUDA events)")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
-def ate(slam, seq, frames) -> float:
+def ate(slam, seq, frames, with_scale=False) -> float:
     from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
 
     traj = slam.get_trajectory()
     ts = np.asarray([t for t, _ in traj])
     pos = np.stack([T[:3, 3] for _, T in traj])
-    rmse, n, _ = ate_rmse(ts, pos, seq.timestamps, seq.t_wc, with_scale=False)
+    rmse, n, _ = ate_rmse(ts, pos, seq.timestamps, seq.t_wc, with_scale=with_scale)
     check(n == frames, f"ATE matched {n} of {frames} poses")
     return rmse
 
@@ -104,13 +118,19 @@ def ate(slam, seq, frames) -> float:
 def make_slam(seq, device):
     from orb_slam3_ros_tpu_torch.models.system import MonoSlam
 
-    # bench.py's EuRoC-shape configuration, localization mode.
+    # bench.py's EuRoC-shape configuration (bench.py:60-66, its default
+    # lean schedule).
     return MonoSlam(
         height=H, width=W, cam_params=seq.cam_params, n_features=N_FEATURES,
         max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3,
         stats_every=3, cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
         pipelined=False, device=device,
     )
+
+
+def reset_launches(project_match) -> None:
+    for site in project_match.LAUNCHES:
+        project_match.LAUNCHES[site] = 0
 
 
 def phase_slice(torch, project_match) -> tuple[dict, list]:
@@ -133,7 +153,7 @@ def phase_slice(torch, project_match) -> tuple[dict, list]:
     passes = len(slam._current_schedule())
 
     torch.cuda.reset_peak_memory_stats()
-    project_match.LAUNCHES = 0
+    reset_launches(project_match)
     poses, frame_ms = [], []
     for i in range(1, N_FRAMES):
         if i == WARM + 1:
@@ -149,10 +169,11 @@ def phase_slice(torch, project_match) -> tuple[dict, list]:
         poses.append(out)
     torch.cuda.synchronize()
     t_steady = time.perf_counter() - t_start
-    launches = project_match.LAUNCHES
+    launches = project_match.LAUNCHES["track"]
     peak = torch.cuda.max_memory_allocated()
-    check(launches == passes * (N_FRAMES - 1),
-          f"matcher kernel launched {launches} times, expected {passes} x {N_FRAMES - 1}")
+    check(launches == passes * (N_FRAMES - 1) and project_match.LAUNCHES["fuse"] == 0,
+          f"matcher kernel launched {project_match.LAUNCHES}, expected {passes} x {N_FRAMES - 1} "
+          "from tracking and none from fusion")
     rmse = ate(slam, seq, N_FRAMES - 1)
     fps = (N_FRAMES - 1 - WARM) / t_steady
     print(f"slice: tracked {N_FRAMES - 1}/{N_FRAMES - 1} frames, metric ATE {rmse:.5f} m, "
@@ -215,6 +236,87 @@ def phase_cpu(torch, state) -> None:
     check(worst_t <= 5e-3 and worst_r <= 5e-3, "card and CPU poses disagree")
 
 
+def phase_mapping(torch, project_match) -> dict:
+    """``MonoSlam`` maps a rendered 120-frame sequence from frame 0 on the
+    card (``bench.py``'s sequence and configuration, no stored map). Each
+    ``keyframe_work`` call is timed by CUDA events around it."""
+    from orb_slam3_ros_tpu_torch.models import kf_work, system
+    from orb_slam3_ros_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    seq = synth.make_sequence(n_frames=MAP_FRAMES, height=H, width=W, dt=0.1, seed=3, device="cuda")
+    slam = make_slam(seq, "cuda")
+    torch.cuda.synchronize()
+    print(f"mapping setup: rendered {MAP_FRAMES} frames at {W}x{H} in {time.perf_counter() - t0:.1f} s")
+
+    kf_ms, n_fusing = [], 0
+    work = kf_work.keyframe_work
+
+    def timed_work(*args, **kw):
+        nonlocal n_fusing
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = work(*args, **kw)
+        b.record()
+        b.synchronize()
+        kf_ms.append(a.elapsed_time(b))
+        n_fusing += bool(kw["do_fuse"])
+        return out
+
+    kf_work.keyframe_work = timed_work
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(project_match)
+    passes = 0
+    init_at = None
+    frame_ms = []
+    try:
+        for i in range(MAP_FRAMES):
+            if slam.state == system.OK:
+                passes += len(slam._current_schedule())
+            t_frame = time.perf_counter()
+            # process_frame ends in a host read (pose, or the initializer's
+            # decision): its return marks the frame's completion on the card.
+            out = slam.process_frame(seq.images[i], float(seq.timestamps[i]))
+            dt = (time.perf_counter() - t_frame) * 1e3
+            if init_at is None and out is not None:
+                init_at, init_ms = i, dt
+                t_init = time.perf_counter()
+            elif init_at is not None:
+                check(out is not None, f"mapping lost frame {i}")
+                if i > init_at + WARM:
+                    frame_ms.append(dt)
+            check(init_at is not None or i < MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
+    finally:
+        kf_work.keyframe_work = work
+    torch.cuda.synchronize()
+    t_steady = sum(frame_ms) / 1e3
+    launches = dict(project_match.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_kf_made = 2 + len(kf_ms)
+    rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
+    lat = np.percentile(frame_ms, [50, 80])
+    kf_med, kf_max = float(np.median(kf_ms)), float(max(kf_ms))
+    print(f"mapping: initialized at frame {init_at} ({init_ms:.1f} ms, initial BA "
+          f"{slam.ba_iters[0]} iterations); tracked {MAP_FRAMES - init_at}/{MAP_FRAMES - init_at} "
+          f"frames after it; {n_kf_made} keyframes made, {slam.n_kf} slots, "
+          f"{int(slam.map.kf_valid.sum())} live; {slam.n_pts} points; Sim(3) ATE {rmse:.5f} m; "
+          f"{len(frame_ms) / t_steady:.2f} frames/s steady over {len(frame_ms)} frames; latency "
+          f"median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; keyframe work median {kf_med:.2f} ms, "
+          f"max {kf_max:.2f} ms over {len(kf_ms)}; local-BA iterations {slam.ba_iters[1:]}; "
+          f"kernel launches {launches} (tracking passes {passes}, fusing keyframes {n_fusing}); "
+          f"peak device memory {peak / 2**20:.1f} MiB; wall {time.perf_counter() - t_init:.1f} s "
+          "after initialization")
+    check(n_kf_made >= MAP_MIN_KF, f"only {n_kf_made} keyframes")
+    check(rmse <= MAP_ATE_LIMIT, f"mapping ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
+    check(launches == {"track": passes, "fuse": 2 * n_fusing},
+          f"matcher launches {launches}, expected {passes} from tracking and "
+          f"{2 * n_fusing} from fusion")
+    return dict(init_frame=init_at, init_ms=init_ms, keyframes=n_kf_made, ate_sim3_m=rmse,
+                frames_per_s=len(frame_ms) / t_steady, frame_ms_p50=float(lat[0]),
+                frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
+                ba_iters=slam.ba_iters, launches=launches, peak_mem_mib=peak / 2**20)
+
+
 def main() -> int:
     import torch
 
@@ -241,20 +343,26 @@ def main() -> int:
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 print(line.strip())
 
-    k = phase_kernel(torch, project_match)
+    k = phase_kernel(torch, project_match, P_TRACK, 60.0, 50)
+    kf = phase_kernel(torch, project_match, P_FUSE, 3.0, 50, max_dist=35, ratio=1.0)
     s, state = phase_slice(torch, project_match)
     phase_cpu(torch, state)
+    mp = phase_mapping(torch, project_match)
 
-    print(json.dumps({"slice": s, "card": smi[0]}))
+    print(json.dumps({"slice": s, "mapping": mp, "card": smi[0]}))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
         "source": "orb_slam3_ros_tpu_torch/csrc/project_match.cu",
         "replaces": "orb_slam3_ros_tpu/ops/pallas_match.py:37",
-        "launches": s["launches"],
-        "max_abs_err": k["max_abs_err"],
+        "launches": mp["launches"]["track"] + mp["launches"]["fuse"],
+        "launches_track": mp["launches"]["track"],
+        "launches_fuse": mp["launches"]["fuse"],
+        "max_abs_err": max(k["max_abs_err"], kf["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+        "fuse_ms": kf["ms"],
+        "fuse_plain_ms": kf["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

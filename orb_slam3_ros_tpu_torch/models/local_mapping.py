@@ -1,0 +1,187 @@
+"""Covisibility local BA of the keyframe path — port of the mono part of
+``orb_slam3_ros_tpu.models.local_mapping``: window selection, the
+window -> ``BAProblem`` gather, and the scatter back into the map
+(the reference's LocalMapping local-BA dispatch, Optimizer.cc:1120-1460).
+
+Window entries that do not exist (fewer covisible keyframes than the
+window holds) carry ``entry_valid`` False; their ids may alias live
+entries. The JAX package routes their writes out of bounds and lets
+``mode="drop"`` discard them; here they go to a spare row past the end
+of a one-row-longer buffer, which is then cut off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import ba
+from ..ops.topk import top_k
+from .map_state import MapState, covisibility, obs_matrix
+
+P_BA = 2048  # compacted landmark capacity of a local-BA window
+
+
+def select_covis_window(m: MapState, last: int, w_free: int, w_fixed: int):
+    """Covisibility local-BA window around keyframe ``last``: free set =
+    ``last`` + its top-(w_free - 1) keyframes by covisibility weight; fixed
+    set = the top-w_fixed other keyframes by the number of the free set's
+    points they observe. Slot 0 (the gauge root) is always fixed, and the
+    weakest free entries are demoted until >= 2 cameras are fixed (mono
+    gauge). Ties rank the lower slot first, as ``lax.top_k`` does.
+
+    Returns (window_ids [w_free + w_fixed] int32, fixed_mask, entry_valid)."""
+    K = m.K
+    dev = m.kf_valid.device
+    valid = m.kf_valid
+    row = covisibility(m)[last].to(torch.float32)
+    row = torch.where(valid, row, torch.full_like(row, -float("inf")))
+    row[last] = float("inf")  # the current keyframe always leads the window
+    fv, fids = top_k(row, w_free)
+    f_ok = fv > 0.0  # self, or shares >= 1 point
+    obsM = obs_matrix(m)  # [K,P]
+    free_k = torch.zeros((K,), dtype=torch.bool, device=dev)
+    free_k[fids] = f_ok  # top-k indices are distinct
+    local_pts = torch.any(obsM & free_k[:, None], dim=0)  # [P]
+    fx_score = torch.sum(obsM & local_pts[None, :], dim=-1).to(torch.float32)
+    fx_score = torch.where(valid & ~free_k, fx_score, torch.full_like(fx_score, -float("inf")))
+    xv, xids = top_k(fx_score, w_fixed)
+    x_ok = xv > 0.0
+    fixed_free0 = (fids == 0) & f_ok
+    n_anchor = torch.sum(x_ok, dtype=torch.int32) + torch.sum(fixed_free0, dtype=torch.int32)
+    n_free = torch.sum(f_ok, dtype=torch.int32)
+    need = torch.clamp(2 - n_anchor, min=0)
+    pos = torch.arange(w_free, device=dev)
+    demote = f_ok & ~fixed_free0 & (pos > 0) & (pos >= n_free - need)
+    window_ids = torch.cat([fids, xids]).to(torch.int32)
+    fixed_mask = torch.cat([fixed_free0 | demote, torch.ones((w_fixed,), dtype=torch.bool, device=dev)])
+    entry_valid = torch.cat([f_ok, x_ok])
+    return window_ids, fixed_mask, entry_valid
+
+
+def build_local_ba(
+    m: MapState,
+    window_ids: torch.Tensor,  # [W] int32 keyframe ids (free + fixed)
+    fixed_mask: torch.Tensor,  # [W] bool
+    cam_params: torch.Tensor,
+    scale: float = 1.2,
+    bf: float = 0.0,
+    entry_valid: torch.Tensor | None = None,
+):
+    """Gather the window into a fixed-capacity BA problem: one edge per
+    (window keyframe, feature) slot with a bound live point, the observed
+    points compacted into P_BA slots in index order (edges beyond P_BA are
+    masked out).
+
+    Returns (BAProblem, sel [P_BA] int32): ``sel`` maps compact slots back
+    to point ids, P for unused slots."""
+    W = window_ids.shape[0]
+    N, P = m.N, m.P
+    dev = m.kf_obs.device
+    wid = window_ids.long()
+    cam_ok = m.kf_valid[wid]
+    if entry_valid is not None:
+        cam_ok = cam_ok & entry_valid  # dead entries: no camera, no edges
+    obs = m.kf_obs[wid].reshape(-1)  # [W*N]
+    pt_idx = torch.clamp(obs, 0, P - 1).long()
+    edge_valid = (
+        (obs >= 0)
+        & m.kf_feat_valid[wid].reshape(-1)
+        & cam_ok.repeat_interleave(N)
+        & m.pt_valid[pt_idx]
+    )
+    inv_sigma2 = 1.0 / scale ** (2.0 * m.kf_level[wid].reshape(-1).to(torch.float32))
+    # Compact the observed points into P_BA slots: the observed ids in
+    # ascending order (a stable sort of the unobserved flag, which needs
+    # no host sync), padded with P.
+    mark = torch.zeros((P,), dtype=torch.int32, device=dev).index_add_(
+        0, pt_idx, edge_valid.to(torch.int32)
+    ) > 0
+    order = torch.argsort((~mark).to(torch.uint8), stable=True)[:P_BA].to(torch.int32)
+    sel = torch.full((P_BA,), P, dtype=torch.int32, device=dev)
+    sel[: order.shape[0]] = order
+    slot_valid = torch.arange(P_BA, device=dev) < torch.sum(mark)
+    sel = torch.where(slot_valid, sel, P)
+    # inverse map point id -> compact slot; the pad slots all write -1 at P
+    inv = torch.full((P + 1,), -1, dtype=torch.int32, device=dev)
+    inv[sel.long()] = torch.where(slot_valid, torch.arange(P_BA, dtype=torch.int32, device=dev), -1)
+    pt_c = inv[pt_idx]  # -1 for unobserved / overflow
+    edge_valid = edge_valid & (pt_c >= 0)
+    prob = ba.BAProblem(
+        R=m.kf_R[wid],
+        t=m.kf_t[wid],
+        cam_fixed=fixed_mask,
+        cam_valid=cam_ok,
+        X=m.pt_X[torch.clamp(sel, 0, P - 1).long()],
+        pt_valid=slot_valid,
+        cam_idx=torch.arange(W, dtype=torch.int32, device=dev).repeat_interleave(N),
+        pt_idx=torch.clamp(pt_c, 0, P_BA - 1),
+        uv=m.kf_xy[wid].reshape(-1, 2),
+        inv_sigma2=inv_sigma2,
+        edge_valid=edge_valid,
+        cam_params=cam_params,
+        ur=m.kf_ur[wid].reshape(-1),
+        bf=torch.as_tensor(bf, dtype=m.kf_t.dtype, device=dev),
+    )
+    return prob, sel
+
+
+def _live_ids(m: MapState, window_ids, entry_valid):
+    """Window ids as int64 write indices, dead entries routed to K."""
+    ids = window_ids.long()
+    if entry_valid is not None:
+        ids = torch.where(entry_valid, ids, m.K)
+    return ids
+
+
+def _write_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table`` with ``rows`` written at ``ids``, writes at index
+    len(table) dropped (the spare row of a one-row-longer buffer)."""
+    buf = torch.cat([table, table[:1]])
+    buf[ids] = rows
+    return buf[:-1]
+
+
+def apply_local_ba(
+    m: MapState,
+    window_ids: torch.Tensor,
+    sel: torch.Tensor,
+    res: ba.BAResult,
+    entry_valid: torch.Tensor | None = None,
+) -> MapState:
+    """Scatter the optimized poses and compacted points back into the map
+    (pad slots of ``sel`` and dead window entries are dropped)."""
+    ids = _live_ids(m, window_ids, entry_valid)
+    return m._replace(
+        kf_R=_write_rows(m.kf_R, ids, res.R),
+        kf_t=_write_rows(m.kf_t, ids, res.t),
+        pt_X=_write_rows(m.pt_X, sel.long(), res.X),
+    )
+
+
+def local_ba(m: MapState, window, cam_params: torch.Tensor, n_iters: int, bf: float = 0.0):
+    """One local BA over ``window`` = (window_ids, fixed_mask, entry_valid
+    or None): build the problem, solve it (stopping at rel_tol 1e-3),
+    write the poses and points back, unbind the outlier observations.
+    Returns (map, LM iterations run)."""
+    window_ids, fixed_mask, entry_valid = window
+    prob, sel = build_local_ba(m, window_ids, fixed_mask, cam_params, bf=bf, entry_valid=entry_valid)
+    res = ba.bundle_adjust(prob, n_iters=n_iters, rel_tol=1e-3)
+    m = apply_local_ba(m, window_ids, sel, res, entry_valid)
+    return drop_ba_outlier_obs(m, window_ids, res, entry_valid), res.iters
+
+
+def drop_ba_outlier_obs(
+    m: MapState,
+    window_ids: torch.Tensor,
+    res: ba.BAResult,
+    entry_valid: torch.Tensor | None = None,
+) -> MapState:
+    """Unbind the observations whose BA edge ended as an outlier (the
+    reference erases them after local BA, Optimizer.cc:1438-1460). For a
+    bound observation, ~inlier means a chi2 outlier or a dead point: both
+    are cleared."""
+    W, N = window_ids.shape[0], m.N
+    ids = _live_ids(m, window_ids, entry_valid)
+    obs_w = m.kf_obs[torch.clamp(ids, 0, m.K - 1)]
+    clear = ((obs_w.reshape(-1) >= 0) & ~res.inlier).reshape(W, N)
+    return m._replace(kf_obs=_write_rows(m.kf_obs, ids, torch.where(clear, -1, obs_w)))

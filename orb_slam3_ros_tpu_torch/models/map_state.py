@@ -5,7 +5,7 @@ with the JAX package's field names, dtypes and layouts. ``from_numpy`` /
 ``to_numpy`` carry it across packages: a map built or saved by the JAX
 package becomes a ``MapState`` here and back without conversion of meaning.
 Only the scatter formulation of ``obs_matrix`` is ported; the dense one was
-a TPU workaround.
+a TPU workaround. ``covisibility`` and ``point_obs_count`` derive from it.
 """
 
 from __future__ import annotations
@@ -104,6 +104,15 @@ def to_numpy(m: MapState) -> dict:
     return {k: getattr(m, k).detach().cpu().numpy() for k in MapState._fields}
 
 
+def kf_index(kf, device) -> torch.Tensor:
+    """Keyframe slot ``kf`` (an int or a 0-d tensor) as a 1-element int64
+    index for ``index_select`` / ``index_copy``. Indexing with a 0-d tensor
+    would read it back to the host (a sync on the card)."""
+    if isinstance(kf, torch.Tensor):
+        return kf.reshape(1).long()
+    return torch.full((1,), kf, dtype=torch.int64, device=device)
+
+
 def obs_matrix(m: MapState) -> torch.Tensor:
     """[K, P] bool: keyframe k observes point p (scatter formulation)."""
     K, N, P = m.K, m.N, m.P
@@ -115,3 +124,18 @@ def obs_matrix(m: MapState) -> torch.Tensor:
     out = torch.zeros((K * P,), dtype=torch.uint8, device=m.kf_obs.device)
     out.scatter_reduce_(0, flat, mask.reshape(-1).to(torch.uint8), "amax")
     return out.reshape(K, P).bool()
+
+
+def covisibility(m: MapState) -> torch.Tensor:
+    """[K, K] int32 shared-point counts (KeyFrame::UpdateConnections
+    weights), zero on the diagonal: one float32 matrix product over the
+    observation matrix, exact for counts below 2^24."""
+    obs = obs_matrix(m).to(torch.float32)
+    cov = obs @ obs.T
+    cov.fill_diagonal_(0.0)
+    return cov.to(torch.int32)
+
+
+def point_obs_count(m: MapState) -> torch.Tensor:
+    """[P] int32 number of keyframes observing each point."""
+    return torch.sum(obs_matrix(m), dim=0, dtype=torch.int32)

@@ -1,13 +1,21 @@
 """Monocular SLAM system facade — port of ``orb_slam3_ros_tpu.models.system.MonoSlam``
-cut to localization-mode tracking against a stored map (ORB-SLAM3's
-``System::LoadAtlas`` + ``ActivateLocalizationMode``).
+(the reference's ``System`` + ``Tracking`` state machine and the
+synchronous per-keyframe ``LocalMapping`` body).
 
-Per frame: constant-velocity pose prediction on the host, ORB extraction
-and coarse-to-fine tracking on ``device``, then one host read of (inliers,
-R, t). What is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item: two-view initialization (``NOT_INITIALIZED``),
-relocalization (``LOST``), keyframe insertion outside localization mode,
-and the pipelined one-frame-lag mode.
+State machine: NOT_INITIALIZED -> (two-view initialization) -> OK ->
+(tracking loss) -> LOST. Per frame: constant-velocity pose prediction on
+the host, ORB extraction and coarse-to-fine tracking on ``device``, one
+host read of (inliers, R, t); then the keyframe decision, and on a
+keyframe the mapping work (``kf_work.keyframe_work``) and one host read of
+(admitted points, refined pose). At capacity, culled keyframe slots are
+recycled by compaction. A map can also be loaded and tracked in
+localization mode (``set_map`` / ``load_map`` +
+``activate_localization_mode``).
+
+What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item: relocalization (``LOST``), the pipelined one-frame-lag mode, loop
+closing, the Atlas, the two-device split, cameras other than pinhole, and
+the ``on_frame`` / ``points_every`` observation hooks.
 """
 
 from __future__ import annotations
@@ -17,25 +25,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import orb
-from . import map_state, map_updates, tracking
+from ..ops import matching, orb, ransac
+from . import kf_work, local_mapping, map_state, map_updates, tracking
 
 NOT_INITIALIZED = 0
 OK = 1
 LOST = 2
-# An input gap longer than this (seconds) breaks the motion model
-# (the reference's 1.0 s check, Tracking.cc:1861).
-TS_JUMP_THRESHOLD = 1.0
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 item {item})")
 
 
 class MonoSlam:
     """Monocular pipeline (the reference's ``System(..., MONOCULAR)``).
 
-    Takes the JAX package's constructor arguments that the benchmark
-    configuration sets, plus ``device``. ``kf_every``, ``fuse_every``,
-    ``stats_every``, ``cull_every`` and ``transfer_uint8`` set the cadence
-    of the keyframe path and the chunk loop; they are kept on the object
-    and read by nothing until those paths are ported."""
+    Takes the JAX package's constructor arguments with its defaults, plus
+    ``device``; the options whose paths are not ported raise when set.
+    ``transfer_uint8`` sets the frame format of the chunk loop, which is not
+    ported; it is kept on the object."""
 
     def __init__(
         self,
@@ -45,21 +53,45 @@ class MonoSlam:
         n_features: int = 600,
         max_keyframes: int = 64,
         max_points: int = 8192,
+        ba_window: int = 8,
+        ba_fixed: int = 4,
         kf_every: int = 5,
+        kf_min_inliers: int = 60,
+        kf_ref_ratio: float = 0.5,
+        local_ba_iters: int = 6,
+        enable_loop_closing: bool = False,
+        enable_atlas: bool = False,
+        track_window: Optional[int] = None,
+        pipelined: bool = False,
+        fuse_neighbors: int = 1,
+        kf_culling: bool = True,
         fuse_every: int = 1,
         stats_every: int = 1,
         cull_every: int = 1,
+        track_schedule: Optional[tuple] = None,
         lean_after_kf: int = 12,
+        ts_jump_threshold: float = 1.0,
+        covis_ba: bool = True,
+        devices: Optional[tuple] = None,
         track_cap: Optional[int] = None,
         transfer_uint8: bool = False,
-        track_schedule: Optional[tuple] = None,
-        pipelined: bool = False,
+        points_every: int = 0,
+        cam_model: str = "pinhole",
+        seed: int = 0,
         device: str | torch.device = "cpu",
     ):
         if pipelined:
-            raise NotImplementedError(
-                "the pipelined one-frame-lag mode is not ported (ROADMAP Queue 1 item 9)"
-            )
+            raise _not_ported("the pipelined one-frame-lag mode", "9")
+        if enable_loop_closing:
+            raise _not_ported("loop closing", "11")
+        if enable_atlas:
+            raise _not_ported("the Atlas", "11")
+        if devices is not None:
+            raise _not_ported("the two-device tracking/mapping split", "9")
+        if cam_model != "pinhole":
+            raise _not_ported(f"camera model {cam_model!r}", "12")
+        if points_every:
+            raise _not_ported("the points_every observation hook", "13")
         self.device = torch.device(device)
         self.height, self.width = height, width
         self.cam_params = torch.as_tensor(np.asarray(cam_params, np.float32), device=self.device)
@@ -67,30 +99,58 @@ class MonoSlam:
         self.K_cap = max_keyframes
         self.P_cap = max_points
         self.N = self.config.total_cap
+        self.ba_window = ba_window
+        self.ba_fixed = ba_fixed
+        self.W = ba_window + ba_fixed
         self.kf_every = kf_every
-        self.fuse_every = fuse_every
-        self.stats_every = stats_every
-        self.cull_every = cull_every
+        self.kf_min_inliers = kf_min_inliers
+        self.kf_ref_ratio = kf_ref_ratio
+        self.local_ba_iters = local_ba_iters
+        self.track_window = track_window
+        self.fuse_neighbors = fuse_neighbors
+        self.kf_culling = kf_culling
+        self.fuse_every = max(1, fuse_every)
+        self.stats_every = max(1, stats_every)
+        self.cull_every = max(1, cull_every)
+        self.ts_jump_threshold = ts_jump_threshold
+        self.covis_ba = covis_ba
         self.transfer_uint8 = transfer_uint8
         self.track_cap = track_cap
         self._sched_dense = track_schedule or tracking.SCHEDULE_DENSE
         self._sched_lean = track_schedule or tracking.SCHEDULE_LEAN
         self.lean_after_kf = lean_after_kf
         self.localization_only = False
+        # Hypothesis draws of two-view initialization, on ``device``.
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
 
         self.state = NOT_INITIALIZED
         self.map = map_state.empty_map(self.K_cap, self.N, self.P_cap, device=self.device)
         self.n_kf = 0
         self.n_pts = 0
         self.frame_id = 0
+        self.last_kf_frame = 0
+        self._ref_kf_inl = 0  # inliers at the last keyframe insertion
         self._last_frame_ts = None
+        self._init_fail_count = 0
+        self._cap_retry_frame = -999
+        self.init_feats: Optional[orb.Features] = None
+        self.init_ts = 0.0
+        self.on_frame = None  # observation hook: not ported, must stay None
+        self.ba_iters = []  # local-BA iterations run, one entry per BA
 
         # Motion model (velocity = T_cur * T_last^-1), kept on the host.
         self.R_cur = np.eye(3, dtype=np.float32)
         self.t_cur = np.zeros(3, np.float32)
         self.vel_R = np.eye(3, dtype=np.float32)
         self.vel_t = np.zeros(3, np.float32)
-        self.trajectory = []  # (ts, Twc 4x4)
+        self._ref_cache = None  # (ref_kf_id, R_ref, t_ref) host copy
+        self.trajectory = []  # (ts, Twc 4x4) frozen at track time
+        # (ts, ref_kf, R_cr, t_cr): each frame's pose relative to its
+        # reference keyframe, so the final trajectory carries all later
+        # keyframe corrections (the reference's mlRelativeFramePoses).
+        self.rel_traj = []
+        self.frozen_traj = []  # absolute poses of frames whose ref keyframe went
 
     # ------------------------------------------------------------------
     def set_map(self, m: map_state.MapState, n_kf: int, n_pts: int, R_cw, t_cw) -> None:
@@ -109,6 +169,8 @@ class MonoSlam:
         self.t_cur = np.asarray(t_cw, np.float32)
         self.vel_R = np.eye(3, dtype=np.float32)
         self.vel_t = np.zeros(3, np.float32)
+        self._ref_cache = None
+        self.last_kf_frame = self.frame_id
         self.state = OK
 
     def load_map(self, path: str) -> None:
@@ -117,14 +179,75 @@ class MonoSlam:
         from ..utils import checkpoint
 
         m, counters = checkpoint.load_map(path, device=self.device)
+        self.frame_id = int(counters.get("frame_id", 0))
         self.set_map(
             m, counters["n_kf"], counters["n_pts"], counters["R_cur"], counters["t_cur"]
         )
-        self.frame_id = int(counters.get("frame_id", 0))
 
     def activate_localization_mode(self) -> None:
         """Freeze the map: no keyframe insertion (``mbOnlyTracking``)."""
         self.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        """Resume full SLAM: the keyframe cadence re-arms from this frame."""
+        self.localization_only = False
+        self.last_kf_frame = self.frame_id
+        self._ref_kf_inl = 0
+
+    # ------------------------------------------------------------------
+    def _set_ref_cache(self, ref_id, R_ref, t_ref):
+        """Host copy of the reference keyframe's pose: it changes only at
+        keyframe events, so the per-frame log never reads the device."""
+        self._ref_cache = (int(ref_id), np.asarray(R_ref), np.asarray(t_ref))
+
+    def _pose_mat(self) -> np.ndarray:
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = self.R_cur.T
+        T[:3, 3] = -self.R_cur.T @ self.t_cur
+        return T
+
+    def _log_pose(self, ts: float) -> None:
+        Rcw, tcw = self.R_cur, self.t_cur
+        self.trajectory.append((ts, self._pose_mat()))
+        if self.n_kf > 0:
+            ref = self.n_kf - 1
+            if self._ref_cache is None or self._ref_cache[0] != ref:
+                R_ref = self.map.kf_R[ref].cpu().numpy()
+                t_ref = self.map.kf_t[ref].cpu().numpy()
+                self._set_ref_cache(ref, R_ref, t_ref)
+            _, R_ref, t_ref = self._ref_cache
+            R_cr = Rcw @ R_ref.T  # T_cr = Tcw_frame * Twc_ref
+            self.rel_traj.append((ts, ref, R_cr, tcw - R_cr @ t_ref))
+
+    @staticmethod
+    def _compose(R_cr, t_cr, R_ref, t_ref) -> np.ndarray:
+        Rcw = R_cr @ R_ref
+        tcw = R_cr @ t_ref + t_cr
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Rcw.T
+        T[:3, 3] = -Rcw.T @ tcw
+        return T
+
+    def _compose_rel(self):
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        return [
+            (ts, self._compose(R_cr, t_cr, kf_R[ref], kf_t[ref]))
+            for ts, ref, R_cr, t_cr in self.rel_traj
+        ]
+
+    def _freeze_rel_traj(self):
+        """Flush the relative frame log into absolute poses."""
+        self.frozen_traj.extend(self._compose_rel())
+        self.rel_traj = []
+
+    def get_trajectory(self):
+        """[(ts, Twc 4x4)] of the tracked frames, recomposed against the
+        current keyframe poses (the reference's SaveTrajectoryEuRoC): every
+        later BA correction of a frame's reference keyframe applies."""
+        if not self.rel_traj and not self.frozen_traj:
+            return list(self.trajectory)
+        return list(self.frozen_traj) + self._compose_rel()
 
     # ------------------------------------------------------------------
     def _current_schedule(self) -> tuple:
@@ -136,41 +259,125 @@ class MonoSlam:
         return self._sched_lean
 
     def _check_ts_jump(self, ts: float) -> None:
-        """An input gap longer than TS_JUMP_THRESHOLD breaks the motion
+        """An input gap longer than ``ts_jump_threshold`` breaks the motion
         model: tracking drops to LOST (there is no Atlas)."""
         last = self._last_frame_ts
         self._last_frame_ts = ts
-        if last is not None and self.state == OK and ts - last > TS_JUMP_THRESHOLD:
+        if last is not None and self.state == OK and ts - last > self.ts_jump_threshold:
             self.state = LOST
 
     def process_frame(self, img, ts: float):
-        """Track one grayscale frame ([H, W], numpy or a tensor, values in
-        [0, 255]). Returns Twc [4, 4] (numpy), or None if tracking is lost."""
+        """Process one grayscale frame ([H, W], numpy or a tensor, values in
+        [0, 255]). Returns Twc [4, 4] (numpy), or None while initializing
+        or when tracking is lost."""
+        if self.on_frame is not None:
+            raise _not_ported("the on_frame observation hook", "13")
         self._check_ts_jump(ts)
-        if self.state == NOT_INITIALIZED:
-            raise NotImplementedError(
-                "monocular initialization is not ported (ROADMAP Queue 1 item 8); "
-                "load a map with set_map or load_map first"
-            )
         if self.state == LOST:
-            raise NotImplementedError(
-                "relocalization after loss is not ported (ROADMAP Queue 1 item 11)"
-            )
-        R_pred = self.vel_R @ self.R_cur
-        t_pred = self.vel_R @ self.t_cur + self.vel_t
+            raise _not_ported("relocalization after loss", "11")
         dev = self.device
         feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
-        res = tracking.track_against_map(
-            self.map, feats, torch.as_tensor(R_pred, device=dev),
-            torch.as_tensor(t_pred, device=dev), self.cam_params,
-            self.width, self.height, schedule=self._current_schedule(),
-            track_cap=self.track_cap,
-        )
-        out = self._track_post(res, ts)
+        if self.state == NOT_INITIALIZED:
+            out = self._try_initialize(feats, ts)
+        else:
+            R_pred = self.vel_R @ self.R_cur
+            t_pred = self.vel_R @ self.t_cur + self.vel_t
+            pt_mask = None
+            if self.track_window is not None:
+                pt_mask = self.map.pt_first_kf >= (self.n_kf - self.track_window)
+            res = tracking.track_against_map(
+                self.map, feats, torch.as_tensor(R_pred, device=dev),
+                torch.as_tensor(t_pred, device=dev), self.cam_params,
+                self.width, self.height, pt_mask=pt_mask,
+                schedule=self._current_schedule(), track_cap=self.track_cap,
+            )
+            out = self._track_post(feats, res, ts)
         self.frame_id += 1
         return out
 
-    def _track_post(self, res, ts):
+    # ------------------------------------------------------------------
+    def _try_initialize(self, feats: orb.Features, ts: float):
+        """Two-view initialization (Tracking::MonocularInitialization): the
+        first frame with > 100 features becomes the reference; each later
+        frame is matched against it and, with >= 60 matches, reconstructed
+        by H/F RANSAC. The reference frame moves on after too few matches
+        or three failed reconstructions in a row."""
+        if self.init_feats is None:
+            if int(feats.valid.sum()) > 100:
+                self.init_feats = feats
+                self.init_ts = ts
+            return None
+        idx, _ = matching.search_for_initialization(self.init_feats, feats, window=100.0)
+        matched = idx >= 0
+        if int(matched.sum()) < 60:
+            self.init_feats = feats
+            self.init_ts = ts
+            return None
+        xy2 = feats.xy[torch.clamp(idx, min=0).long()]
+        res = ransac.two_view_init(
+            self.init_feats.xy, xy2, matched, self.cam_params, self.generator
+        )
+        if not bool(res.ok) or int(res.n_good) < 50:
+            self._init_fail_count += 1
+            if self._init_fail_count >= 3:
+                self.init_feats = feats
+                self.init_ts = ts
+                self._init_fail_count = 0
+            return None
+        self._init_fail_count = 0
+        self._create_initial_map(feats, ts, idx.cpu().numpy(), res)
+        self.state = OK
+        self._log_pose(ts)
+        return self._pose_mat()
+
+    def _create_initial_map(self, feats, ts, idx: np.ndarray, res: ransac.TwoViewResult):
+        """Two keyframes and the triangulated points, scaled to median depth
+        1 (Tracking::CreateInitialMapMonocular), then a 20-iteration BA of
+        the initial map with keyframe 0 fixed."""
+        good = res.good.cpu().numpy()
+        X1 = res.X1.cpu().numpy()  # points in the cam-1 (first keyframe) frame
+        s = 1.0 / max(float(np.median(X1[good][:, 2])), 1e-6)
+        R21 = res.R21.cpu().numpy()
+        t21 = res.t21.cpu().numpy() * s
+        n_new = int(good.sum())
+        src_feat1 = np.where(good)[0]  # feature index in keyframe 0
+        src_feat2 = idx[src_feat1]  # feature index in keyframe 1
+        dev = self.device
+        obs0 = np.full((self.N,), -1, np.int32)
+        obs1 = np.full((self.N,), -1, np.int32)
+        obs0[src_feat1] = np.arange(n_new, dtype=np.int32)
+        obs1[src_feat2] = np.arange(n_new, dtype=np.int32)
+        f1 = self.init_feats
+        m = self.map
+        # Keyframe 0 at the identity (world = first camera frame), keyframe
+        # 1 at (R21, t21); in place on the empty map.
+        map_updates.insert_keyframe(
+            m, 0, torch.eye(3, device=dev), torch.zeros(3, device=dev), self.init_ts,
+            f1, torch.as_tensor(obs0, device=dev),
+        )
+        map_updates.insert_keyframe(
+            m, 1, torch.as_tensor(R21, device=dev), torch.as_tensor(t21, device=dev), ts,
+            feats, torch.as_tensor(obs1, device=dev),
+        )
+        src = torch.as_tensor(src_feat1, device=dev).long()
+        m.pt_valid[:n_new] = True
+        m.pt_X[:n_new] = torch.as_tensor(X1[good] * s, device=dev)
+        m.pt_desc_sign[:n_new] = f1.desc_sign[src]
+        m.pt_level[:n_new] = f1.level[src]
+        m.pt_first_kf[:n_new] = 0
+        self.n_kf = 2
+        self.n_pts = n_new
+        self.last_kf_frame = self.frame_id
+        self._run_local_ba(n_iters=20)
+        self.map = map_updates.refresh_point_stats(self.map, n_levels=self.config.n_levels)
+        self.R_cur = self.map.kf_R[1].cpu().numpy()
+        self.t_cur = self.map.kf_t[1].cpu().numpy()
+        self.vel_R = np.eye(3, dtype=np.float32)
+        self.vel_t = np.zeros(3, np.float32)
+        self._set_ref_cache(1, self.R_cur, self.t_cur)
+
+    # ------------------------------------------------------------------
+    def _track_post(self, feats, res, ts):
         # One host read per frame: inlier count + pose together.
         packed = torch.cat([res.n_inliers.reshape(1).to(res.t.dtype), res.R.reshape(-1), res.t])
         packed = packed.cpu().numpy()
@@ -187,29 +394,139 @@ class MonoSlam:
             self.map, res.visible_mask, res.found_mask
         )
         self._log_pose(ts)
-        self._need_keyframe(n_inl)
+        if self._need_keyframe(n_inl):
+            self._ref_kf_inl = n_inl
+            self._insert_keyframe(feats, ts, res)
         return self._pose_mat()
 
     def _need_keyframe(self, n_inl: int) -> bool:
-        """Localization mode never inserts keyframes (Tracking.cc:3105).
-        Full SLAM's keyframe decision waits for the keyframe path."""
+        """Simplified NeedNewKeyFrame (Tracking.cc:3103): periodic, or early
+        when tracking weakens (under ``kf_min_inliers``, or under
+        ``kf_ref_ratio`` of the last keyframe's inliers); never from a
+        nearly lost pose, never in localization mode. At capacity, slots
+        are recycled first (``_make_room``)."""
         if self.localization_only:
             return False
-        raise NotImplementedError(
-            "keyframe insertion is not ported (ROADMAP Queue 1 item 7); "
-            "call activate_localization_mode to track a stored map"
+        if self.n_kf >= self.K_cap and not self._make_room():
+            return False
+        since = self.frame_id - self.last_kf_frame
+        if n_inl <= 15:
+            return False
+        weak = n_inl < self.kf_min_inliers or (
+            self.kf_ref_ratio > 0.0
+            and self._ref_kf_inl > 0
+            and n_inl < self.kf_ref_ratio * self._ref_kf_inl
+        )
+        return since >= self.kf_every or (weak and since >= 2)
+
+    def _make_room(self) -> bool:
+        """Recycle culled keyframe slots by compaction; if the live map
+        fills the capacity, first cull the most redundant keyframe at a
+        relaxed bar, or else evict the one least covisible with the recent
+        window. Returns True if a slot is free; a failed attempt backs off
+        for 10 frames."""
+        if self.frame_id - self._cap_retry_frame < 10:
+            return False
+        if int(self.map.kf_valid.sum()) >= self.K_cap:
+            self.map, n_c = map_updates.cull_keyframes(
+                self.map, self.n_kf, redundancy=0.5, n_levels=self.config.n_levels
+            )
+            if int(n_c) == 0:
+                self.map, n_c = map_updates.evict_one_keyframe(self.map, self.n_kf)
+                if int(n_c) == 0:
+                    self._cap_retry_frame = self.frame_id
+                    return False
+        self._compact_kf_slots()
+        ok = self.n_kf < self.K_cap
+        if not ok:
+            self._cap_retry_frame = self.frame_id
+        return ok
+
+    def _compact_kf_slots(self):
+        """Squeeze culled keyframe holes out of the map and remap the
+        relative trajectory log; entries whose reference keyframe was
+        culled freeze at its final pose."""
+        valid = self.map.kf_valid.cpu().numpy()
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        m2, n_valid, order = map_updates.compact_keyframes(self.map)
+        order = order.cpu().numpy()
+        n_valid = int(n_valid)
+        new_of_old = np.full((self.K_cap,), -1, np.int32)
+        new_of_old[order[:n_valid]] = np.arange(n_valid, dtype=np.int32)
+        new_rel = []
+        for ts, ref, R_cr, t_cr in self.rel_traj:
+            if valid[ref]:
+                new_rel.append((ts, int(new_of_old[ref]), R_cr, t_cr))
+            else:
+                self.frozen_traj.append((ts, self._compose(R_cr, t_cr, kf_R[ref], kf_t[ref])))
+        self.rel_traj = new_rel
+        self.map = m2
+        self.n_kf = n_valid
+        self._ref_cache = None
+
+    def _insert_keyframe(self, feats, ts, track_res):
+        """Insert the current frame as keyframe ``n_kf`` and run its mapping
+        work, then read back (admitted points, BA-refined pose) at once."""
+        kf_id = self.n_kf
+        dev = self.device
+        self.map, n_new, iters = kf_work.keyframe_work(
+            self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
+            torch.as_tensor(self.t_cur, device=dev), ts, feats, track_res.feat_pt,
+            self.n_pts, self.P_cap - self.n_pts, self.cam_params,
+            w_free=self.ba_window, w_fixed=self.ba_fixed,
+            n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
+            fuse_neighbors=self.fuse_neighbors,
+            do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
+            do_stats=kf_id % self.stats_every == 0,
+            do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
+            width=self.width, height=self.height,
+            window=None if self.covis_ba else self._temporal_window(kf_id + 1),
+        )
+        self.ba_iters.append(iters)
+        self.n_kf += 1
+        self.last_kf_frame = self.frame_id
+        buf = torch.cat([
+            n_new.to(torch.float32).reshape(1), self.map.kf_R[kf_id].reshape(9),
+            self.map.kf_t[kf_id],
+        ]).cpu().numpy()
+        self.n_pts += int(buf[0])
+        self.R_cur = buf[1:10].reshape(3, 3).copy()
+        self.t_cur = buf[10:13].copy()
+        self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
+
+    def _temporal_window(self, n_kf: int):
+        """The local-BA window of ``covis_ba=False`` over keyframe slots
+        [0, n_kf): the last ``ba_window`` free, the ``ba_fixed`` before them
+        fixed, slot 0 always fixed; with only slot 0 fixed, the oldest slot
+        of the window is fixed too (mono gauge). Padded with the empty last
+        slot to ``ba_window + ba_fixed`` entries. Returns (window_ids,
+        fixed_mask, None)."""
+        free_lo = max(0, n_kf - self.ba_window)
+        fix_lo = max(0, free_lo - self.ba_fixed)
+        ids = list(range(fix_lo, n_kf))
+        fixed = [i < free_lo or i == 0 for i in ids]
+        if sum(fixed) == (1 if 0 in ids else 0):
+            fixed[0] = True
+        pad = self.W - len(ids)
+        if pad > 0:
+            ids = ids + [self.K_cap - 1] * pad  # an empty slot (kf_valid False)
+            fixed = fixed + [True] * pad
+        dev = self.device
+        return (
+            torch.as_tensor(np.asarray(ids[: self.W], np.int32), device=dev),
+            torch.as_tensor(np.asarray(fixed[: self.W], bool), device=dev),
+            None,
         )
 
-    def _pose_mat(self) -> np.ndarray:
-        T = np.eye(4, dtype=np.float32)
-        T[:3, :3] = self.R_cur.T
-        T[:3, 3] = -self.R_cur.T @ self.t_cur
-        return T
-
-    def _log_pose(self, ts: float) -> None:
-        self.trajectory.append((ts, self._pose_mat()))
-
-    def get_trajectory(self):
-        """[(ts, Twc 4x4)] of the tracked frames. The map is frozen, so no
-        later keyframe correction can move a logged pose."""
-        return list(self.trajectory)
+    def _run_local_ba(self, n_iters: int) -> None:
+        """Local BA around the newest keyframe: the covisibility window
+        (``covis_ba``) or the temporal one."""
+        if self.covis_ba:
+            window = local_mapping.select_covis_window(
+                self.map, self.n_kf - 1, self.ba_window, self.ba_fixed
+            )
+        else:
+            window = self._temporal_window(self.n_kf)
+        self.map, iters = local_mapping.local_ba(self.map, window, self.cam_params, n_iters)
+        self.ba_iters.append(iters)

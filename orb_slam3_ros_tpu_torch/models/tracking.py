@@ -1,6 +1,7 @@
-"""Per-frame tracking against the map: coarse-to-fine project / match /
-pose-optimize passes — port of ``track_against_map`` and what it calls in
-``orb_slam3_ros_tpu.models.tracking``.
+"""Per-frame tracking against the map (coarse-to-fine project / match /
+pose-optimize passes) and new-landmark triangulation between keyframes —
+port of ``track_against_map``, ``triangulate_with_ref`` and what they call
+in ``orb_slam3_ros_tpu.models.tracking`` (pinhole camera).
 """
 
 from __future__ import annotations
@@ -9,9 +10,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cameras, hamming, matching, pose_opt
+from ..ops import cameras, hamming, matching, pose_opt, triangulate
 from ..ops.orb import Features
-from .map_state import MapState
+from ..ops.topk import top_k
+from .map_state import MapState, kf_index
 
 # Coarse-to-fine pass schedules: (radius_px, LM rounds, LM iters) per pass.
 SCHEDULE_DENSE = ((60.0, 2, 8), (12.0, 2, 8), (4.0, 3, 8))
@@ -89,23 +91,26 @@ def track_against_map(
     width: int,
     height: int,
     scale: float = 1.2,
+    pt_mask: torch.Tensor | None = None,
     schedule: tuple | None = None,
     track_cap: int | None = None,
 ) -> TrackResult:
     """Coarse-to-fine project/match/optimize against the point table.
 
-    ``schedule``: per-pass (radius_px, LM rounds, LM iters/round); the first
-    pass uses relaxed frustum gates. ``track_cap``: first cut the candidates
-    to the top ``track_cap`` points by visibility under the predicted pose,
-    ties toward recent points (the reference's local-map tracking). The cut
-    is a stable descending sort, so tied scores keep the lower point index
-    first as ``lax.top_k`` does; the order of the cut fixes the matcher's
+    ``pt_mask``: [P] bool, points that may be tracked (the system's
+    ``track_window``). ``schedule``: per-pass (radius_px, LM rounds, LM
+    iters/round); the first pass uses relaxed frustum gates.
+    ``track_cap``: first cut the candidates to the top ``track_cap`` points
+    by visibility under the predicted pose, ties toward recent points (the
+    reference's local-map tracking). Tied scores keep the lower point index
+    first, as ``lax.top_k`` does; the order of the cut fixes the matcher's
     row order and with it which row wins a tie. (The JAX package's
-    ``pt_mask`` serves its ``track_window`` option and ``cam_model`` its
-    fisheye path; neither is ported.)
+    ``cam_model`` serves its fisheye path, which is not ported.)
     """
     if schedule is None:
         schedule = SCHEDULE_DENSE
+    if pt_mask is not None:
+        m = m._replace(pt_valid=m.pt_valid & pt_mask)
     P_full = m.P
     sel = None
     if track_cap is not None and track_cap < P_full:
@@ -119,7 +124,7 @@ def track_against_map(
             + m.pt_valid.to(torch.float32)
             + m.pt_first_kf.to(torch.float32) / (P32 * 4.0)
         )
-        sel = torch.sort(score, descending=True, stable=True).indices[:track_cap]
+        sel = top_k(score, track_cap)[1]
         m = m._replace(
             pt_valid=m.pt_valid[sel],
             pt_X=m.pt_X[sel],
@@ -167,4 +172,85 @@ def track_against_map(
         n_inliers=res.n_inliers,
         visible_mask=visible_mask,
         found_mask=found_mask,
+    )
+
+
+class TriangulationResult(NamedTuple):
+    X_w: torch.Tensor  # [N,3] candidate world points (per new-keyframe feature)
+    ref_feat: torch.Tensor  # [N] int32 matched feature index in the ref keyframe
+    ok: torch.Tensor  # [N] passed all checks
+    n_new: torch.Tensor  # [] int32
+
+
+def kf_features(m: MapState, kf) -> Features:
+    """Keyframe ``kf``'s (int or 0-d tensor) stored features as a
+    ``Features`` (no response or packed descriptors: the searches do not
+    read them)."""
+    dev = m.kf_xy.device
+    k = kf_index(kf, dev)
+
+    def row(t):
+        return t.index_select(0, k)[0]
+
+    return Features(
+        xy=row(m.kf_xy), level=row(m.kf_level), angle=row(m.kf_angle),
+        response=torch.zeros((m.N,), dtype=m.kf_angle.dtype, device=dev),
+        desc_packed=torch.zeros((m.N, 8), dtype=torch.int32, device=dev),
+        desc_sign=row(m.kf_desc_sign), valid=row(m.kf_feat_valid),
+    )
+
+
+def triangulate_with_ref(
+    m: MapState,
+    new_kf: int,
+    ref_kf: int,
+    cam_params: torch.Tensor,
+    scale: float = 1.2,
+) -> TriangulationResult:
+    """Epipolar search + DLT new-landmark creation between the newest
+    keyframe and a reference keyframe (LocalMapping::CreateNewMapPoints,
+    reduced to one neighbour): cheirality, parallax and reprojection checks
+    in both views."""
+    f_new = kf_features(m, new_kf)
+    f_ref = kf_features(m, ref_kf)
+    R1, t1 = m.kf_R[new_kf], m.kf_t[new_kf]  # Tcw of new
+    R2, t2 = m.kf_R[ref_kf], m.kf_t[ref_kf]
+    # relative: x_ref = R21 x_new + t21 with 1 = new, 2 = ref
+    R21 = R2 @ R1.T
+    t21 = t2 - R21 @ t1
+    R12 = R21.T
+    t12 = -R21.T @ t21
+    K = triangulate.K_matrix(cam_params)
+    F12 = triangulate.fundamental_from_poses(K, K, R12, t12)
+    idx, _ = matching.search_for_triangulation(
+        f_new, f_ref, F12,
+        already_matched1=m.kf_obs[new_kf] >= 0,
+        already_matched2=m.kf_obs[ref_kf] >= 0,
+        scale=scale,
+    )
+    matched = idx >= 0
+    ridx = torch.clamp(idx, 0, m.N - 1)
+    xy_ref = f_ref.xy[ridx.long()]
+    rays1 = cameras.unproject_model(cam_params, f_new.xy)
+    rays2 = cameras.unproject_model(cam_params, xy_ref)
+    X1 = triangulate.triangulate_dlt(rays1, rays2, R21, t21)
+    X2 = X1 @ R21.T + t21
+    cospar = triangulate.parallax_cos(X1, -R21.T @ t21)
+    e1 = torch.sum((cameras.project_model(cam_params, X1) - f_new.xy) ** 2, -1)
+    e2 = torch.sum((cameras.project_model(cam_params, X2) - xy_ref) ** 2, -1)
+    sig2_1 = scale ** (2.0 * f_new.level.to(torch.float32))
+    sig2_2 = scale ** (2.0 * f_ref.level[ridx.long()].to(torch.float32))
+    ok = (
+        matched
+        & torch.all(torch.isfinite(X1), dim=-1)
+        & (X1[:, 2] > 0.02)
+        & (X2[:, 2] > 0.02)
+        & (cospar < 0.9998)
+        & (e1 < 5.991 * sig2_1)
+        & (e2 < 5.991 * sig2_2)
+    )
+    # world coords: X_w = R1^T (X1 - t1)
+    X_w = (X1 - t1) @ R1
+    return TriangulationResult(
+        X_w=X_w, ref_feat=ridx, ok=ok, n_new=torch.sum(ok, dtype=torch.int32)
     )

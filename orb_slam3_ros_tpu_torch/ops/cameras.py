@@ -1,5 +1,6 @@
 """Pinhole camera model in torch — port of the pinhole half of
-``orb_slam3_ros_tpu.ops.cameras``.
+``orb_slam3_ros_tpu.ops.cameras`` (projection, its Jacobian and the
+iterative unprojection).
 
 Parameter layout: ``[fx, fy, cx, cy, k1, k2, p1, p2, k3]`` (distortion
 zeros = none). Kannala-Brandt-8 waits for the fisheye slice: the
@@ -28,6 +29,24 @@ def pinhole_project(params: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
     return torch.stack([fx * xd + cx, fy * yd + cy], dim=-1)
+
+
+def pinhole_unproject(params: torch.Tensor, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Pixels [..., 2] -> normalized camera rays [..., 3] with z = 1, by
+    ``iters`` fixpoint iterations of the radial-tangential undistortion
+    (the cv::undistortPoints scheme)."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    k1, k2, p1, p2, k3 = params[4], params[5], params[6], params[7], params[8]
+    xd = (uv[..., 0] - cx) / fx
+    yd = (uv[..., 1] - cy) / fy
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (xd - dx) / radial, (yd - dy) / radial
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 
 def pinhole_project_jac(params: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -67,6 +86,12 @@ def project_model(params, X, model: str = "pinhole"):
 def project_jac_model(params, X, model: str = "pinhole"):
     _pinhole_only(model)
     return pinhole_project_jac(params, X)
+
+
+def unproject_model(params, uv, model: str = "pinhole"):
+    """Pixels -> normalized rays (z = 1) under ``model``."""
+    _pinhole_only(model)
+    return pinhole_unproject(params, uv)
 
 
 def in_image(uv: torch.Tensor, width: int, height: int, margin: float = 0.0):

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .topk import top_k
+
 # Bresenham circle of radius 3, OpenCV ordering, as (dy, dx).
 CIRCLE_OFFSETS = np.array(
     [
@@ -81,9 +83,8 @@ def select_grid(score: torch.Tensor, post_mask: torch.Tensor, max_kp: int, cell:
     """NMS + one best corner per cell + the top ``max_kp`` cells.
 
     ``score`` is -inf outside the image's true extent; ``post_mask`` (the
-    descriptor border) applies after NMS. The top-k is a stable descending
-    sort, so tied scores keep the lower cell index first as ``lax.top_k``
-    does (``torch.topk`` promises no tie order).
+    descriptor border) applies after NMS. Tied scores keep the lower cell
+    index first, as ``lax.top_k`` does (``topk.top_k``).
 
     Returns (xy [max_kp, 2] f32, response [max_kp], valid [max_kp])."""
     h, w = score.shape
@@ -103,8 +104,7 @@ def select_grid(score: torch.Tensor, post_mask: torch.Tensor, max_kp: int, cell:
     )[:, 0]
 
     k = min(max_kp, flat_scores.shape[0])
-    order = torch.sort(flat_scores, descending=True, stable=True)
-    top_scores, top_cells = order.values[:k], order.indices[:k]
+    top_scores, top_cells = top_k(flat_scores, k)
     cy = top_cells // wc
     cx = top_cells % wc
     iy = best_in_cell[top_cells] // cell

@@ -24,8 +24,21 @@ def hamming_matrix(sign_a: torch.Tensor, sign_b: torch.Tensor) -> torch.Tensor:
     """[N, 256] int8 x [M, 256] int8 -> [N, M] int32 Hamming distances.
 
     All-zero rows (invalid features) land at distance 128."""
-    s = (sign_a.to(torch.float32) @ sign_b.to(torch.float32).T).to(torch.int32)
-    return torch.div(N_BITS - s, 2, rounding_mode="floor")
+    # 128 - dot / 2 in one product of the halved signs: every partial sum
+    # is a multiple of 0.5 below 2^24, so float32 is exact.
+    half = sign_a.to(torch.float32) * -0.5
+    bias = torch.full((), N_BITS / 2, dtype=torch.float32, device=sign_a.device)
+    return torch.addmm(bias, half, sign_b.to(torch.float32).T).to(torch.int32)
+
+
+def _best2(d: torch.Tensor):
+    """(best_idx, best, second) per row of an already masked matrix. The
+    second-best excludes only the argmin column: the two smallest values
+    of the row, a tie of the best counting twice."""
+    best_idx = torch.argmin(d, dim=1)  # first minimum
+    two = torch.topk(d, min(2, d.shape[1]), dim=1, largest=False).values
+    second = two[:, 1] if d.shape[1] > 1 else torch.full_like(two[:, 0], INVALID_DIST)
+    return best_idx, two[:, 0], second
 
 
 def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
@@ -34,22 +47,17 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     Returns (best_idx [N] int64, best [N], second [N]) with INVALID_DIST
     fills; ties in the best go to the lowest column, and the second-best
     excludes only that column."""
-    d = torch.where(mask, dist, torch.full_like(dist, INVALID_DIST))
-    best_idx = torch.argmin(d, dim=1)  # first minimum
-    best = torch.gather(d, 1, best_idx[:, None])[:, 0]
-    d2 = d.scatter(1, best_idx[:, None], INVALID_DIST)
-    second = torch.min(d2, dim=1).values
-    return best_idx, best, second
+    return _best2(torch.where(mask, dist, INVALID_DIST))
 
 
 def mutual_nn(dist: torch.Tensor, mask: torch.Tensor, max_dist: int = TH_LOW, ratio: float = 1.0):
     """Mutual nearest-neighbour matching with a Lowe ratio test.
 
     Returns (match_idx [N] int32, -1 if none; match_dist [N] int32)."""
-    best_idx, best, second = masked_best2(dist, mask)
+    d = torch.where(mask, dist, INVALID_DIST)
+    best_idx, best, second = _best2(d)
     ok = (best <= max_dist) & (best.to(torch.float32) <= ratio * second.to(torch.float32))
     # Mutual check: the row must also be the best for its matched column.
-    d = torch.where(mask, dist, torch.full_like(dist, INVALID_DIST))
     col_best_row = torch.argmin(d, dim=0)  # [M], first minimum
     rows = torch.arange(dist.shape[0], device=dist.device)
     ok = ok & (col_best_row[best_idx] == rows)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from . import linalg
+
 _EPS = 1e-8  # theta^2 threshold below which Taylor branches take over
 
 
@@ -82,8 +84,9 @@ def _det3(M: torch.Tensor) -> torch.Tensor:
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation onto SO(3) via SVD (the reference's
-    ``IMU::NormalizeRotation``)."""
-    u, _, vt = torch.linalg.svd(R)
+    ``IMU::NormalizeRotation``); NaN for a matrix with a non-finite entry
+    (an LM step from a failed Cholesky), as in the JAX package."""
+    u, _, vt = linalg.svd(R)
     det = _det3(u @ vt)
     one = torch.ones_like(det)
     fix = torch.stack([one, one, det], dim=-1)

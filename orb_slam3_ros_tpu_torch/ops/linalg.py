@@ -1,0 +1,41 @@
+"""``torch.linalg.eigh`` / ``svd`` with the JAX package's NaN semantics.
+
+``jnp.linalg.eigh`` and ``jnp.linalg.svd`` return NaN for a matrix with a
+non-finite entry; the torch functions raise. The solvers feed them such
+matrices on purpose: an LM step from a failed Cholesky, an IRLS weight of
+a non-finite residual. These wrappers solve a finite stand-in (the
+identity) for each such matrix of the batch and return NaN in its place,
+without reading anything back to the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _finite(A: torch.Tensor) -> torch.Tensor:
+    return torch.isfinite(A).all(dim=-1).all(dim=-1)
+
+
+def _stand_in(A: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+    return torch.where(ok[..., None, None], A, eye)
+
+
+def _nan_where_not(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    ok = ok.reshape(ok.shape + (1,) * (x.dim() - ok.dim()))
+    return torch.where(ok, x, torch.full_like(x, float("nan")))
+
+
+def eigh(A: torch.Tensor):
+    """(eigenvalues ascending, eigenvectors as columns) of symmetric [..., n, n]."""
+    ok = _finite(A)
+    w, v = torch.linalg.eigh(_stand_in(A, ok))
+    return _nan_where_not(ok, w), _nan_where_not(ok, v)
+
+
+def svd(A: torch.Tensor):
+    """(U, S, Vh) of [..., m, m]."""
+    ok = _finite(A)
+    u, s, vh = torch.linalg.svd(_stand_in(A, ok))
+    return _nan_where_not(ok, u), _nan_where_not(ok, s), _nan_where_not(ok, vh)

@@ -17,9 +17,10 @@ import torch
 
 from . import hamming
 
-# Kernel launches since import (or since a caller reset it): lets a run show
+# Kernel launches since import (or since a caller reset them), by call site
+# ("track": tracking's passes, "fuse": landmark fusion): lets a run show
 # that its main path went through the kernel.
-LAUNCHES = 0
+LAUNCHES = {"track": 0, "fuse": 0}
 
 _ROW_BITS = 20  # row index bits of the kernel's packed column words
 _LIB = None
@@ -53,12 +54,15 @@ def project_match_reference(
 
     Returns (match_idx [P] int32, -1 if none; match_dist [P] int32)."""
     dist = hamming.hamming_matrix(proj_sign, feat_sign)  # [P, N]
-    d2 = torch.sum((proj_uv[:, None, :] - feat_xy[None, :, :]) ** 2, dim=-1)
-    in_rad = d2 <= radius[:, None] ** 2
-    lvl_ok = (feat_level[None, :] >= proj_level[:, None] - level_slack) & (
-        feat_level[None, :] <= proj_level[:, None] + level_slack
-    )
-    mask = in_rad & lvl_ok & proj_valid[:, None] & feat_valid[None, :]
+    # Validity folds into the radius test: an invalid row's r^2 is -1,
+    # below any d^2, and an invalid feature sits at x = +inf.
+    r2 = torch.where(proj_valid, radius**2, -1.0)
+    fx = torch.where(feat_valid, feat_xy[:, 0], float("inf"))
+    dx = proj_uv[:, None, 0] - fx[None, :]
+    dy = proj_uv[:, None, 1] - feat_xy[None, :, 1]
+    in_rad = dx * dx + dy * dy <= r2[:, None]  # the sum over (x, y), unfused
+    lvl_ok = torch.abs(feat_level[None, :] - proj_level[:, None]) <= level_slack
+    mask = in_rad & lvl_ok
     return hamming.mutual_nn(dist, mask, max_dist=max_dist, ratio=ratio)
 
 
@@ -101,12 +105,14 @@ def project_match_cuda(
     proj_uv, proj_valid, proj_level, proj_sign, radius,
     feat_xy, feat_level, feat_valid, feat_sign,
     level_slack: int = 1, max_dist: int = hamming.TH_HIGH, ratio: float = 0.9,
+    site: str = "track",
 ):
     """Launch the kernel on the current stream: the masked best-2 search,
     the column argmins and the ``max_dist`` / ratio / mutual epilogue in one
-    host call. Returns (match_idx [P] int32, -1 if none; match_dist [P]
-    int32), equal to ``project_match_reference``."""
-    global LAUNCHES
+    host call, counted in ``LAUNCHES[site]``. Returns (match_idx [P] int32,
+    -1 if none; match_dist [P] int32), equal to ``project_match_reference``."""
+    if site not in LAUNCHES:
+        raise ValueError(f"unknown launch site {site!r}")
     tensors = dict(
         proj_uv=proj_uv, proj_valid=proj_valid, proj_level=proj_level,
         proj_sign=proj_sign, radius=radius, feat_xy=feat_xy,
@@ -129,7 +135,7 @@ def project_match_cuda(
         )
     if err != 0:
         raise RuntimeError(f"project_match kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LAUNCHES[site] += 1
     return out[0], out[1]
 
 
@@ -137,15 +143,18 @@ def project_match(
     proj_uv, proj_valid, proj_level, proj_sign, radius,
     feat_xy, feat_level, feat_valid, feat_sign,
     level_slack: int = 1, max_dist: int = hamming.TH_HIGH, ratio: float = 0.9,
+    site: str = "track",
 ):
     """(match_idx [P] int32, match_dist [P] int32) of the projection search.
 
     CPU tensors go through ``project_match_reference``; CUDA tensors through
-    the kernel (``project_match_cuda``), which raises on what it does not
-    take and never falls back."""
-    fn = project_match_reference if proj_uv.device.type == "cpu" else project_match_cuda
-    return fn(
+    the kernel (``project_match_cuda``, which counts the launch under
+    ``site``), which raises on what it does not take and never falls back."""
+    args = (
         proj_uv, proj_valid, proj_level, proj_sign, radius,
         feat_xy, feat_level, feat_valid, feat_sign,
-        level_slack=level_slack, max_dist=max_dist, ratio=ratio,
     )
+    kw = dict(level_slack=level_slack, max_dist=max_dist, ratio=ratio)
+    if proj_uv.device.type == "cpu":
+        return project_match_reference(*args, **kw)
+    return project_match_cuda(*args, **kw, site=site)

@@ -4,8 +4,9 @@ from __future__ import annotations
 
 import torch
 
-# Chi-square 95% quantile for 2 DoF (the reference's Optimizer.cc:1213).
-CHI2_MONO = 5.991
+# Chi-square 95% quantiles (the reference's Optimizer.cc:1213 and :1260).
+CHI2_MONO = 5.991  # 2 DoF
+CHI2_STEREO = 7.815  # 3 DoF
 
 
 def huber_weight(chi2: torch.Tensor, delta2: float) -> torch.Tensor:

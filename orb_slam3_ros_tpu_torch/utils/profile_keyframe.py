@@ -1,0 +1,215 @@
+"""Card profile of the monocular mapping path: one keyframe's work split
+by stage.
+
+    python -m orb_slam3_ros_tpu_torch.utils.profile_keyframe --out DIR
+
+Maps ``chip_smoke.py``'s mapping sequence (752x480, 1000 features,
+``bench.py``'s configuration, 120 frames) from frame 0 on the CUDA card.
+The first keyframe from slot 6 on that fuses, refreshes point statistics
+and culls runs under ``torch.profiler``, each stage of
+``kf_work.keyframe_work`` in a ``record_function`` range; every kernel is
+attributed to the stage whose range launched it. The next such keyframe
+is timed stage by stage with host clocks around synchronized calls. Last,
+one tracking frame runs under the profiler. Writes ``result.json``, the
+chrome traces and the profiler's tables to DIR and prints the result
+without the per-frame times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from ..models import kf_work, local_mapping, map_updates, system, tracking
+from ..ops import ba, project_match
+from . import synth
+
+# (stage, module, function): the stages keyframe_work calls, in order.
+STAGES = (
+    ("insert", map_updates, "insert_keyframe"),
+    ("triangulate", tracking, "triangulate_with_ref"),
+    ("admit", map_updates, "admit_new_points"),
+    ("fuse", map_updates, "fuse_in_neighbors"),
+    ("window", local_mapping, "select_covis_window"),
+    ("build_ba", local_mapping, "build_local_ba"),
+    ("ba", ba, "bundle_adjust"),
+    ("apply_ba", local_mapping, "apply_local_ba"),
+    ("drop_outliers", local_mapping, "drop_ba_outlier_obs"),
+    ("cull_points", map_updates, "cull_points"),
+    ("stats", map_updates, "refresh_point_stats"),
+    ("cull_kf", map_updates, "cull_keyframes"),
+)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+H, W, N_FRAMES = 480, 752, 120
+
+
+class _StageHooks:
+    """Replaces each stage function by a wrapper: a ``record_function``
+    range named ``stage::<stage>``, or, while ``times`` is a dict, host
+    clocks around the synchronized call."""
+
+    def __init__(self):
+        self.times = None
+        self._saved = []
+
+    def install(self):
+        for name, mod, attr in STAGES:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn))
+
+    def remove(self):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self._saved = []
+
+    def _wrap(self, name, fn):
+        def staged(*args, **kw):
+            if self.times is None:
+                with torch.profiler.record_function(f"stage::{name}"):
+                    return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.times[name] = self.times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        return staged
+
+
+def _profiled(fn, trace: Path, table: Path) -> float:
+    """Run ``fn()`` under the profiler inside a ``stage::total`` range;
+    export its chrome trace and op table. Returns the host wall ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("stage::total"):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(trace))
+    table.write_text(prof.key_averages().table(sort_by="cpu_time_total", row_limit=60))
+    return wall
+
+
+def stage_split(trace: Path) -> dict:
+    """Per ``stage::`` range of a chrome trace: host ms of the range, the
+    kernels launched from inside it, their device ms, and the host ms of
+    the CUDA API calls made inside it. A kernel counts in the innermost
+    range around the API call that launched it (matched by correlation
+    id); ``total`` counts everything."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = sorted(
+        ((e["ts"], e["ts"] + e["dur"], e["name"][len("stage::"):]) for e in events
+         if e.get("cat") == "user_annotation" and e["name"].startswith("stage::")),
+        key=lambda r: r[1] - r[0],
+    )  # innermost first
+    out = {name: dict(host_ms=0.0, launches=0, device_ms=0.0, api_ms=0.0) for *_, name in ranges}
+    for a, b, name in ranges:
+        out[name]["host_ms"] += (b - a) / 1e3
+
+    def owners(ts):
+        inner = next((r[2] for r in ranges if r[2] != "total" and r[0] <= ts <= r[1]), None)
+        return [n for n in (inner, "total") if n is not None and n in out]
+
+    api = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            for n in owners(e["ts"]):
+                out[n]["api_ms"] += e["dur"] / 1e3
+            if "correlation" in e.get("args", {}):
+                api[e["args"]["correlation"]] = e["ts"]
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        ts = api.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        for n in owners(ts):
+            out[n]["device_ms"] += e["dur"] / 1e3
+            out[n]["launches"] += e["cat"] == "kernel"
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", required=True, help="output directory")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_keyframe: no CUDA device", file=sys.stderr)
+        return 2
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    project_match.build()
+    seq = synth.make_sequence(n_frames=N_FRAMES, height=H, width=W, dt=0.1, seed=3, device="cuda")
+    # chip_smoke.py's mapping configuration (bench.py:60-66).
+    slam = system.MonoSlam(
+        height=H, width=W, cam_params=seq.cam_params, n_features=1000, max_keyframes=64,
+        max_points=4096, kf_every=8, fuse_every=3, stats_every=3, cull_every=3,
+        lean_after_kf=4, track_cap=768, pipelined=False, device="cuda",
+    )
+    result = {"card": card}
+    hooks = _StageHooks()
+    work = kf_work.keyframe_work
+
+    def hooked(*a, **kw):
+        kf_id = a[1]
+        full = kw["do_fuse"] and kw["do_stats"] and kw["do_cull"] and kf_id >= 6
+        if full and "profiled_kf" not in result:
+            box = []
+            wall = _profiled(lambda: box.append(work(*a, **kw)),
+                             out / "kf_trace.json", out / "kf_table.txt")
+            result["profiled_kf"] = dict(kf_id=kf_id, wall_ms=wall,
+                                         stages=stage_split(out / "kf_trace.json"))
+            return box[0]
+        if full and "timed_kf" not in result:
+            hooks.times = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = work(*a, **kw)
+            torch.cuda.synchronize()
+            result["timed_kf"] = dict(kf_id=kf_id, wall_ms=(time.perf_counter() - t0) * 1e3,
+                                      stages_ms=hooks.times)
+            hooks.times = None
+            return res
+        return work(*a, **kw)
+
+    hooks.install()
+    kf_work.keyframe_work = hooked
+    frame_ms = []
+    try:
+        for i in range(N_FRAMES):
+            t0 = time.perf_counter()
+            slam.process_frame(seq.images[i], float(seq.timestamps[i]))
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        # One more tracking frame, with no keyframe, under the profiler.
+        slam.activate_localization_mode()
+        wall = _profiled(
+            lambda: slam.process_frame(seq.images[-1], float(seq.timestamps[-1]) + 0.1),
+            out / "frame_trace.json", out / "frame_table.txt",
+        )
+    finally:
+        kf_work.keyframe_work = work
+        hooks.remove()
+    result["track_frame"] = dict(wall_ms=wall, **stage_split(out / "frame_trace.json")["total"])
+    result.update(n_kf=slam.n_kf, ba_iters=slam.ba_iters, frame_ms=frame_ms)
+    (out / "result.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps({k: v for k, v in result.items() if k != "frame_ms"}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

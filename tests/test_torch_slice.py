@@ -72,13 +72,16 @@ def test_unported_states_raise():
     cam = np.asarray([200, 200, 187.5, 119.5, 0, 0, 0, 0, 0], np.float32)
     slam = tsys.MonoSlam(cam_params=cam, **SLAM_KW)
     img = np.zeros((H, W), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.process_frame(img, 0.0)  # NOT_INITIALIZED: no two-view init
+    # NOT_INITIALIZED runs two-view initialization: a blank frame has no
+    # features, so it waits for a reference frame.
+    assert slam.process_frame(img, 0.0) is None and slam.state == tsys.NOT_INITIALIZED
+    assert slam.init_feats is None
     slam.state = tsys.LOST
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         slam.process_frame(img, 0.1)  # no relocalization
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.MonoSlam(cam_params=cam, **{**SLAM_KW, "pipelined": True})
+    for kw in ({"pipelined": True}, {"enable_loop_closing": True}, {"cam_model": "kb8"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsys.MonoSlam(cam_params=cam, **{**SLAM_KW, **kw})
     other = tsys.MonoSlam(cam_params=cam, **{**SLAM_KW, "max_points": 128})
     with pytest.raises(ValueError):
         slam.set_map(other.map, 0, 0, np.eye(3), np.zeros(3))

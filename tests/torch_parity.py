@@ -8,13 +8,17 @@ with one thread per test worker.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
+from orb_slam3_ros_tpu.models import kf_work as jkf
 from orb_slam3_ros_tpu.models import map_state as jms
 from orb_slam3_ros_tpu.models import map_updates as jmu
+from orb_slam3_ros_tpu.models.system import MonoSlam as JaxSlam
 from orb_slam3_ros_tpu.ops import stereo as jstereo
 from orb_slam3_ros_tpu_torch.models import map_state as tms
+from orb_slam3_ros_tpu_torch.ops import ba as tba
 from orb_slam3_ros_tpu_torch.ops import orb as torb
 
 
@@ -29,6 +33,47 @@ def torch_features(jf) -> torb.Features:
 
 def torch_map(jm) -> tms.MapState:
     return tms.from_numpy(np_tree(jm), "cpu")
+
+
+def torch_ba_problem(jp) -> tba.BAProblem:
+    return tba.ba_problem_from_numpy(np_tree(jp), "cpu")
+
+
+# The JAX package's keyframe work in its scatter formulation (row_n=None):
+# the formulation the port carries, so a parity test compares like with like.
+jax_keyframe_work = jax.jit(
+    jkf.keyframe_work_impl,
+    static_argnames=(
+        "w_free", "w_fixed", "n_iters", "row_n", "n_levels",
+        "fuse_neighbors", "do_fuse", "do_stats", "do_cull", "width", "height",
+    ),
+)
+
+
+def jax_mapping_run(seq, n_frames: int, **slam_kw):
+    """Run the JAX ``MonoSlam`` (``pipelined=False``) over the first
+    ``n_frames`` frames with its keyframe work in the scatter formulation,
+    recording each call. Its schedule warm-up is skipped (it only compiles
+    programs ahead of time). Returns (slam, calls) with calls a list of
+    (args, kwargs, (map_out, n_new)) in the JAX argument order."""
+    slam = JaxSlam(cam_params=seq.cam_params, pipelined=False, **slam_kw)
+    slam._warm_schedules = lambda: None
+    calls = []
+    original = jkf.keyframe_work
+
+    def record(*args, **kw):
+        kw = {**kw, "row_n": None}
+        out = jax_keyframe_work(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    jkf.keyframe_work = record
+    try:
+        for i in range(n_frames):
+            slam.process_frame(seq.images[i], float(seq.timestamps[i]))
+    finally:
+        jkf.keyframe_work = original
+    return slam, calls
 
 
 def jax_seed_map(seq, kf_every, slam, max_depth: float = 8.0):
