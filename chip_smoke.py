@@ -7,10 +7,19 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build: compiles the hand-written kernels from ``orb_slam3_ros_tpu_torch/csrc``;
   3. kernel vs plain: the projection matcher kernel against its plain torch
      version on the card at the tracking shapes (768 map points x 1032
-     features), exact equality with planted ties, and their median times;
-  4. fusion kernel: the same kernel at landmark fusion's shape and settings
-     (4096 map points x 1032 features, radius 3 * 1.2^level, max_dist 35,
-     ratio 1.0), exact with planted ties, and their median times;
+     features) at both radii of the lean schedule (60 and 4 px * 1.2^level),
+     exact equality with planted ties, also across every boundary of the
+     kernel's column splits; then their times: a call with its wrapper
+     (median of 100), the kernel's device time (100 launches queued behind
+     a spin kernel), the host's enqueue time, an empty launch's device time,
+     the bound from the shapes, and the kernels one call queues, by the
+     library's count of its own launches around that call (1 or 2 allowed);
+  4. fusion kernel: the same at landmark fusion's shape and settings (4096
+     map points x 1032 features, radius 3 * 1.2^level, max_dist 35, ratio
+     1.0); then odd shapes (rows that do not fill a block, columns that do
+     not fill a split, a group or even one group), all rows invalid, and
+     both shapes back to back in turns without a sync, which a workspace
+     left dirty would fail; each exact;
   5. slice: renders a 60-frame 752x480 sequence on the card, seeds a map
      from rendered depth at ground-truth keyframe poses, and tracks frames
      1..59 with ``MonoSlam`` in localization mode; requires no lost frame,
@@ -39,7 +48,12 @@ import numpy as np
 H, W, N_FEATURES, N_FRAMES, KF_EVERY = 480, 752, 1000, 60, 6
 P_TRACK = 768
 P_FUSE = 4096  # landmark fusion searches the whole point table
+N_SLOTS = 1032  # feature slots of 1000 features over 8 levels
 WARM = 5
+SPIN_CYCLES = 50_000_000  # ~25 ms of spin kernel: longer than queueing 100 calls takes
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT8_OPS_PER_S = 1979e12
+FUSE_KW = dict(max_dist=35, ratio=1.0)
 ATE_LIMIT = 0.01
 MAP_FRAMES, MAP_INIT_BY, MAP_MIN_KF, MAP_ATE_LIMIT = 120, 4, 12, 0.02
 
@@ -68,40 +82,158 @@ def cuda_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
-def search_inputs(seed: int, P: int, N: int, radius_px: float):
+def device_us(fn, calls: int = 100) -> float:
+    """Microseconds of device time a call of ``fn`` takes when the next is
+    already queued: the stream is held by a spin kernel while the host
+    queues every call, so the host's enqueue rate does not show."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / calls
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Microseconds the host spends to queue one call (no sync inside)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / calls
+
+
+def kernel_launches(lib, fn) -> int:
+    """Kernels of the matcher's library that one call of ``fn`` queues:
+    the library counts every launch it makes, read around a second call
+    (the first may also fill a new workspace)."""
+    import torch
+
+    fn()
+    before = lib.project_match_launches_queued()
+    fn()
+    queued = lib.project_match_launches_queued() - before
+    torch.cuda.synchronize()
+    return queued
+
+
+def search_inputs(seed: int, P: int, N: int, radius_px: float, all_invalid: bool = False):
     """The tests' projection-search case (``synth.make_search_case``: +-1
-    descriptors, octaves 0..7, planted ties) with radii of ``radius_px`` *
-    1.2^level px, as the matcher's nine input arrays."""
+    descriptors, octaves 0..7, planted ties, also across every boundary of
+    the kernel's column splits at this shape) with radii of ``radius_px`` *
+    1.2^level px, as the matcher's nine input tensors on the card."""
+    import torch
+
+    from orb_slam3_ros_tpu_torch.ops import project_match
     from orb_slam3_ros_tpu_torch.utils.synth import make_search_case
 
-    d = make_search_case(seed, P, N, W=W, H=H)
+    cols = project_match.build().project_match_split_cols(P, N)
+    d = make_search_case(seed, P, N, W=W, H=H, tie_columns=tuple(range(cols, N, cols)))
+    if all_invalid:
+        d["proj_valid"][:] = False
     radius = (radius_px * 1.2 ** d["proj_level"].astype(np.float32)).astype(np.float32)
-    return (d["proj_uv"], d["proj_valid"], d["proj_level"], d["proj_sign"], radius,
-            d["feat_xy"], d["feat_level"], d["feat_valid"], d["feat_sign"])
+    arrays = (d["proj_uv"], d["proj_valid"], d["proj_level"], d["proj_sign"], radius,
+              d["feat_xy"], d["feat_level"], d["feat_valid"], d["feat_sign"])
+    return [torch.from_numpy(a).to("cuda") for a in arrays]
+
+
+def kernel_vs_plain(torch, project_match, args, kw, what: str) -> tuple[int, int]:
+    """(max |diff|, matches) of one search by the kernel and by its plain
+    version; raises unless they are equal."""
+    ik, dk = project_match.project_match(*args, **kw)
+    ir, dr = project_match.project_match_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(int((ik - ir).abs().max()), int((dk - dr).abs().max()))
+    check(err == 0, f"kernel disagrees with its plain version at {what} (max |diff| {err})")
+    return err, int((ir >= 0).sum())
+
+
+def search_bound(torch, project_match, args, kw) -> dict:
+    """The least time the card could take for this search: every input read
+    once and every output written once at the HBM rate, against the int8
+    operations of the distances these inputs need (pairs inside a window x
+    256 multiply-adds) at the tensor-core rate."""
+    P, N = args[0].shape[0], args[5].shape[0]
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + 2 * P * 4
+    pairs = int(project_match._window_mask(
+        args[0], args[1], args[2], args[4], args[5], args[6], args[7],
+        kw.get("level_slack", 1)).sum())
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e6
+    by_ops = pairs * 256 * 2 / INT8_OPS_PER_S * 1e6
+    return dict(bound_us=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else
+                "operations", bytes=n_bytes, candidate_pairs=pairs)
 
 
 def phase_kernel(torch, project_match, P: int, radius_px: float, min_match: int, **kw) -> dict:
     """The kernel against its plain version on three seeded cases of P
     rows x 1032 features (launches outside the counted runs), then both
     timed on the last case. ``kw``: the search settings (max_dist, ratio)."""
-    dev = torch.device("cuda")
     max_err = 0
     for seed in range(3):
-        args = [torch.from_numpy(a).to(dev) for a in search_inputs(seed, P, 1032, radius_px)]
-        ik, dk = project_match.project_match(*args, **kw)
-        ir, dr = project_match.project_match_reference(*args, **kw)
-        torch.cuda.synchronize()
-        err = max(int((ik - ir).abs().max()), int((dk - dr).abs().max()))
-        n_match = int((ir >= 0).sum())
-        print(f"kernel vs plain at P={P}, seed {seed}: matches {n_match}, max |diff| {err}")
+        args = search_inputs(seed, P, N_SLOTS, radius_px)
+        err, n_match = kernel_vs_plain(torch, project_match, args, kw, f"P={P}, seed {seed}")
+        print(f"kernel vs plain at P={P}, radius {radius_px}, seed {seed}: matches {n_match}, "
+              f"max |diff| {err}")
         check(n_match > min_match, "the comparison case matched too little to mean anything")
         max_err = max(max_err, err)
-    check(max_err == 0, f"kernel disagrees with its plain version (max |diff| {max_err})")
-    ms = cuda_ms(lambda: project_match.project_match(*args, **kw), 100)
+    kernel = lambda: project_match.project_match(*args, **kw)  # noqa: E731
+    ms = cuda_ms(kernel, 100)
     plain_ms = cuda_ms(lambda: project_match.project_match_reference(*args, **kw), 100)
-    print(f"project_match at P={P} N=1032 {kw}: kernel {ms * 1e3:.1f} us, plain torch "
-          f"{plain_ms * 1e3:.1f} us (per call with its wrapper, median of 100, CUDA events)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    dev_us, enqueue_us = device_us(kernel), host_us(kernel)
+    queued = kernel_launches(project_match.build(), kernel)
+    check(1 <= queued <= 2, f"a search queued {queued} kernels, expected 1 or 2")
+    bound = search_bound(torch, project_match, args, kw)
+    print(f"project_match at P={P} N={N_SLOTS} radius {radius_px} {kw}: call with wrapper "
+          f"{ms * 1e3:.1f} us, plain torch {plain_ms * 1e3:.1f} us (median of 100, CUDA events "
+          f"around each); kernel device time {dev_us:.2f} us (100 queued launches); host enqueue "
+          f"{enqueue_us:.1f} us a call; bound {bound['bound_us']:.3f} us by {bound['bound_by']} "
+          f"({bound['bytes']} B, {bound['candidate_pairs']} candidate pairs); kernels a call "
+          f"queues, counted by the library: {queued}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, device_us=dev_us,
+                host_us=enqueue_us, kernel_launches=queued, **bound)
+
+
+def phase_kernel_edges(torch, project_match) -> int:
+    """Shapes and states that the two main shapes do not reach; each exact.
+    Returns the number of cases."""
+    odd = [  # P, N, radius, settings
+        (771, 1000, 4.0, {}), (1, N_SLOTS, 60.0, {}), (13, 17, 60.0, {}),
+        (4099, 1031, 3.0, FUSE_KW), (770, 33, 60.0, {}),
+    ]
+    for P, N, radius_px, kw in odd:
+        args = search_inputs(3, P, N, radius_px)
+        _, n_match = kernel_vs_plain(torch, project_match, args, kw, f"P={P}, N={N}")
+        print(f"kernel vs plain at odd shape P={P} N={N} radius {radius_px}: matches {n_match}, "
+              "max |diff| 0")
+    args = search_inputs(4, P_TRACK, N_SLOTS, 60.0, all_invalid=True)
+    _, n_match = kernel_vs_plain(torch, project_match, args, {}, "all rows invalid")
+    check(n_match == 0, "a search without a valid row matched something")
+    # 768, 4096, 768 rows, twice round, queued without a sync in between:
+    # every call must leave its workspace as it found it.
+    cases = [(search_inputs(5, P_TRACK, N_SLOTS, 60.0), {}),
+             (search_inputs(6, P_FUSE, N_SLOTS, 3.0), FUSE_KW),
+             (search_inputs(7, P_TRACK, N_SLOTS, 4.0), {})]
+    refs = [project_match.project_match_reference(*a, **kw) for a, kw in cases]
+    outs = [project_match.project_match(*a, **kw) for _ in range(2) for a, kw in cases]
+    torch.cuda.synchronize()
+    for (ik, dk), (ir, dr) in zip(outs, refs * 2):
+        check(torch.equal(ik, ir) and torch.equal(dk, dr),
+              "kernel disagrees with its plain version in back-to-back calls at alternating shapes")
+        check(int((ir >= 0).sum()) > 50, "an alternating-shape case matched too little")
+    print(f"kernel vs plain: {len(odd)} odd shapes, all rows invalid, {len(outs)} back-to-back "
+          "calls at alternating shapes: max |diff| 0")
+    return len(odd) + 1 + len(outs)
 
 
 def ate(slam, seq, frames, with_scale=False) -> float:
@@ -338,13 +470,25 @@ def main() -> int:
     t0 = time.perf_counter()
     project_match.build()
     print(f"build: project_match.cu compiled and loaded in {time.perf_counter() - t0:.1f} s")
+    spills = []
     for log in sorted(kernel_build.BUILD_ROOT.glob("project_match-*/build.log")):
         for line in log.read_text().splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            if "spill" in line or ("ptxas info" in line and ("Used" in line or "Compiling" in line)):
                 print(line.strip())
+            if "spill" in line:
+                spills.append("0 bytes spill stores, 0 bytes spill loads" in line)
+    check(spills and all(spills), "ptxas reports register spills (or no spill line at all)")
 
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = project_match.build()
+    empty_us = device_us(lambda: lib.project_match_empty_launch(stream))
+    queued = kernel_launches(lib, lambda: lib.project_match_empty_launch(stream))
+    check(queued == 1, f"the library counted {queued} launches for one empty launch")
+    print(f"empty kernel launch: {empty_us:.2f} us of device time (100 queued launches)")
     k = phase_kernel(torch, project_match, P_TRACK, 60.0, 50)
-    kf = phase_kernel(torch, project_match, P_FUSE, 3.0, 50, max_dist=35, ratio=1.0)
+    k4 = phase_kernel(torch, project_match, P_TRACK, 4.0, 50)
+    kf = phase_kernel(torch, project_match, P_FUSE, 3.0, 50, **FUSE_KW)
+    phase_kernel_edges(torch, project_match)
     s, state = phase_slice(torch, project_match)
     phase_cpu(torch, state)
     mp = phase_mapping(torch, project_match)
@@ -358,11 +502,29 @@ def main() -> int:
         "launches": mp["launches"]["track"] + mp["launches"]["fuse"],
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
-        "max_abs_err": max(k["max_abs_err"], kf["max_abs_err"]),
+        "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_us"] / 1e3,
+        "bound_by": k["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this search
         "fuse_ms": kf["ms"],
         "fuse_plain_ms": kf["plain_ms"],
+        "fuse_bound_ms": kf["bound_us"] / 1e3,
+        "r4_ms": k4["ms"],
+        "r4_plain_ms": k4["plain_ms"],
+        "device_us": k["device_us"],
+        "r4_device_us": k4["device_us"],
+        "fuse_device_us": kf["device_us"],
+        "host_us": k["host_us"],
+        "r4_host_us": k4["host_us"],
+        "fuse_host_us": kf["host_us"],
+        "bound_us": k["bound_us"],
+        "fuse_bound_us": kf["bound_us"],
+        "empty_launch_us": empty_us,
+        "kernel_launches_per_call": k["kernel_launches"],
+        "r4_kernel_launches_per_call": k4["kernel_launches"],
+        "fuse_kernel_launches_per_call": kf["kernel_launches"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -6,7 +6,9 @@ Both compute the contract of ``matching.search_by_projection``'s dense path
 in the JAX package (``hamming.masked_best2`` + ``hamming.mutual_nn``),
 exactly, ties included. ``project_match`` picks the route by where its
 tensors lie: CPU tensors take ``project_match_reference``; CUDA tensors
-always launch the kernel, or raise.
+always launch the kernel, or raise. A search on the card is one kernel
+launch and allocates only its output: the kernel's scratch state lives in
+a persistent workspace that every call leaves as it found it.
 """
 
 from __future__ import annotations
@@ -22,8 +24,17 @@ from . import hamming
 # that its main path went through the kernel.
 LAUNCHES = {"track": 0, "fuse": 0}
 
-_ROW_BITS = 20  # row index bits of the kernel's packed column words
+_IDX_BITS = 20  # index bits of the kernel's packed (dist, row) and (dist, column) words
+_IDX_MASK = (1 << _IDX_BITS) - 1
+_COL_INIT = hamming.INVALID_DIST << _IDX_BITS  # a column word no row has claimed
+_ROW_INIT = _COL_INIT | _IDX_MASK  # a row word no candidate has reached
 _LIB = None
+# One workspace per (device, stream, P, N): the kernel leaves it as it found
+# it, so a search allocates only its output. Calls on one stream run in
+# order; another stream gets its own. The newest _MAX_WORKSPACES are kept
+# (see ``_workspace`` for the cache's lifetime).
+_WORKSPACES: dict = {}
+_MAX_WORKSPACES = 32
 
 
 def build():
@@ -40,8 +51,36 @@ def build():
             + [ctypes.c_void_p] * 4
         )
         fn.restype = ctypes.c_int
+        for name in ("project_match_workspace_ints", "project_match_split_cols"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
+        lib.project_match_init_workspace.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.project_match_init_workspace.restype = ctypes.c_int
+        lib.project_match_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.project_match_empty_launch.restype = ctypes.c_int
+        lib.project_match_launches_queued.argtypes = []
+        lib.project_match_launches_queued.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _window_mask(
+    proj_uv, proj_valid, proj_level, radius, feat_xy, feat_level, feat_valid,
+    level_slack: int,
+):
+    """[P, N] bool: the pairs a search considers (both valid, inside the
+    row's radius, levels within ``level_slack``)."""
+    # Validity folds into the radius test: an invalid row's r^2 is -1,
+    # below any d^2, and an invalid feature sits at x = +inf.
+    r2 = torch.where(proj_valid, radius**2, -1.0)
+    fx = torch.where(feat_valid, feat_xy[:, 0], float("inf"))
+    dx = proj_uv[:, None, 0] - fx[None, :]
+    dy = proj_uv[:, None, 1] - feat_xy[None, :, 1]
+    in_rad = dx * dx + dy * dy <= r2[:, None]  # the sum over (x, y), unfused
+    lvl_ok = torch.abs(feat_level[None, :] - proj_level[:, None]) <= level_slack
+    return in_rad & lvl_ok
 
 
 def project_match_reference(
@@ -54,51 +93,151 @@ def project_match_reference(
 
     Returns (match_idx [P] int32, -1 if none; match_dist [P] int32)."""
     dist = hamming.hamming_matrix(proj_sign, feat_sign)  # [P, N]
-    # Validity folds into the radius test: an invalid row's r^2 is -1,
-    # below any d^2, and an invalid feature sits at x = +inf.
-    r2 = torch.where(proj_valid, radius**2, -1.0)
-    fx = torch.where(feat_valid, feat_xy[:, 0], float("inf"))
-    dx = proj_uv[:, None, 0] - fx[None, :]
-    dy = proj_uv[:, None, 1] - feat_xy[None, :, 1]
-    in_rad = dx * dx + dy * dy <= r2[:, None]  # the sum over (x, y), unfused
-    lvl_ok = torch.abs(feat_level[None, :] - proj_level[:, None]) <= level_slack
-    mask = in_rad & lvl_ok
+    mask = _window_mask(
+        proj_uv, proj_valid, proj_level, radius, feat_xy, feat_level, feat_valid, level_slack
+    )
     return hamming.mutual_nn(dist, mask, max_dist=max_dist, ratio=ratio)
 
 
+def split_ranges(N: int, splits: int) -> list[tuple[int, int]]:
+    """The contiguous column ranges the kernel's grid cuts N features into
+    when it aims at ``splits`` of them: equal widths, a multiple of 32, the
+    last range short (so fewer than ``splits`` ranges can come back)."""
+    groups = -(-N // 32)
+    cols = 32 * -(-groups // splits)
+    return [(c0, min(c0 + cols, N)) for c0 in range(0, N, cols)]
+
+
+def project_match_reference_split(
+    proj_uv, proj_valid, proj_level, proj_sign, radius,
+    feat_xy, feat_level, feat_valid, feat_sign,
+    level_slack: int = 1, max_dist: int = hamming.TH_HIGH, ratio: float = 0.9,
+    splits: int = 1,
+):
+    """The kernel's cross-block logic in plain torch: the search run apart
+    on each range of ``split_ranges(N, splits)``, then the kernel's merge
+    and finish. Every range with a candidate packs its best as a word
+    ``(dist << 20) | column`` and its second as ``(second << 20) | 0xFFFFF``;
+    a row's word 0 is the minimum of the best words, its word 1 the minimum
+    of every word that lost a minimum against word 0 and of the second
+    words (so a tie of two ranges' bests gives second == best and the lower
+    column); per-column words ``(dist << 20) | row`` are minimised over
+    rows; the max_dist / ratio / mutual tests read those words. Equal to
+    ``project_match_reference``; the tests hold the merge rule against it,
+    nothing on the main path calls it."""
+    dist = hamming.hamming_matrix(proj_sign, feat_sign).long()
+    mask = _window_mask(
+        proj_uv, proj_valid, proj_level, radius, feat_xy, feat_level, feat_valid, level_slack
+    )
+    P, N = dist.shape
+    rows = torch.arange(P, device=dist.device)
+    word0 = torch.full((P,), _ROW_INIT, dtype=torch.int64, device=dist.device)
+    word1 = word0.clone()
+    col_word = torch.empty((N,), dtype=torch.int64, device=dist.device)
+    for c0, c1 in split_ranges(N, splits):
+        d, m = dist[:, c0:c1], mask[:, c0:c1]
+        o_idx, o_best, o_second = hamming.masked_best2(d, m)
+        # A range without a candidate (or without a second) adds nothing:
+        # the initial word loses every minimum.
+        best_word = torch.where(
+            o_best < hamming.INVALID_DIST, (o_best << _IDX_BITS) | (o_idx + c0), _ROW_INIT
+        )
+        second_word = torch.where(
+            o_second < hamming.INVALID_DIST, (o_second << _IDX_BITS) | _IDX_MASK, _ROW_INIT
+        )
+        loser = torch.maximum(word0, best_word)
+        word0 = torch.minimum(word0, best_word)
+        word1 = torch.minimum(word1, torch.minimum(loser, second_word))
+        col_word[c0:c1] = torch.where(m, (d << _IDX_BITS) | rows[:, None], _COL_INIT).amin(dim=0)
+    best, second = word0 >> _IDX_BITS, word1 >> _IDX_BITS
+    # A row without a candidate reads column 0, as argmin over an empty row.
+    idx = torch.where(best < hamming.INVALID_DIST, word0 & _IDX_MASK, 0)
+    ok = (
+        (best <= max_dist)
+        & (best.to(torch.float32) <= ratio * second.to(torch.float32))
+        & ((col_word[idx] & _IDX_MASK) == rows)
+    )
+    return (
+        torch.where(ok, idx, -1).to(torch.int32),
+        torch.where(ok, best, hamming.INVALID_DIST).to(torch.int32),
+    )
+
+
 _SPEC = (
-    # name, dtype, trailing shape (None = the row count)
-    ("proj_uv", torch.float32, (2,)),
-    ("proj_valid", torch.bool, ()),
-    ("proj_level", torch.int32, ()),
-    ("proj_sign", torch.int8, (256,)),
-    ("radius", torch.float32, ()),
-    ("feat_xy", torch.float32, (2,)),
-    ("feat_level", torch.int32, ()),
-    ("feat_valid", torch.bool, ()),
-    ("feat_sign", torch.int8, (256,)),
+    # name, dtype, trailing shape, whether its rows are the P landmarks
+    ("proj_uv", torch.float32, (2,), True),
+    ("proj_valid", torch.bool, (), True),
+    ("proj_level", torch.int32, (), True),
+    ("proj_sign", torch.int8, (256,), True),
+    ("radius", torch.float32, (), True),
+    ("feat_xy", torch.float32, (2,), False),
+    ("feat_level", torch.int32, (), False),
+    ("feat_valid", torch.bool, (), False),
+    ("feat_sign", torch.int8, (256,), False),
 )
+_SIGN_ARGS = (3, 8)  # positions of proj_sign and feat_sign
 
 
-def _check(tensors: dict, P: int, N: int, device: torch.device) -> None:
-    for name, dtype, tail in _SPEC:
-        t = tensors[name]
-        rows = P if name.startswith("proj") or name == "radius" else N
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
+def _check(tensors, P: int, N: int, device: torch.device, level_slack: int = 0) -> None:
+    """Raise on what the kernel does not take. ``tensors``: the nine inputs
+    in ``_SPEC``'s order."""
+    for t, (name, dtype, tail, per_row) in zip(tensors, _SPEC):
         if t.dtype != dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
-        if tuple(t.shape) != (rows, *tail):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(rows, *tail)}")
+        if t.shape != ((P if per_row else N), *tail):
+            raise ValueError(
+                f"{name} has shape {tuple(t.shape)}, expected {((P if per_row else N), *tail)}"
+            )
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("proj_sign", "feat_sign"):
-        if tensors[name].data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned (read as int32 words)")
-    if N == 0:
-        raise ValueError("the kernel needs at least one feature")
-    if P >= 1 << _ROW_BITS:
-        raise ValueError(f"P={P} exceeds the kernel's {_ROW_BITS}-bit row index")
+    for i in _SIGN_ARGS:
+        if tensors[i].data_ptr() % 16:
+            raise ValueError(
+                f"{_SPEC[i][0]} must be 16-byte aligned (its rows are read in 8-byte words)"
+            )
+    if P == 0 or N == 0:
+        raise ValueError("the kernel needs at least one landmark row and one feature")
+    if level_slack < 0:
+        raise ValueError("level_slack must not be negative")
+    if max(P, N) >= _IDX_MASK:
+        raise ValueError(f"P={P}, N={N}: the kernel packs row and column indices in {_IDX_BITS} bits")
+
+
+def drop_workspaces() -> None:
+    """Forget every cached workspace; the next search of each shape builds
+    its own anew. For a caller that destroys streams (a new stream may get
+    a destroyed one's handle) or wants the memory back."""
+    _WORKSPACES.clear()
+
+
+def _workspace(lib, key: tuple, device: torch.device) -> int:
+    """Address of the persistent workspace of ``key`` = (device index,
+    stream handle, P, N); allocated, and filled by the library, at first use
+    (on that stream, with ``device`` current).
+
+    Lifetime: an entry lives until ``_MAX_WORKSPACES`` newer ones exist,
+    until ``drop_workspaces()``, or until a launch on it reports an error
+    (``project_match_cuda`` drops it, so the next call starts clean). An
+    evicted buffer goes back to torch's allocator, which hands it out again
+    only in the order of the stream it was made on, after the searches
+    queued on it. A workspace is clean whenever its last launch ran to its
+    end; a kernel that faults mid-run leaves a sticky CUDA error, after
+    which the process can launch nothing more on the card, so no later
+    search reads what it left."""
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        _, _, P, N = key
+        n = lib.project_match_workspace_ints(P, N)
+        ws = torch.empty((n,), dtype=torch.int32, device=device)
+        err = lib.project_match_init_workspace(ws.data_ptr(), P, N, key[1])
+        if err != 0:
+            raise RuntimeError(f"project_match workspace init failed: cudaError {err}")
+        while len(_WORKSPACES) >= _MAX_WORKSPACES:
+            del _WORKSPACES[next(iter(_WORKSPACES))]
+        _WORKSPACES[key] = ws
+    return ws.data_ptr()
 
 
 def project_match_cuda(
@@ -108,32 +247,34 @@ def project_match_cuda(
     site: str = "track",
 ):
     """Launch the kernel on the current stream: the masked best-2 search,
-    the column argmins and the ``max_dist`` / ratio / mutual epilogue in one
-    host call, counted in ``LAUNCHES[site]``. Returns (match_idx [P] int32,
-    -1 if none; match_dist [P] int32), equal to ``project_match_reference``."""
+    the column argmins and the ``max_dist`` / ratio / mutual finish in one
+    kernel launch, counted in ``LAUNCHES[site]``; the call allocates only
+    its output. Returns (match_idx [P] int32, -1 if none; match_dist [P]
+    int32), equal to ``project_match_reference``."""
     if site not in LAUNCHES:
         raise ValueError(f"unknown launch site {site!r}")
-    tensors = dict(
-        proj_uv=proj_uv, proj_valid=proj_valid, proj_level=proj_level,
-        proj_sign=proj_sign, radius=radius, feat_xy=feat_xy,
-        feat_level=feat_level, feat_valid=feat_valid, feat_sign=feat_sign,
+    tensors = (
+        proj_uv, proj_valid, proj_level, proj_sign, radius,
+        feat_xy, feat_level, feat_valid, feat_sign,
     )
     device = proj_uv.device
     if device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {device}")
     P, N = proj_uv.shape[0], feat_xy.shape[0]
-    _check(tensors, P, N, device)
-    fn = build().project_match
-    workspace = torch.empty((3 * P + N,), dtype=torch.int32, device=device)
-    out = torch.empty((2, P), dtype=torch.int32, device=device)
+    _check(tensors, P, N, device, level_slack)
+    lib = build()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            *(tensors[name].data_ptr() for name, _, _ in _SPEC),
+        stream = torch.cuda.current_stream().cuda_stream
+        key = (device.index, stream, P, N)
+        workspace = _workspace(lib, key, device)
+        out = torch.empty((2, P), dtype=torch.int32, device=device)
+        err = lib.project_match(
+            *(t.data_ptr() for t in tensors),
             P, N, int(level_slack), int(max_dist), float(ratio),
-            workspace.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), stream,
+            workspace, out.data_ptr(), out.data_ptr() + 4 * P, stream,
         )
     if err != 0:
+        _WORKSPACES.pop(key, None)
         raise RuntimeError(f"project_match kernel launch failed: cudaError {err}")
     LAUNCHES[site] += 1
     return out[0], out[1]

@@ -237,13 +237,21 @@ def seed_map_from_depth(seq: SynthSequence, kf_every: int, slam):
     return m, n_kf, n_pts
 
 
-def make_search_case(seed: int, P: int, N: int, W: int = 752, H: int = 480) -> dict:
+def make_search_case(
+    seed: int, P: int, N: int, W: int = 752, H: int = 480, tie_columns: tuple = ()
+) -> dict:
     """Test and smoke fixture: inputs of ``matching.search_by_projection``
     for P landmarks and N features in a W x H image, as numpy arrays made
     from ``seed``, with planted ties: duplicated feature descriptors next
     to their originals (best-distance ties), duplicated landmark rows
     (column-argmin ties), all-zero invalid rows. The radius is left to the
-    caller."""
+    caller.
+
+    ``tie_columns``: for each column b in it (0 < b < N), features b - 1
+    and b become valid copies of one descriptor a pixel apart, and two
+    landmark rows with one descriptor are aimed at them from under a pixel
+    away: a best-distance tie across the boundary at b of a search that
+    splits its columns there, and a column-argmin tie between the rows."""
     rng = np.random.default_rng(seed)
     feat_xy = rng.uniform([0, 0], [W, H], (N, 2)).astype(np.float32)
     feat_level = rng.integers(0, 8, N).astype(np.int32)
@@ -269,6 +277,17 @@ def make_search_case(seed: int, P: int, N: int, W: int = 752, H: int = 480) -> d
     for a in (proj_sign, proj_uv, proj_level, proj_valid):
         a[to] = a[rows]
     proj_sign[~proj_valid] = 0
+    for j, b in enumerate(c for c in tie_columns if 0 < c < N):
+        feat_valid[b - 1 : b + 1] = True
+        feat_sign[b - 1 : b + 1] = sign[b - 1]
+        feat_level[b] = feat_level[b - 1]
+        feat_xy[b] = feat_xy[b - 1] + np.float32([1.0, 0.5])
+        rows = [(2 * j) % P, (2 * j + 1) % P]
+        proj_sign[rows] = sign[b - 1]
+        proj_sign[rows, :5] *= -1  # distance 5 to both copies
+        proj_uv[rows] = feat_xy[b - 1] + np.float32(0.5)
+        proj_level[rows] = feat_level[b - 1]
+        proj_valid[rows] = True
     return dict(
         proj_uv=proj_uv, proj_valid=proj_valid, proj_level=proj_level,
         proj_sign=proj_sign, feat_xy=feat_xy, feat_level=feat_level,
