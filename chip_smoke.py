@@ -31,7 +31,22 @@ Phases (each raises on failure, so any failure exits non-zero):
      culling) at ``bench.py``'s configuration; requires initialization by
      frame 4, no frame lost after it, >= 12 keyframes, Sim(3) ATE <= 0.02 m,
      and kernel launches equal to the tracking passes plus 2 for each
-     fusing keyframe.
+     fusing keyframe;
+  8. mono-inertial: ``InertialSlam`` runs a 165-frame 752x480 sequence with
+     100 Hz IMU samples from frame 0 at ``bench.py``'s ``main_vi``
+     configuration (``utils/profile_keyframe.py`` holds it, for its ``--vi``
+     profile too): IMU preintegration, the three initialization stages,
+     the 15-dof refinement of every frame, the temporal-window VI-BA of
+     every keyframe. Requires the IMU initialized and all three stages
+     done, no bad-IMU reset, no frame lost after map initialization, state
+     OK at the end, metric ATE (no scale alignment, first 12 poses skipped)
+     <= 0.015 m, Umeyama scale within 1% of 1, the alignment's R[2,2] >
+     0.999 (gravity), the gyro bias within 3e-3 of the truth, and kernel
+     launches equal to the tracking passes plus 2 for each fusing keyframe.
+     Then times the inertial stages alone on inputs captured from the run
+     (host ms and the CUDA-event span, and launches and device ms where the
+     profiler traces the card), tree against sequential preintegration among them, and counts
+     the synchronizing calls of a steady frame.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -56,6 +71,11 @@ INT8_OPS_PER_S = 1979e12
 FUSE_KW = dict(max_dist=35, ratio=1.0)
 ATE_LIMIT = 0.01
 MAP_FRAMES, MAP_INIT_BY, MAP_MIN_KF, MAP_ATE_LIMIT = 120, 4, 12, 0.02
+VI_SKIP, VI_MIN_STEADY, VI_MIN_KF, VI_INIT_BY = 12, 30, 14, 20
+# The JAX package's test bounds are 0.05 m (0.10 at 240x376), 5%, 0.98 and
+# 1.5e-2; the first card run measured 0.0028 m, 0.014%, 1.00000 and 2.8e-4,
+# so each was tightened to about 5-10x what was measured.
+VI_ATE_LIMIT, VI_SCALE_TOL, VI_MIN_R22, VI_BG_TOL = 0.015, 0.01, 0.999, 3e-3
 
 
 def check(cond, msg: str) -> None:
@@ -449,6 +469,258 @@ def phase_mapping(torch, project_match) -> dict:
                 ba_iters=slam.ba_iters, launches=launches, peak_mem_mib=peak / 2**20)
 
 
+class Captured:
+    """Replaces ``module.name`` by a wrapper that keeps the arguments of
+    its calls (the newest ``keep``), so a stage can be run again alone."""
+
+    def __init__(self, module, name: str, keep: int = 1):
+        self.module, self.name, self.keep = module, name, keep
+        self.fn = getattr(module, name)
+        self.calls = []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        self.calls = (self.calls + [(args, kw)])[-self.keep:]
+        return self.fn(*args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+    def replay(self, i: int = -1):
+        args, kw = self.calls[i]
+        return self.fn(*args, **kw)
+
+
+def stage_cost(torch, fn, runs: int = 5) -> dict:
+    """Host ms of ``fn()`` (median of ``runs``, each ended by a device
+    sync) and, of the same runs, the span between CUDA events around it
+    (the card's clock; its waits for the host are inside). From one more
+    run under ``torch.profiler`` the kernels it launched and their summed
+    device ms: both None where the profiler traces nothing on the card,
+    which the events do not depend on. Last, the synchronizing calls of
+    one more run."""
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import device_profile
+
+    fn()
+    torch.cuda.synchronize()
+    times, spans = [], []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        spans.append(a.elapsed_time(b))
+    launches, device_ms = device_profile(fn)
+    return dict(host_ms=float(np.median(times)), event_ms=float(np.median(spans)),
+                launches=launches, device_ms=device_ms, sync_calls=sync_calls(torch, fn))
+
+
+def sync_calls(torch, fn) -> int:
+    """Synchronizing calls (host reads among them) that ``fn()`` makes, by
+    torch's sync debug mode, which warns at each."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_vi(torch, project_match) -> dict:
+    """``InertialSlam`` over a rendered 165-frame sequence with IMU samples
+    on the card at ``bench.py``'s ``main_vi`` shape; then the inertial
+    stages alone."""
+    from orb_slam3_ros_tpu_torch.models import inertial_system, local_mapping, system
+    from orb_slam3_ros_tpu_torch.ops import imu, lie, viba
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import align_umeyama, ate_rmse
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_IMU_HZ, VI_SEQ_KW, VI_SLAM_KW, vi_calib
+
+    n_frames = VI_SEQ_KW["n_frames"]
+    check(tuple(VI_SLAM_KW[k] for k in ("height", "width", "n_features", "track_cap", "max_points"))
+          == (H, W, N_FEATURES, P_TRACK, P_FUSE),
+          "the mono-inertial configuration is not at the shapes the kernel was held at")
+    t0 = time.perf_counter()
+    seq, im = synth.make_vi_sequence(**VI_SEQ_KW)
+    slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(), **VI_SLAM_KW)
+    check(slam.device.type == "cuda", "InertialSlam without a device argument is not on the card")
+    torch.cuda.synchronize()
+    print(f"vi setup: rendered {n_frames} frames at {W}x{H} with {int(VI_IMU_HZ)} Hz IMU in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    kf_ms, n_fusing = [], 0
+    caps = {
+        "refine": Captured(inertial_system, "_vi_refine"),
+        "build": Captured(local_mapping, "build_vi_ba"),
+        "viba": Captured(viba, "vi_bundle_adjust"),
+        "init": Captured(viba, "inertial_init", keep=2),
+        "gs": Captured(viba, "vi_bundle_adjust_gs", keep=3),
+    }
+    work = inertial_system._vi_kf_work
+
+    def timed_work(*args, **kw):
+        nonlocal n_fusing
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = work(*args, **kw)
+        b.record()
+        b.synchronize()
+        kf_ms.append(a.elapsed_time(b))
+        n_fusing += bool(kw["do_fuse"])
+        return out
+
+    mono_work = inertial_system.MonoSlam._insert_keyframe
+
+    def counted_mono_kf(self, feats, ts, track_res):
+        # keyframes before IMU initialization run the mono keyframe work
+        nonlocal n_fusing
+        kf_id = self.n_kf
+        n_fusing += self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0
+        return mono_work(self, feats, ts, track_res)
+
+    inertial_system._vi_kf_work = timed_work
+    inertial_system.MonoSlam._insert_keyframe = counted_mono_kf
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(project_match)
+    passes, init_at, stage_at, frame_ms, syncs = 0, None, {}, [], []
+    try:
+        for i in range(n_frames):
+            if slam.state in (system.OK, system.RECENTLY_LOST):
+                passes += len(slam._current_schedule())
+            stage0 = slam.imu_stage
+            n_kf0 = slam.n_kf
+            args = (seq.images[i], float(seq.timestamps[i]))
+            kw = dict(acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i])
+            t_frame = time.perf_counter()
+            if i >= n_frames - 10:  # the last frames also count their synchronizing calls
+                box = []
+                n_sync = sync_calls(torch, lambda: box.append(slam.process_frame(*args, **kw)))
+                out = box[0]
+                if slam.n_kf == n_kf0:
+                    syncs.append(n_sync)
+            else:
+                out = slam.process_frame(*args, **kw)
+            dt = (time.perf_counter() - t_frame) * 1e3
+            if init_at is None and out is not None:
+                init_at = i
+            elif init_at is not None:
+                check(out is not None, f"vi run lost frame {i}")
+                check(slam.state == system.OK, f"vi run left state OK at frame {i}: {slam.state}")
+            check(init_at is not None or i < VI_INIT_BY, f"vi map not initialized by frame {VI_INIT_BY}")
+            if slam.imu_stage != stage0:
+                stage_at[slam.imu_stage] = i
+            elif slam.imu_stage == 3 and i < n_frames - 10:
+                frame_ms.append(dt)
+    finally:
+        inertial_system._vi_kf_work = work
+        inertial_system.MonoSlam._insert_keyframe = mono_work
+        for c in caps.values():
+            c.restore()
+    torch.cuda.synchronize()
+    launches = dict(project_match.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(slam.imu_initialized and slam.imu_stage == 3,
+          f"IMU initialization stopped at stage {slam.imu_stage}")
+    check(slam.bad_imu_resets == 0, f"{slam.bad_imu_resets} bad-IMU resets")
+    check(len(frame_ms) >= VI_MIN_STEADY, f"only {len(frame_ms)} steady VI frames after stage 3")
+    check(slam.n_kf >= VI_MIN_KF, f"only {slam.n_kf} keyframes")
+    traj = slam.get_trajectory()
+    check(len(traj) == n_frames - init_at, f"{len(traj)} poses for {n_frames - init_at} frames")
+    ts = np.asarray([t for t, _ in traj])[VI_SKIP:]
+    est = np.stack([T[:3, 3] for _, T in traj])[VI_SKIP:]
+    gt_ts = seq.timestamps.astype(np.float64)
+    rmse_m, n_m, _ = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=False)
+    _, _, scale = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=True)
+    gt = seq.t_wc[np.clip(np.searchsorted(seq.timestamps, ts - 1e-6), 0, n_frames - 1)]
+    _, R_align, _ = align_umeyama(est, gt, with_scale=True)
+    bg_err = float(np.abs(slam.bg_cur - im["bg"]).max())
+    lat = np.percentile(frame_ms, [50, 80])
+    fps = len(frame_ms) / (sum(frame_ms) / 1e3)
+    kf_med, kf_max = float(np.median(kf_ms)), float(max(kf_ms))
+    print(f"vi: map initialized at frame {init_at}; IMU stages done at frames {stage_at} in "
+          f"{ {k: round(v, 1) for k, v in slam.init_stage_ms.items()} } ms (wall, each ended by a "
+          f"host read); {len(traj)}/{n_frames - init_at} frames tracked; {slam.n_kf} keyframes, "
+          f"{slam.n_pts} points; metric ATE {rmse_m:.5f} m over {n_m} poses, Umeyama scale "
+          f"{scale:.5f}, alignment R[2,2] {R_align[2, 2]:.5f}; bg {slam.bg_cur} (truth {im['bg']}), "
+          f"ba {slam.ba_cur}; {fps:.2f} frames/s steady over {len(frame_ms)} frames after stage 3 "
+          f"(keyframe frames included); latency median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; VI "
+          f"keyframe work median {kf_med:.2f} ms, max {kf_max:.2f} ms over {len(kf_ms)}; kernel "
+          f"launches {launches} (tracking passes {passes}, fusing keyframes {n_fusing}); "
+          f"synchronizing calls of a steady frame without a keyframe {sorted(set(syncs))}; peak "
+          f"device memory {peak / 2**20:.1f} MiB")
+    check(n_m == len(ts), f"ATE matched {n_m} of {len(ts)} poses")
+    check(rmse_m <= VI_ATE_LIMIT, f"metric ATE {rmse_m:.5f} m above {VI_ATE_LIMIT} m")
+    check(abs(scale - 1.0) <= VI_SCALE_TOL, f"Umeyama scale {scale:.5f} not within {VI_SCALE_TOL:.0%} of 1")
+    check(R_align[2, 2] > VI_MIN_R22, f"gravity misaligned: alignment R[2,2] {R_align[2, 2]:.5f}")
+    check(bg_err <= VI_BG_TOL, f"gyro bias off by {bg_err:.5f}")
+    check(launches == {"track": passes, "fuse": 2 * n_fusing},
+          f"matcher launches {launches}, expected {passes} from tracking and "
+          f"{2 * n_fusing} from fusion")
+
+    # The inertial stages alone, on the arguments of their last calls in
+    # the run above (the initialization stages: of each stage's own call).
+    calib = slam.calib
+    dev = slam.device
+    rng = np.random.default_rng(0)
+
+    def imu_block(*shape):
+        a = torch.as_tensor(rng.normal(size=shape + (3,)).astype(np.float32), device=dev)
+        g = torch.as_tensor(rng.normal(size=shape + (3,)).astype(np.float32) * 0.3, device=dev)
+        d = torch.full(shape, 0.01, dtype=torch.float32, device=dev)
+        b = torch.zeros(shape[:-1] + (6,), dtype=torch.float32, device=dev)
+        return a, g, d, b
+
+    frame_blk, window_blk = imu_block(16), imu_block(slam.W - 1, 64)
+    stages = {
+        "preintegrate frame block [16], tree": lambda: imu.preintegrate(*frame_blk, calib),
+        "preintegrate frame block [16], sequential":
+            lambda: imu.preintegrate_sequential(*frame_blk, calib),
+        f"preintegrate window [{slam.W - 1}, 64], tree": lambda: imu.preintegrate(*window_blk, calib),
+        f"preintegrate window [{slam.W - 1}, 64], sequential":
+            lambda: imu.preintegrate_sequential(*window_blk, calib),
+        "build_vi_ba (W=12)": caps["build"].replay,
+        "pose_inertial_optimization (_vi_refine)": caps["refine"].replay,
+        "vi_bundle_adjust, 4 iterations": caps["viba"].replay,
+        "normalize_rotation of one 3x3 (torch.linalg.svd)":
+            lambda: lie.normalize_rotation(torch.eye(3, device=dev)),
+        "init stage 1: inertial_init, 40 iterations": lambda: caps["init"].replay(0),
+        "init stage 1: vi_bundle_adjust_gs, 25 iterations": lambda: caps["gs"].replay(0),
+        "init stage 2: inertial_init, 40 iterations": lambda: caps["init"].replay(1),
+        "init stage 2: vi_bundle_adjust_gs, 25 iterations": lambda: caps["gs"].replay(1),
+        "init stage 3: vi_bundle_adjust_gs, 40 iterations": lambda: caps["gs"].replay(2),
+    }
+    check(len(caps["init"].calls) == 2 and len(caps["gs"].calls) == 3,
+          "the initialization stages did not make their 2 + 3 solver calls")
+    costs = {}
+    for name, fn in stages.items():
+        costs[name] = c = stage_cost(torch, fn)
+        dev_txt = ("launches and device ms not measured (the profiler traced nothing)"
+                   if c["device_ms"] is None else
+                   f"{c['launches']} launches, device {c['device_ms']:.3f} ms")
+        print(f"vi stage {name}: host {c['host_ms']:.2f} ms, CUDA-event span {c['event_ms']:.2f} ms "
+              f"(medians of 5 synchronized runs), {dev_txt}, "
+              f"{c['sync_calls']} synchronizing calls")
+    seq_faster = (costs["preintegrate frame block [16], sequential"]["host_ms"]
+                  < costs["preintegrate frame block [16], tree"]["host_ms"])
+    print(f"preintegration on the main path: tree (sequential faster at the frame shape: {seq_faster})")
+    return dict(
+        init_frame=init_at, stage_frames=stage_at, init_stage_ms=slam.init_stage_ms,
+        keyframes=slam.n_kf, ate_metric_m=rmse_m, scale=scale, r22=float(R_align[2, 2]),
+        bg_err=bg_err, frames_per_s=fps, steady_frames=len(frame_ms), frame_ms_p50=float(lat[0]),
+        frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
+        launches=launches, passes=passes, fusing_keyframes=n_fusing,
+        sync_calls_per_frame=sorted(set(syncs)), peak_mem_mib=peak / 2**20, stages=costs,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -492,16 +764,22 @@ def main() -> int:
     s, state = phase_slice(torch, project_match)
     phase_cpu(torch, state)
     mp = phase_mapping(torch, project_match)
+    vi = phase_vi(torch, project_match)
 
-    print(json.dumps({"slice": s, "mapping": mp, "card": smi[0]}))
+    print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "card": smi[0]}))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
         "source": "orb_slam3_ros_tpu_torch/csrc/project_match.cu",
         "replaces": "orb_slam3_ros_tpu/ops/pallas_match.py:37",
-        "launches": mp["launches"]["track"] + mp["launches"]["fuse"],
+        # the main paths: mapping (phase 7) and mono-inertial (phase 8), the
+        # counts set to 0 before each and read after it
+        "launches": mp["launches"]["track"] + mp["launches"]["fuse"]
+        + vi["launches"]["track"] + vi["launches"]["fuse"],
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
+        "launches_vi_track": vi["launches"]["track"],
+        "launches_vi_fuse": vi["launches"]["fuse"],
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

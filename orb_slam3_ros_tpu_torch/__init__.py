@@ -5,12 +5,20 @@ its counterpart's name, module and array layout so the two can be compared
 on the same inputs (``tests/test_torch_*.py``). This package imports torch
 and numpy only.
 
-What is ported so far is the per-frame tracking core in localization mode:
-ORB extraction (``ops/orb.py``), projection-guided matching with the
-hand-written Hopper matcher kernel (``ops/project_match.py`` +
+What is ported: ORB extraction (``ops/orb.py``), matching by projection
+with the hand-written Hopper matcher kernel (``ops/project_match.py`` +
 ``csrc/project_match.cu``), motion-only pose optimization and
-``models/tracking.py::track_against_map``, driven by
-``models/system.py::MonoSlam`` against a stored map.
+``models/tracking.py::track_against_map``; monocular SLAM from frame 0
+(``models/system.py::MonoSlam``: two-view initialization, keyframes, fusion,
+covisibility local BA, culling, slot recycling, localization against a
+stored map); and monocular-inertial SLAM
+(``models/inertial_system.py::InertialSlam``: IMU preintegration
+``ops/imu.py``, the three-stage IMU initialization, the per-frame 15-dof
+refinement and the temporal-window visual-inertial BA of ``ops/viba.py``).
+
+Entry points run on the CUDA device unless the caller passes ``device``:
+``device=None`` resolves through :func:`default_device`, which raises where
+there is no card and never falls back to the CPU by itself.
 """
 
 __version__ = "0.1.0"
@@ -21,3 +29,20 @@ import torch as _torch
 # counterpart of jax_default_matmul_precision="highest" in the JAX package).
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+
+def default_device() -> _torch.device:
+    """The device an entry point uses when its caller names none: the CUDA
+    device. Raises where there is none; the CPU is used only when a caller
+    asks for it (``device="cpu"``)."""
+    if not _torch.cuda.is_available():
+        raise RuntimeError(
+            "orb_slam3_ros_tpu_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to run on the CPU"
+        )
+    return _torch.device("cuda")
+
+
+def resolve_device(device=None) -> _torch.device:
+    """``device`` as a ``torch.device``; None means :func:`default_device`."""
+    return default_device() if device is None else _torch.device(device)

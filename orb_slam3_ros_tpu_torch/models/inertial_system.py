@@ -1,0 +1,691 @@
+"""Monocular-inertial pipeline — port of
+``orb_slam3_ros_tpu.models.inertial_system.InertialSlam`` (the reference's
+``System(..., IMU_MONOCULAR)``: ``Tracking::PreintegrateIMU`` /
+``PredictStateIMU``, the staged ``LocalMapping::InitializeIMU`` and
+``LocalInertialBA`` per keyframe).
+
+Flow: run visually until ``init_after_kf`` keyframes accumulate, then
+solve gravity / scale / biases / velocities over the keyframe chain
+(``viba.inertial_init``), gravity-align and rescale the map, and from then
+on predict each frame's pose from the IMU, refine its 15-dof body state
+against the map and the preintegration factor, and refine keyframes with
+the temporal-window visual-inertial BA. Two more initialization stages
+follow at +4 and +8 keyframes with weakening bias priors.
+
+A VI frame runs synchronously: preintegrate the frame's block at the
+anchor's bias, predict the state, extract, track from the predicted pose,
+refine, ONE packed host read (inliers, pose, v, bg, ba), then the state
+ladder and the keyframe decision. The anchor state and its covariance stay
+on the device from frame to frame. (The JAX package fuses this into one
+dispatch and drains it one frame late to hide its device link's fetch
+latency; neither is needed here.) A keyframe costs one more host read, an
+initialization stage one for its solve and one for the state after its BA.
+
+Not ported (each raises, naming its ROADMAP item): the chunk loop
+``process_frames``, relocalization once ``time_recently_lost`` has passed,
+loop closing and the asynchronous full inertial BA, stereo / RGB-D
+inertial, the ``on_frame`` hook.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import imu as imu_ops
+from ..ops import orb, viba
+from . import local_mapping, map_state, map_updates, tracking
+from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
+
+
+def _vi_kf_work(
+    m, kf_id, R, t, ts, feats, feat_pt, n_pts, free_cap, vb_new,
+    window_ids, fixed, imu_blocks, edge_ok, calib, cam_params,
+    *, width, height, fuse_neighbors, do_fuse, do_stats, do_cull, n_iters, n_levels,
+):
+    """One VI keyframe's mapping work (LocalMapping::Run with
+    LocalInertialBA): insert -> record body state -> triangulate -> admit
+    -> fuse -> temporal-window VI-BA -> culls. ``vb_new`` [9]: the new
+    keyframe's (v, bg, ba); ``imu_blocks`` [W-1, S, 7]: per-edge IMU blocks
+    (acc | gyro | dt). Returns (map, n_new_points as a 0-d tensor)."""
+    m = map_updates.insert_keyframe(m, kf_id, R, t, ts, feats, feat_pt)
+    m.kf_v[kf_id] = vb_new[0:3]
+    m.kf_bg[kf_id] = vb_new[3:6]
+    m.kf_ba[kf_id] = vb_new[6:9]
+    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params)
+    m, n_new = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, n_pts, free_cap)
+    if do_fuse:
+        m, _ = map_updates.fuse_in_neighbors(
+            m, kf_id, cam_params, width, height, n_neighbors=fuse_neighbors
+        )
+    prob = local_mapping.build_vi_ba(
+        m, window_ids, fixed, imu_blocks[..., 0:3], imu_blocks[..., 3:6], imu_blocks[..., 6],
+        edge_ok, calib, cam_params,
+    )
+    res = viba.vi_bundle_adjust(prob, n_iters=n_iters)
+    m = local_mapping.apply_vi_ba(m, window_ids, res, calib)
+    m = map_updates.cull_points(m, kf_id + 1)
+    if do_stats:
+        m = map_updates.refresh_point_stats(m, n_levels=n_levels)
+    if do_cull:
+        m, _ = map_updates.cull_keyframes(m, kf_id + 1, n_levels=n_levels)
+    return m, n_new
+
+
+def _pack_kf_state(m, kf: int) -> torch.Tensor:
+    """[21] f32: (v, bg, ba, R(9), t) of keyframe ``kf``, for one host read."""
+    return torch.cat([m.kf_v[kf], m.kf_bg[kf], m.kf_ba[kf], m.kf_R[kf].reshape(9), m.kf_t[kf]])
+
+
+def _vi_refine(
+    m, feats, feat_pt, R_cw0, t_cw0, v0, bg0, ba0,
+    R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, cam_params, R_bc, t_bc,
+):
+    """Gather the tracker's per-feature landmark bindings into visual edges
+    and run the 15-dof VI motion-only solve (the per-frame
+    PoseInertialOptimizationLast* stage). ``anc_Sigma``: the anchor state's
+    posterior covariance (zeros = exact anchor)."""
+    pt = torch.clamp(feat_pt, 0, m.P - 1).long()
+    valid = (feat_pt >= 0) & m.pt_valid[pt] & feats.valid
+    inv_sigma2 = 1.2 ** (-2.0 * feats.level.to(torch.float32))
+    R_wb0, p_wb0 = viba.body_from_cam(R_cw0, t_cw0, R_bc, t_bc)
+    res = viba.pose_inertial_optimization(
+        R_wb0, p_wb0, v0, bg0, ba0, m.pt_X[pt], feats.xy, inv_sigma2, valid,
+        R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, cam_params, R_bc, t_bc,
+    )
+    R_cw, t_cw = viba.cam_from_body(res.R_wb, res.p_wb, R_bc, t_bc)
+    return res, R_cw, t_cw
+
+
+class InertialSlam(MonoSlam):
+    """Monocular-inertial pipeline: the JAX package's constructor arguments
+    and defaults plus ``device`` (see ``MonoSlam``). ``calib``: an
+    ``ImuCalib`` of tensors or numpy arrays."""
+
+    def __init__(
+        self,
+        *args,
+        calib: imu_ops.ImuCalib,
+        imu_cap_frame: int = 32,
+        imu_cap_kf: int = 256,
+        init_after_kf: int = 6,
+        time_recently_lost: float = 5.0,
+        vi_tracking: bool = True,
+        **kw,
+    ):
+        super().__init__(*args, **kw)
+        # Per-frame VI motion-only optimization once the IMU is initialized
+        # and the RECENTLY_LOST dead-reckoning window it enables.
+        self.vi_tracking = vi_tracking
+        self.time_recently_lost = time_recently_lost
+        self._lost_since_ts = None
+        self._vi_anchor = None  # (R_wb, p_wb, v, bg, ba) on the device
+        self._vi_prior = None  # [15,15] anchor posterior cov on the device
+        self.calib = imu_ops.ImuCalib(*(
+            torch.as_tensor(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32))
+            .to(self.device) for x in calib
+        ))
+        self.imu_cap_frame = imu_cap_frame
+        self.imu_cap_kf = imu_cap_kf
+        self.init_after_kf = init_after_kf
+        self.imu_initialized = False
+        self.imu_fix_scale = False  # stereo / RGB-D: scale observable
+        self.imu_stage = 0  # initialization stages done (0..3)
+        self.init_stage_ms = {}  # stage -> wall ms of its solve, for profiling
+        # per-keyframe IMU blocks on the host: block k integrates KF k-1 -> KF k
+        self.kf_imu_acc = np.zeros((self.K_cap, imu_cap_kf, 3), np.float32)
+        self.kf_imu_gyro = np.zeros((self.K_cap, imu_cap_kf, 3), np.float32)
+        self.kf_imu_dts = np.zeros((self.K_cap, imu_cap_kf), np.float32)
+        # per-frame IMU history: (frame_ts, acc, gyro, dts); a frame's block
+        # covers (prev_frame_ts, frame_ts]. Keyframe blocks are assembled
+        # from it, so keyframes created in retrospect (the two-view
+        # initialization) get the right integration intervals.
+        self._imu_history = []
+        self._frame_imu = (None, None, None)
+        self._last_kf_ts = None
+        # host copies of the current body state (world frame)
+        self.v_cur = np.zeros(3, np.float32)
+        self.bg_cur = np.zeros(3, np.float32)
+        self.ba_cur = np.zeros(3, np.float32)
+        # Keyframe ids whose IMU chain to the previous keyframe is broken (a
+        # merged block overflowed its capacity at compaction); VI-BA windows
+        # mask the inertial edge into them.
+        self.chain_breaks: set = set()
+        # A divergent IMU solve resets the active map (mbBadImu).
+        self.bad_imu_resets = 0
+
+    # ------------------------------------------------------------------
+    def _check_bad_imu(self) -> bool:
+        """Detect a divergent inertial solve from the host state just read
+        (non-finite, or a physically impossible velocity / bias) and reset
+        the active map. Returns True if a reset happened."""
+        bad = (
+            not np.all(np.isfinite(self.v_cur))
+            or not np.all(np.isfinite(self.bg_cur))
+            or not np.all(np.isfinite(self.ba_cur))
+            or not np.all(np.isfinite(self.t_cur))
+            or float(np.linalg.norm(self.v_cur)) > 50.0
+            or float(np.linalg.norm(self.bg_cur)) > 2.0
+            or float(np.linalg.norm(self.ba_cur)) > 20.0
+        )
+        if not bad:
+            return False
+        self.bad_imu_resets += 1
+        self._reset_active_map()
+        return True
+
+    def _reset_active_map(self):
+        """ResetActiveMap: a fresh empty map and cleared IMU state."""
+        self.kf_imu_acc[:] = 0
+        self.kf_imu_gyro[:] = 0
+        self.kf_imu_dts[:] = 0
+        self.imu_initialized = False
+        self.imu_stage = 0
+        self.chain_breaks = set()
+        self.v_cur = np.zeros(3, np.float32)
+        self.bg_cur = np.zeros(3, np.float32)
+        self.ba_cur = np.zeros(3, np.float32)
+        self._vi_anchor = None
+        self._vi_prior = None
+        self._last_kf_ts = None
+        self.map = map_state.empty_map(self.K_cap, self.N, self.P_cap, device=self.device)
+        self.n_kf = 0
+        self.n_pts = 0
+        self.init_feats = None
+        self.R_cur = np.eye(3, dtype=np.float32)
+        self.t_cur = np.zeros(3, np.float32)
+        self.vel_R = np.eye(3, dtype=np.float32)
+        self.vel_t = np.zeros(3, np.float32)
+        self.state = NOT_INITIALIZED
+        self._ref_cache = None
+
+    # ------------------------------------------------------------------
+    def process_frames(self, *args, **kw):
+        raise _not_ported("the device-resident chunk loop process_frames", "9")
+
+    def _start_async_gba(self, *args, **kw):
+        raise _not_ported("the asynchronous full inertial BA", "11")
+
+    def process_frame(self, img, ts: float, acc=None, gyro=None, dts=None):
+        """Track one frame with its IMU block (the samples since the
+        previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
+        if self.on_frame is not None:
+            raise _not_ported("the on_frame observation hook", "13")
+        has_imu = acc is not None and len(acc) > 0
+        if has_imu:
+            self._imu_history.append((
+                ts, np.asarray(acc, np.float32), np.asarray(gyro, np.float32),
+                np.asarray(dts, np.float32),
+            ))
+            if len(self._imu_history) > 200:
+                self._imu_history.pop(0)
+        self._frame_imu = (acc, gyro, dts) if has_imu else (None, None, None)
+        if self.imu_initialized and self.vi_tracking and has_imu and self.state in (OK, RECENTLY_LOST):
+            self._check_ts_jump(ts)
+            if self.state in (OK, RECENTLY_LOST):
+                return self._process_frame_vi(img, ts)
+        return super().process_frame(img, ts)
+
+    def _collect_block(self, t0: float, t1: float):
+        """Concatenate the IMU samples of frames with ts in (t0, t1] into a
+        fixed-capacity block; samples beyond ``imu_cap_kf`` are dropped."""
+        a = np.zeros((self.imu_cap_kf, 3), np.float32)
+        g = np.zeros((self.imu_cap_kf, 3), np.float32)
+        d = np.zeros((self.imu_cap_kf,), np.float32)
+        n = 0
+        for fts, fa, fg, fd in self._imu_history:
+            if t0 < fts <= t1 + 1e-9:
+                m = min(len(fa), self.imu_cap_kf - n)
+                if m <= 0:
+                    break
+                a[n : n + m] = fa[:m]
+                g[n : n + m] = fg[:m]
+                d[n : n + m] = fd[:m]
+                n += m
+        return a, g, d
+
+    def _frame_block(self) -> torch.Tensor:
+        """This frame's IMU samples as one [imu_cap_frame, 7] tensor
+        (acc | gyro | dt, zero rows as padding) on the device."""
+        acc, gyro, dts = self._frame_imu
+        blk = np.zeros((self.imu_cap_frame, 7), np.float32)
+        n = min(len(acc), self.imu_cap_frame)
+        blk[:n, 0:3], blk[:n, 3:6], blk[:n, 6] = acc[:n], gyro[:n], dts[:n]
+        return torch.from_numpy(blk).to(self.device)
+
+    def _preint_block(self, blk: torch.Tensor, b: torch.Tensor) -> imu_ops.Preintegrated:
+        # The tree form: in eager torch it beats the per-sample recursion at
+        # the frame and the window shape alike (PERF.md).
+        return imu_ops.preintegrate(blk[..., 0:3], blk[..., 3:6], blk[..., 6], b, self.calib)
+
+    # ------------------------------------------------------------------
+    def _predict_motion(self, ts):
+        """Seed the motion model with the IMU prediction (PredictStateIMU
+        replaces constant velocity) on frames that go through the visual
+        tracker: ``vi_tracking=False``."""
+        if not self.imu_initialized or self._frame_imu[0] is None:
+            return
+        R_wb, p_wb, v, bg, ba = self._body_state_from_host()
+        b = torch.cat([bg, ba])
+        pre = self._preint_block(self._frame_block(), b)
+        R2, p2, v2 = imu_ops.predict_state(R_wb, p_wb, v, b, pre)
+        R_cw, t_cw = viba.cam_from_body(R2, p2, self.calib.R_bc, self.calib.t_bc)
+        buf = torch.cat([R_cw.reshape(9), t_cw, v2]).cpu().numpy()
+        R_cw, t_cw = buf[0:9].reshape(3, 3), buf[9:12]
+        self.vel_R = R_cw @ self.R_cur.T
+        self.vel_t = t_cw - self.vel_R @ self.t_cur
+        self.v_cur = buf[12:15].copy()
+
+    def _body_state_from_host(self):
+        """Anchor body state from the host's camera pose, velocity and
+        biases (used when no per-frame anchor exists yet)."""
+        buf = torch.from_numpy(np.concatenate([
+            self.R_cur.reshape(-1), self.t_cur, self.v_cur, self.bg_cur, self.ba_cur,
+        ]).astype(np.float32)).to(self.device)
+        R_wb, p_wb = viba.body_from_cam(
+            buf[0:9].reshape(3, 3), buf[9:12], self.calib.R_bc, self.calib.t_bc
+        )
+        return R_wb, p_wb, buf[12:15], buf[15:18], buf[18:21]
+
+    # ------------------------------------------------------------------
+    def _process_frame_vi(self, img, ts):
+        """An OK / RECENTLY_LOST frame once the IMU is initialized."""
+        dev = self.device
+        anchor = self._vi_anchor or self._body_state_from_host()
+        R_anc, p_anc, v_anc, bg_anc, ba_anc = anchor
+        anc_Sigma = self._vi_prior
+        if anc_Sigma is None:
+            anc_Sigma = torch.zeros((15, 15), dtype=torch.float32, device=dev)
+        b = torch.cat([bg_anc, ba_anc])
+        pre = self._preint_block(self._frame_block(), b)
+        # PredictStateIMU from the previous frame's body state.
+        R2, p2, _ = imu_ops.predict_state(R_anc, p_anc, v_anc, b, pre)
+        R_pred, t_pred = viba.cam_from_body(R2, p2, self.calib.R_bc, self.calib.t_bc)
+        feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
+        res = tracking.track_against_map(
+            self.map, feats, R_pred, t_pred, self.cam_params, self.width, self.height,
+            schedule=self._current_schedule(), track_cap=self.track_cap,
+        )
+        vires, R_cw, t_cw = _vi_refine(
+            self.map, feats, res.feat_pt, res.R, res.t, v_anc, bg_anc, ba_anc,
+            R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self.cam_params,
+            self.calib.R_bc, self.calib.t_bc,
+        )
+        # The frame's one host read.
+        buf = torch.cat([
+            vires.n_inliers.reshape(1).to(torch.float32), R_cw.reshape(9), t_cw,
+            vires.v_w, vires.bg, vires.ba,
+        ]).cpu().numpy()
+        out = self._vi_post(feats, res, vires, ts, buf)
+        self.frame_id += 1
+        return out
+
+    def _vi_post(self, feats, res, vires, ts, buf):
+        """The state ladder after a VI frame. ``buf`` [22]: the host copy of
+        (inliers, R_cw, t_cw, v, bg, ba). With under 15 visual inliers the
+        state dead-reckons on the IMU for up to ``time_recently_lost``
+        seconds (keyframes keep being inserted so the preintegration chain
+        stays whole), then tracking is LOST."""
+        n_vis = int(buf[0])
+        R_new, t_new = buf[1:10].reshape(3, 3).copy(), buf[10:13].copy()
+        state_tuple = (vires.R_wb, vires.p_wb, vires.v_w, vires.bg, vires.ba)
+        if n_vis < 15:
+            if self.state == OK or self._lost_since_ts is None:
+                self._lost_since_ts = ts
+            if ts - self._lost_since_ts <= self.time_recently_lost:
+                self.state = RECENTLY_LOST
+                self.R_cur, self.t_cur = R_new, t_new
+                self.v_cur = buf[13:16].copy()
+                self._vi_anchor = state_tuple
+                self._vi_prior = None  # no visual information to marginalize
+                self._log_pose(ts)
+                if self._need_keyframe(n_vis):
+                    self._ref_kf_inl = n_vis
+                    self._insert_keyframe(feats, ts, res)
+                return self._pose_mat()
+            self.state = LOST
+            self._vi_prior = None
+            self._vi_anchor = None
+            return None
+        if self.state == RECENTLY_LOST:
+            self.state = OK
+        self._lost_since_ts = None
+        self.R_cur, self.t_cur = R_new, t_new
+        self.v_cur = buf[13:16].copy()
+        self.bg_cur = buf[16:19].copy()
+        self.ba_cur = buf[19:22].copy()
+        self._vi_anchor = state_tuple
+        # Next frame's anchor uncertainty = this solve's posterior cov.
+        self._vi_prior = vires.Sigma
+        self.map = map_updates.update_track_counters(self.map, res.visible_mask, res.found_mask)
+        self._log_pose(ts)
+        if self._need_keyframe(n_vis):
+            self._ref_kf_inl = n_vis
+            self._insert_keyframe(feats, ts, res)
+        return self._pose_mat()
+
+    # ------------------------------------------------------------------
+    def _create_initial_map(self, feats, ts, idx, res):
+        super()._create_initial_map(feats, ts, idx, res)
+        # KF0 (at init_ts) and KF1 (at ts) were just created; keep the block
+        # integrating KF0 -> KF1.
+        self.kf_imu_acc[1], self.kf_imu_gyro[1], self.kf_imu_dts[1] = self._collect_block(
+            self.init_ts, ts
+        )
+        self._last_kf_ts = ts
+
+    def _insert_keyframe(self, feats, ts, track_res):
+        kf_id = self.n_kf
+        prev_ts = self._last_kf_ts
+        if prev_ts is None:
+            prev_ts = float(self.map.kf_ts[max(kf_id - 1, 0)])
+        self.kf_imu_acc[kf_id], self.kf_imu_gyro[kf_id], self.kf_imu_dts[kf_id] = (
+            self._collect_block(prev_ts, ts)
+        )
+        self._last_kf_ts = ts
+
+        if self.imu_initialized and kf_id >= 2:
+            self._insert_keyframe_vi(feats, ts, track_res, kf_id)
+        else:
+            super()._insert_keyframe(feats, ts, track_res)
+            # Record the current velocity / bias on the new keyframe slot.
+            vb = torch.from_numpy(
+                np.concatenate([self.v_cur, self.bg_cur, self.ba_cur]).astype(np.float32)
+            ).to(self.device)
+            self.map.kf_v[kf_id] = vb[0:3]
+            self.map.kf_bg[kf_id] = vb[3:6]
+            self.map.kf_ba[kf_id] = vb[6:9]
+        if not self.imu_initialized and self.n_kf >= self.init_after_kf:
+            self._timed_stage(1, self._initialize_imu)
+            self.imu_stage = 1
+        elif self.imu_initialized and self.imu_stage == 1 and self.n_kf >= self.init_after_kf + 4:
+            # Stage 2 (the reference's VIBA1 step, bias priors 1e2 -> 1):
+            # re-solve gravity / scale on the now roughly metric map and
+            # re-run the full inertial BA with weaker bias priors.
+            self._timed_stage(2, self._initialize_imu, bias_prior_g=1.0, bias_prior_a=1e4)
+            self.imu_stage = 2
+        elif self.imu_initialized and self.imu_stage == 2 and self.n_kf >= self.init_after_kf + 8:
+            # Stage 3: free-prior full inertial BA with gravity / scale
+            # vertices (VIBA2) — closes the last few % of scale.
+            self._timed_stage(3, self._run_vi_ba_gs, n_iters=40, bias_prior_g=0.0, bias_prior_a=0.0)
+            self.imu_stage = 3
+
+    def _timed_stage(self, stage: int, fn, **kw) -> None:
+        """Run an initialization stage; it ends in a host read, so its wall
+        time includes its device work."""
+        t0 = time.perf_counter()
+        fn(**kw)
+        self.init_stage_ms[stage] = (time.perf_counter() - t0) * 1e3
+
+    def _window(self, lo: int, last: int, fixed, W_eff: int):
+        """Pad a keyframe window [lo, last) to ``W_eff`` entries with the
+        empty last slot (fixed, edge masked) and gather its IMU blocks.
+        Returns (window_ids, fixed, imu_blocks [W_eff-1, S, 7], edge_ok) on
+        the device: edge (ids[i] -> ids[i+1]) uses block ids[i+1]."""
+        ids = list(range(lo, last))
+        fixed = list(fixed)
+        edge_ok = [ids[i + 1] not in self.chain_breaks for i in range(len(ids) - 1)]
+        pad = W_eff - len(ids)
+        if pad > 0:
+            ids = ids + [self.K_cap - 1] * pad
+            fixed = fixed + [True] * pad
+            edge_ok = edge_ok + [False] * pad
+        ids, fixed, edge_ok = ids[:W_eff], fixed[:W_eff], edge_ok[: W_eff - 1]
+        blk_ids = ids[1:]
+        blocks = np.concatenate([
+            self.kf_imu_acc[blk_ids], self.kf_imu_gyro[blk_ids], self.kf_imu_dts[blk_ids][..., None],
+        ], axis=-1).astype(np.float32)
+        dev = self.device
+        return (
+            torch.as_tensor(np.asarray(ids, np.int32), device=dev),
+            torch.as_tensor(np.asarray(fixed, bool), device=dev),
+            torch.from_numpy(blocks).to(dev),
+            torch.as_tensor(np.asarray(edge_ok, bool), device=dev),
+        )
+
+    def _insert_keyframe_vi(self, feats, ts, track_res, kf_id):
+        """A keyframe once the IMU is initialized: the VI keyframe work and
+        one host read of (admitted points, the keyframe's refined state)."""
+        # Temporal VI-BA window over the last W keyframes INCLUDING the new
+        # one (LocalInertialBA's mPrevKF chain).
+        last = kf_id + 1
+        lo = max(0, last - self.W)
+        if last <= self.W:
+            # The window covers the whole map: only keyframe 0 fixed (fixing
+            # more this early slows scale convergence).
+            fixed = [i == 0 for i in range(lo, last)]
+        else:
+            fixed = [i == 0 or i < last - self.ba_window for i in range(lo, last)]
+        window_ids, fixed_d, blocks, edge_ok = self._window(lo, last, fixed, self.W)
+        dev = self.device
+        vb = torch.from_numpy(
+            np.concatenate([self.v_cur, self.bg_cur, self.ba_cur]).astype(np.float32)
+        ).to(dev)
+        self.map, n_new = _vi_kf_work(
+            self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
+            torch.as_tensor(self.t_cur, device=dev), ts, feats, track_res.feat_pt,
+            self.n_pts, self.P_cap - self.n_pts, vb,
+            window_ids, fixed_d, blocks, edge_ok, self.calib, self.cam_params,
+            width=self.width, height=self.height, fuse_neighbors=self.fuse_neighbors,
+            do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
+            do_stats=kf_id % self.stats_every == 0,
+            do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
+            n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
+        )
+        self.n_kf += 1
+        self.last_kf_frame = self.frame_id
+        buf = torch.cat([
+            n_new.to(torch.float32).reshape(1), _pack_kf_state(self.map, kf_id)
+        ]).cpu().numpy()
+        self.n_pts += int(buf[0])
+        self._take_kf_state(kf_id, buf[1:])
+        # BA moved keyframe poses: the per-frame anchor / prior are stale.
+        self._vi_anchor = None
+        self._vi_prior = None
+        self._check_bad_imu()
+
+    def _take_kf_state(self, kf_id: int, buf: np.ndarray) -> None:
+        """Host state from a keyframe's packed (v, bg, ba, R, t)."""
+        self.v_cur = buf[0:3].copy()
+        self.bg_cur = buf[3:6].copy()
+        self.ba_cur = buf[6:9].copy()
+        self.R_cur = buf[9:18].reshape(3, 3).copy()
+        self.t_cur = buf[18:21].copy()
+        self._set_ref_cache(kf_id, self.R_cur, self.t_cur)
+
+    # ------------------------------------------------------------------
+    def _compact_hook(self, order, new_of_old, n_valid):
+        """Reorder the per-slot IMU blocks after keyframe compaction. Where
+        keyframes between two survivors were culled, their blocks are
+        concatenated into the successor's (the reference's
+        ``Preintegrated::MergePrevious``); overflow past the block capacity
+        breaks the chain at that seam (VI-BA masks the inertial edge
+        there)."""
+        old_acc, old_gyro, old_dts = self.kf_imu_acc, self.kf_imu_gyro, self.kf_imu_dts
+        acc = np.zeros_like(old_acc)
+        gyro = np.zeros_like(old_gyro)
+        dts = np.zeros_like(old_dts)
+        old_breaks = set(self.chain_breaks)
+        breaks = set()
+        for r in range(n_valid):
+            co = int(order[r])
+            if r == 0:
+                acc[0], gyro[0], dts[0] = old_acc[co], old_gyro[co], old_dts[co]
+                continue
+            po = int(order[r - 1])
+            n = 0
+            ok = True
+            for j in range(po + 1, co + 1):
+                if j in old_breaks:
+                    ok = False
+                    break
+                m_j = int((old_dts[j] > 0).sum())
+                if n + m_j > self.imu_cap_kf:
+                    ok = False
+                    break
+                acc[r, n : n + m_j] = old_acc[j, :m_j]
+                gyro[r, n : n + m_j] = old_gyro[j, :m_j]
+                dts[r, n : n + m_j] = old_dts[j, :m_j]
+                n += m_j
+            if not ok:
+                breaks.add(r)
+        self.kf_imu_acc, self.kf_imu_gyro, self.kf_imu_dts = acc, gyro, dts
+        self.chain_breaks = breaks
+        self._vi_anchor = None
+        self._vi_prior = None
+
+    # ------------------------------------------------------------------
+    def _initialize_imu(self, rounds: int = 1, bias_prior_g: float = 1e2, bias_prior_a: float = 1e6):
+        """Gravity / scale / bias initialization and map alignment
+        (LocalMapping::InitializeIMU): the closed-form-seeded inertial-only
+        solve, the map alignment, then the full inertial BA with gravity and
+        scale vertices. The bias priors follow the reference's decreasing
+        ladder across re-runs (1e2 -> 1 -> 0)."""
+        for _ in range(rounds):
+            self._imu_init_round(bias_prior_g, bias_prior_a)
+
+    def _imu_init_round(self, bias_prior_g: float = 1e2, bias_prior_a: float = 1e6):
+        n = self.n_kf
+        dev = self.device
+        m = self.map
+        R_wb, p_wb = viba.body_from_cam(m.kf_R[:n], m.kf_t[:n], self.calib.R_bc, self.calib.t_bc)
+        b_lin = torch.from_numpy(np.concatenate([self.bg_cur, self.ba_cur]).astype(np.float32)).to(dev)
+        blocks = torch.from_numpy(np.concatenate([
+            self.kf_imu_acc[1:n], self.kf_imu_gyro[1:n], self.kf_imu_dts[1:n][..., None],
+        ], axis=-1).astype(np.float32)).to(dev)
+        pre = self._preint_block(blocks, b_lin.expand(n - 1, 6))
+        edge_ok = np.asarray([(i + 1) not in self.chain_breaks for i in range(n - 1)])
+        res = viba.inertial_init(
+            R_wb, p_wb, torch.ones(n, dtype=torch.bool, device=dev),
+            torch.arange(n - 1, dtype=torch.int32, device=dev),
+            torch.arange(1, n, dtype=torch.int32, device=dev),
+            pre, torch.as_tensor(edge_ok, device=dev),
+            n_iters=40, fix_scale=self.imu_fix_scale,
+        )
+        # One host read of the solve: scale, Rwg, the shared biases (absolute:
+        # the linearization point is handled inside the residual) and v.
+        buf = torch.cat([
+            res.scale.reshape(1), res.Rwg.reshape(9), res.bg, res.ba, res.v_w.reshape(-1)
+        ]).cpu().numpy()
+        s, Rwg, bg, ba = float(buf[0]), buf[1:10].reshape(3, 3), buf[10:13], buf[13:16]
+        v = buf[16:].reshape(n, 3)
+        if not np.isfinite(s) or s < 1e-3:
+            return
+        # Align the world to gravity and rescale to metric.
+        self.map = map_updates.apply_scaled_rotation(
+            self.map, torch.as_tensor(np.ascontiguousarray(Rwg.T), device=dev), s
+        )
+        # The relative frame log carries old-scale translations.
+        self.rel_traj = [(ts, ref, R_cr, t_cr * s) for ts, ref, R_cr, t_cr in self.rel_traj]
+        # Velocities from the init solve (visual axes, metric) -> rotate.
+        v_new = (v @ Rwg).astype(np.float32)  # R_gw @ v_i
+        mm = self.map
+        mm.kf_v[:n] = torch.from_numpy(v_new).to(dev)
+        mm.kf_bg[:n] = torch.from_numpy(bg.copy()).to(dev)
+        mm.kf_ba[:n] = torch.from_numpy(ba.copy()).to(dev)
+        self.imu_initialized = True
+        # Full inertial BA over the WHOLE map with bias priors and free
+        # gravity-direction / scale vertices (FullInertialBA(bInit=true));
+        # it ends by reading the newest keyframe's state back.
+        self._run_vi_ba_gs(n_iters=25, bias_prior_g=bias_prior_g, bias_prior_a=bias_prior_a)
+
+    # ------------------------------------------------------------------
+    def _run_local_ba(self, n_iters):
+        if self.imu_initialized:
+            self._run_vi_ba(window=self.W, n_iters=n_iters)
+        else:
+            super()._run_local_ba(n_iters)
+
+    def _build_full_vi_problem(self):
+        """The all-keyframe VI problem (only keyframe 0's pose fixed), at
+        its exact size once the map outgrows a window: the gravity / scale
+        solve shifts its scale estimate by a few percent under heavy padded
+        duplication, and eager torch needs no fixed shape."""
+        n = self.n_kf
+        window_ids, fixed, blocks, edge_ok = self._window(
+            0, n, [i == 0 for i in range(n)], max(self.W, n)
+        )
+        prob = local_mapping.build_vi_ba(
+            self.map, window_ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
+            edge_ok, self.calib, self.cam_params,
+        )
+        return prob, window_ids
+
+    def _run_vi_ba_gs(self, n_iters, bias_prior_g=0.0, bias_prior_a=0.0):
+        """Full inertial BA with gravity / scale vertices, then apply the
+        recovered (Rwg, s) to the whole map."""
+        if self.n_kf < 3:
+            self._sync_host_state()
+            return
+        prob, window_ids = self._build_full_vi_problem()
+        res = viba.vi_bundle_adjust_gs(
+            prob, torch.eye(3, dtype=torch.float32, device=self.device), n_iters=n_iters,
+            bias_prior_g=bias_prior_g, bias_prior_a=bias_prior_a, fix_scale=self.imu_fix_scale,
+        )
+        self.map = local_mapping.apply_vi_ba(self.map, window_ids, res, self.calib)
+        buf = torch.cat([res.scale.reshape(1), res.Rwg.reshape(9)]).cpu().numpy()
+        s, Rwg = float(buf[0]), buf[1:10].reshape(3, 3)
+        if np.isfinite(s) and s > 1e-3:
+            # The GS residual measured the visual map as s times too small:
+            # scale and rotate the map, and put the velocity vertices (visual
+            # units inside the GS factor) into metric units too.
+            self.map = map_updates.apply_scaled_rotation(
+                self.map, torch.as_tensor(np.ascontiguousarray(Rwg.T), device=self.device), s
+            )
+            self.map = self.map._replace(kf_v=self.map.kf_v * s)
+            self.rel_traj = [(ts, ref, R_cr, t_cr * s) for ts, ref, R_cr, t_cr in self.rel_traj]
+        self._sync_host_state()
+
+    def _sync_host_state(self):
+        """Refresh the host's bias / velocity / pose from the newest
+        keyframe (one host read) and drop the stale per-frame anchor."""
+        kf_last = self.n_kf - 1
+        self._take_kf_state(kf_last, _pack_kf_state(self.map, kf_last).cpu().numpy())
+        self.vel_R = np.eye(3, dtype=np.float32)
+        self.vel_t = np.zeros(3, np.float32)
+        self._vi_anchor = None
+        self._vi_prior = None
+        self._check_bad_imu()
+
+    def _build_vi_window_problem(self, window):
+        """The (padded) VI-BA problem over the last ``window`` keyframes.
+        Returns (prob, window_ids), or None when there is nothing to solve."""
+        if self.n_kf < 2:
+            return None
+        last = self.n_kf
+        lo = max(0, last - window)
+        ids = range(lo, last)
+        if window >= last:
+            fixed = [i == 0 for i in ids]  # full BA: only the origin fixed
+        else:
+            fixed = [i == 0 or i < last - self.ba_window for i in ids]
+        if all(fixed):
+            return None
+        window_ids, fixed_d, blocks, edge_ok = self._window(lo, last, fixed, max(self.W, len(ids)))
+        prob = local_mapping.build_vi_ba(
+            self.map, window_ids, fixed_d, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
+            edge_ok, self.calib, self.cam_params,
+        )
+        return prob, window_ids
+
+    def _run_vi_ba(self, window, n_iters):
+        built = self._build_vi_window_problem(window)
+        if built is None:
+            return
+        prob, window_ids = built
+        res = viba.vi_bundle_adjust(prob, n_iters=n_iters)
+        self.map = local_mapping.apply_vi_ba(self.map, window_ids, res, self.calib)
+        # Sync the host's bias / velocity and the ref-pose cache with the
+        # newest keyframe (one host read). The tracker's current pose stays.
+        kf_last = self.n_kf - 1
+        buf = _pack_kf_state(self.map, kf_last).cpu().numpy()
+        self.v_cur = buf[0:3].copy()
+        self.bg_cur = buf[3:6].copy()
+        self.ba_cur = buf[6:9].copy()
+        self._set_ref_cache(kf_last, buf[9:18].reshape(3, 3), buf[18:21])
+        if self._check_bad_imu():
+            return
+        self._vi_anchor = None
+        self._vi_prior = None

@@ -1,7 +1,9 @@
-"""Covisibility local BA of the keyframe path — port of the mono part of
-``orb_slam3_ros_tpu.models.local_mapping``: window selection, the
-window -> ``BAProblem`` gather, and the scatter back into the map
-(the reference's LocalMapping local-BA dispatch, Optimizer.cc:1120-1460).
+"""Local BA of the keyframe path — port of the mono and mono-inertial parts
+of ``orb_slam3_ros_tpu.models.local_mapping``: covisibility window
+selection, the window -> ``BAProblem`` gather and the scatter back into
+the map (the reference's LocalMapping local-BA dispatch,
+Optimizer.cc:1120-1460), and the temporal-window visual-inertial problem
+``build_vi_ba`` / ``apply_vi_ba`` (``LocalInertialBA``, Optimizer.cc:2528).
 
 Window entries that do not exist (fewer covisible keyframes than the
 window holds) carry ``entry_valid`` False; their ids may alias live
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import ba
+from ..ops import ba, imu, viba
 from ..ops.topk import top_k
 from .map_state import MapState, covisibility, obs_matrix
 
@@ -185,3 +187,88 @@ def drop_ba_outlier_obs(
     obs_w = m.kf_obs[torch.clamp(ids, 0, m.K - 1)]
     clear = ((obs_w.reshape(-1) >= 0) & ~res.inlier).reshape(W, N)
     return m._replace(kf_obs=_write_rows(m.kf_obs, ids, torch.where(clear, -1, obs_w)))
+
+
+def build_vi_ba(
+    m: MapState,
+    window_ids: torch.Tensor,  # [W] keyframe ids in time order
+    fixed_mask: torch.Tensor,  # [W] bool
+    acc_w: torch.Tensor,  # [W-1, S, 3] IMU blocks integrating id[i] -> id[i+1]
+    gyro_w: torch.Tensor,  # [W-1, S, 3]
+    dts_w: torch.Tensor,  # [W-1, S]
+    edge_ok: torch.Tensor,  # [W-1] bool (consecutive-in-time pairs)
+    calib: imu.ImuCalib,
+    cam_params: torch.Tensor,
+    scale: float = 1.2,
+    bf: float | torch.Tensor = 0.0,
+) -> viba.VIBAProblem:
+    """Assemble a visual-inertial BA window: one visual edge per (window
+    keyframe, feature) slot over the whole point table, plus preintegration
+    edges between consecutive window keyframes, re-integrated at the earlier
+    keyframe's current bias estimate (the reference calls Reintegrate on
+    bias updates); all W-1 blocks in one batched call of the tree
+    integrator."""
+    W = window_ids.shape[0]
+    N, P = m.N, m.P
+    dev = m.kf_obs.device
+    wid = window_ids.long()
+    kf_valid = m.kf_valid[wid]
+    obs = m.kf_obs[wid].reshape(-1)
+    pt_idx = torch.clamp(obs, 0, P - 1)
+    edge_valid = (
+        (obs >= 0)
+        & m.kf_feat_valid[wid].reshape(-1)
+        & kf_valid.repeat_interleave(N)
+        & m.pt_valid[pt_idx.long()]
+    )
+    inv_sigma2 = 1.0 / scale ** (2.0 * m.kf_level[wid].reshape(-1).to(torch.float32))
+    R_wb, p_wb = viba.body_from_cam(m.kf_R[wid], m.kf_t[wid], calib.R_bc, calib.t_bc)
+    bg, ba_ = m.kf_bg[wid], m.kf_ba[wid]
+    states = viba.VIStates(R_wb=R_wb, p_wb=p_wb, v_w=m.kf_v[wid], bg=bg, ba=ba_)
+    # linearize each edge at the earlier keyframe's bias
+    b_lin = torch.cat([bg[:-1], ba_[:-1]], dim=1)  # [W-1, 6]
+    pre = imu.preintegrate(acc_w, gyro_w, dts_w, b_lin, calib)
+    ie_valid = edge_ok & kf_valid[:-1] & kf_valid[1:] & (pre.dT > 1e-6)
+    return viba.VIBAProblem(
+        states=states,
+        kf_fixed=fixed_mask,
+        kf_valid=kf_valid,
+        X=m.pt_X,
+        pt_valid=m.pt_valid,
+        cam_idx=torch.arange(W, dtype=torch.int32, device=dev).repeat_interleave(N),
+        pt_idx=pt_idx.to(torch.int32),
+        uv=m.kf_xy[wid].reshape(-1, 2),
+        inv_sigma2=inv_sigma2,
+        edge_valid=edge_valid,
+        ie_i=torch.arange(W - 1, dtype=torch.int32, device=dev),
+        ie_j=torch.arange(1, W, dtype=torch.int32, device=dev),
+        ie_preint=pre,
+        ie_valid=ie_valid,
+        cam_params=cam_params,
+        R_bc=calib.R_bc,
+        t_bc=calib.t_bc,
+        # stereo disparity rows; kf_ur < 0 marks mono observations
+        ur=m.kf_ur[wid].reshape(-1),
+        bf=torch.as_tensor(bf, dtype=m.kf_t.dtype, device=dev),
+    )
+
+
+def apply_vi_ba(m: MapState, window_ids: torch.Tensor, res, calib: imu.ImuCalib) -> MapState:
+    """Scatter VI-BA results (poses converted back to Tcw, velocities,
+    biases, landmarks) into the map. Padded window entries all alias one
+    empty slot and were never moved by the solve, so every write to it
+    carries the same values."""
+    R_cw, t_cw = viba.cam_from_body(res.states.R_wb, res.states.p_wb, calib.R_bc, calib.t_bc)
+    wid = window_ids.long()
+
+    def put(table, rows):
+        return table.index_copy(0, wid, rows)
+
+    return m._replace(
+        kf_R=put(m.kf_R, R_cw),
+        kf_t=put(m.kf_t, t_cw),
+        kf_v=put(m.kf_v, res.states.v_w),
+        kf_bg=put(m.kf_bg, res.states.bg),
+        kf_ba=put(m.kf_ba, res.states.ba),
+        pt_X=res.X,
+    )

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 class MapState(NamedTuple):
     # --- keyframes ---
@@ -58,7 +60,10 @@ class MapState(NamedTuple):
         return self.kf_obs.shape[1]
 
 
-def empty_map(K: int, N: int, P: int, dtype=torch.float32, device="cpu") -> MapState:
+def empty_map(K: int, N: int, P: int, dtype=torch.float32, device=None) -> MapState:
+    """An empty map on ``device`` (None: the CUDA device, see
+    ``orb_slam3_ros_tpu_torch.default_device``)."""
+    device = resolve_device(device)
     kw = dict(device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return MapState(

@@ -1,6 +1,7 @@
 """Map mutations — port of ``orb_slam3_ros_tpu.models.map_updates``
 (scatter formulations): keyframe insertion, landmark admission, fusion
-and culling, keyframe culling, eviction and slot compaction.
+and culling, keyframe culling, eviction and slot compaction, and the
+gravity alignment and rescaling of the map after IMU initialization.
 
 The JAX functions are pure (old state -> new state). Here
 ``update_track_counters``, ``insert_keyframe``, ``admit_depth_points`` and
@@ -226,6 +227,25 @@ def admit_new_points(
     m.kf_obs[kf_id] = new_obs_kf
     obs_ref.index_add_(0, ref_feat, d_ref)  # a view of m.kf_obs[ref_kf]
     return m, torch.sum(take, dtype=torch.int32)
+
+
+def apply_scaled_rotation(m: MapState, R_gw: torch.Tensor, s) -> MapState:
+    """Gravity-align and metrically rescale the whole map after IMU
+    initialization (``Map::ApplyScaledRotation``): X' = s R_gw X, camera
+    poses R_cw' = R_cw R_gw^T, t_cw' = s t_cw (reprojection-invariant),
+    world velocities v' = R_gw v (already metric after the init solve).
+    Viewing normals rotate and the scale-invariance band rescales with the
+    map. Returns new tensors for the fields it changes."""
+    R_wg = R_gw.T
+    return m._replace(
+        pt_X=s * m.pt_X @ R_wg,
+        kf_R=m.kf_R @ R_wg,
+        kf_t=s * m.kf_t,
+        kf_v=m.kf_v @ R_wg,
+        pt_normal=m.pt_normal @ R_wg,
+        pt_min_dist=s * m.pt_min_dist,
+        pt_max_dist=s * m.pt_max_dist,
+    )
 
 
 def cull_points(m: MapState, n_kf) -> MapState:

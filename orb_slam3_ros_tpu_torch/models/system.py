@@ -25,12 +25,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops import matching, orb, ransac
 from . import kf_work, local_mapping, map_state, map_updates, tracking
 
 NOT_INITIALIZED = 0
 OK = 1
 LOST = 2
+RECENTLY_LOST = 3  # inertial dead reckoning (InertialSlam)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -41,7 +43,9 @@ class MonoSlam:
     """Monocular pipeline (the reference's ``System(..., MONOCULAR)``).
 
     Takes the JAX package's constructor arguments with its defaults, plus
-    ``device``; the options whose paths are not ported raise when set.
+    ``device`` (None: the CUDA device, an error where there is none; the
+    CPU only when asked for); the options whose paths are not ported raise
+    when set.
     ``transfer_uint8`` sets the frame format of the chunk loop, which is not
     ported; it is kept on the object."""
 
@@ -78,7 +82,7 @@ class MonoSlam:
         points_every: int = 0,
         cam_model: str = "pinhole",
         seed: int = 0,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
         if pipelined:
             raise _not_ported("the pipelined one-frame-lag mode", "9")
@@ -92,7 +96,7 @@ class MonoSlam:
             raise _not_ported(f"camera model {cam_model!r}", "12")
         if points_every:
             raise _not_ported("the points_every observation hook", "13")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.height, self.width = height, width
         self.cam_params = torch.as_tensor(np.asarray(cam_params, np.float32), device=self.device)
         self.config = orb.default_config(height, width, n_features=n_features)
@@ -280,6 +284,7 @@ class MonoSlam:
         if self.state == NOT_INITIALIZED:
             out = self._try_initialize(feats, ts)
         else:
+            self._predict_motion(ts)
             R_pred = self.vel_R @ self.R_cur
             t_pred = self.vel_R @ self.t_cur + self.vel_t
             pt_mask = None
@@ -294,6 +299,14 @@ class MonoSlam:
             out = self._track_post(feats, res, ts)
         self.frame_id += 1
         return out
+
+    def _predict_motion(self, ts: float) -> None:
+        """Hook: update vel_R / vel_t before tracking (constant velocity
+        here; the inertial pipeline predicts from the IMU)."""
+
+    def _compact_hook(self, order, new_of_old, n_valid) -> None:
+        """Hook: reindex per-slot host state after keyframe compaction (the
+        inertial pipeline reorders and merges its IMU blocks here)."""
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats: orb.Features, ts: float):
@@ -464,6 +477,7 @@ class MonoSlam:
         self.map = m2
         self.n_kf = n_valid
         self._ref_cache = None
+        self._compact_hook(order, new_of_old, n_valid)
 
     def _insert_keyframe(self, feats, ts, track_res):
         """Insert the current frame as keyframe ``n_kf`` and run its mapping

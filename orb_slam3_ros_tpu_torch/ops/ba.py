@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cameras, lie, robust
+from . import cameras, lie, linalg, robust
 
 
 class BAProblem(NamedTuple):
@@ -215,9 +215,7 @@ def bundle_adjust(
         rhs = rhs * free[:, None]
 
         Smat = S.transpose(1, 2).reshape(K * 6, K * 6)
-        L, info = torch.linalg.cholesky_ex(Smat)
-        L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
-        delta_c = torch.cholesky_solve(rhs.reshape(K * 6, 1), L).reshape(K, 6)
+        delta_c = linalg.cho_solve(Smat, rhs.reshape(K * 6)).reshape(K, 6)
         delta_c = delta_c * free[:, None]
 
         # Back-substitute the points.

@@ -1,11 +1,19 @@
 """SO(3) / SE(3) operations in torch — the subset of ``orb_slam3_ros_tpu.ops.lie``
-that motion-only pose optimization needs.
+that pose optimization, bundle adjustment and the inertial factors need.
 
 Conventions are the JAX package's: rotations are 3x3 matrices, se(3)
 tangent vectors are ``xi = [rho, phi]`` (translation first) with
 ``exp(xi) = (exp(phi^), J_l(phi) rho)``, and small-angle branches use
 Taylor series selected with ``torch.where`` on sanitized inputs. Every
-function is batched over leading dimensions.
+function is batched over leading dimensions and free of in-place writes
+and data-dependent Python branches, so it traces under
+``torch.func.jacfwd`` and ``vmap`` (``tests/test_torch_imu.py``
+differentiates ``so3_log`` so, at the identity and batched). The port's
+solvers do not differentiate through these functions: forward-mode AD
+promotes the tangent of a float32 tensor times a 0-dim tensor to float64,
+which then meets float32 matmuls, and costs functorch's overhead per
+operation, so the inertial and visual Jacobians are closed forms
+(``imu.inertial_residual_jac``, ``viba._visual_res_jac``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: [..., 3, 3] -> [..., 3]."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _sincos_coeffs(theta2: torch.Tensor):
@@ -61,12 +74,84 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + A[..., None, None] * W + B[..., None, None] * (W @ W)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Matrix logarithm of a rotation: [..., 3, 3] -> [..., 3]. Taylor
+    branch at theta ~ 0, axis from the diagonal of R at theta ~ pi."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    vee_part = vee(R - R.transpose(-1, -2))  # = 2 sin(theta) * axis
+    # sin(theta) from |vee|, so that dividing vee by it is self-consistent
+    # near pi. Safe to differentiate at the identity: ||vee|| has a NaN
+    # derivative at 0 and every zero-residual inertial edge evaluates its
+    # Jacobian exactly there, so the small-angle branch never touches theta
+    # and the guard sits BEFORE the sqrt / atan2.
+    n2 = torch.sum(vee_part * vee_part, dim=-1)
+    small = (n2 < 1e-10) & (cos_t > 0.0)  # ||vee|| is also ~0 at theta ~ pi
+    safe_n2 = torch.where(small, torch.ones_like(n2), n2)
+    sin_t = 0.5 * torch.sqrt(safe_n2)  # dummy 0.5 in the small branch
+    theta = torch.where(small, torch.zeros_like(n2), torch.atan2(sin_t, cos_t))
+
+    # Generic branch: phi = theta / (2 sin theta) * vee(R - R^T).
+    near_pi = theta > 3.0
+    k = torch.where(small, torch.full_like(n2, 0.5), theta / (2.0 * sin_t))
+    phi_generic = k[..., None] * vee_part
+
+    # Near-pi branch: diag(R)_i = cos + (1 - cos) a_i^2; the dominant axis
+    # component is taken positive and the others come from the symmetric
+    # part (R + R^T)/2 = cos I + (1 - cos) a a^T.
+    one_minus_cos = torch.clamp(1.0 - cos_t, min=1e-12)
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    a2 = torch.clamp((diag - cos_t[..., None]) / one_minus_cos[..., None], min=0.0)
+    a_abs = torch.sqrt(a2)
+    sym = 0.5 * (R + R.transpose(-1, -2))
+    k_idx = torch.argmax(a_abs, dim=-1)
+    eye = torch.eye(3, dtype=torch.bool, device=R.device)
+
+    def take_axis(i):
+        ak = torch.clamp(a_abs[..., i], min=1e-12)
+        a = sym[..., i, :] / one_minus_cos[..., None] / ak[..., None]
+        return torch.where(eye[i], ak[..., None], a)
+
+    axes = torch.stack([take_axis(i) for i in range(3)], dim=-2)  # [..., 3, 3]
+    a_pi = torch.gather(axes, -2, k_idx[..., None, None].expand(k_idx.shape + (1, 3)))[..., 0, :]
+    a_pi = a_pi / torch.clamp(torch.linalg.vector_norm(a_pi, dim=-1, keepdim=True), min=1e-12)
+    # Sign of the axis from vee where it is informative (exactly at pi
+    # vee = 0 and either sign is a valid log).
+    neg = torch.sum(a_pi * vee_part, dim=-1, keepdim=True) < 0.0
+    phi_pi = theta[..., None] * torch.where(neg, -a_pi, a_pi)
+    return torch.where(near_pi[..., None], phi_pi, phi_generic)
+
+
 def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     """Left Jacobian J_l of SO(3)."""
     theta2 = torch.sum(phi * phi, dim=-1)
     _, B, C = _sincos_coeffs(theta2)
     W = hat(phi)
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian (closed form)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small = theta2 < _EPS
+    safe_t2 = torch.where(small, torch.ones_like(theta2), theta2)
+    half_t = 0.5 * torch.sqrt(safe_t2)
+    k_exact = (1.0 - half_t / torch.tan(half_t)) / safe_t2
+    k_taylor = 1.0 / 12.0 + theta2 / 720.0 + theta2 * theta2 / 30240.0
+    k = torch.where(small, k_taylor, k_exact)
+    W = hat(phi)
+    return _eye_like(W) - 0.5 * W + k[..., None, None] * (W @ W)
+
+
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r(phi) = J_l(-phi) (the reference's
+    ``RightJacobianSO3`` of IMU preintegration)."""
+    return so3_left_jacobian(-phi)
+
+
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian."""
+    return so3_left_jacobian_inv(-phi)
 
 
 def se3_exp(xi: torch.Tensor):

@@ -1,11 +1,13 @@
-"""``torch.linalg.eigh`` / ``svd`` with the JAX package's NaN semantics.
+"""``torch.linalg`` factorizations with the JAX package's NaN semantics.
 
 ``jnp.linalg.eigh`` and ``jnp.linalg.svd`` return NaN for a matrix with a
-non-finite entry; the torch functions raise. The solvers feed them such
-matrices on purpose: an LM step from a failed Cholesky, an IRLS weight of
-a non-finite residual. These wrappers solve a finite stand-in (the
-identity) for each such matrix of the batch and return NaN in its place,
-without reading anything back to the host.
+non-finite entry, ``cho_factor`` for one that is not positive definite and
+``jnp.linalg.inv`` NaN or inf for a singular one; the torch functions
+raise. The solvers feed them such matrices on purpose: an LM step from a
+failed Cholesky, an IRLS weight of a non-finite residual. These wrappers
+return NaN in place of each such matrix of the batch, without reading
+anything back to the host; an LM step built from NaN has a NaN cost and is
+rejected.
 """
 
 from __future__ import annotations
@@ -39,3 +41,17 @@ def svd(A: torch.Tensor):
     ok = _finite(A)
     u, s, vh = torch.linalg.svd(_stand_in(A, ok))
     return _nan_where_not(ok, u), _nan_where_not(ok, s), _nan_where_not(ok, vh)
+
+
+def cho_solve(H: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``H x = rhs`` ([n, n], [n]) by Cholesky; NaN where ``H`` is not
+    positive definite."""
+    L, info = torch.linalg.cholesky_ex(H)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.cholesky_solve(rhs[:, None], L)[:, 0]
+
+
+def inv(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of [..., n, n]; NaN for a singular or non-finite matrix."""
+    Ai, info = torch.linalg.inv_ex(A)
+    return _nan_where_not((info == 0) & _finite(A), Ai)

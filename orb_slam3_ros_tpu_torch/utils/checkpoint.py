@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 
+from .. import resolve_device
 from ..models import map_state
 from ..models.map_state import MapState
 
@@ -41,8 +42,8 @@ def save_map(path: str, m: MapState, counters: dict) -> str:
     return digest
 
 
-def load_map(path: str, device="cpu") -> tuple[MapState, dict]:
-    """Load a checkpoint onto ``device``; raises on a wrong magic string or
+def load_map(path: str, device=None) -> tuple[MapState, dict]:
+    """Load a checkpoint onto ``device`` (None: the CUDA device); raises on a wrong magic string or
     an md5 mismatch. Returns (map, counters)."""
     with open(path + ".json") as f:
         manifest = json.load(f)
@@ -53,5 +54,5 @@ def load_map(path: str, device="cpu") -> tuple[MapState, dict]:
     if digest != manifest["md5"]:
         raise ValueError(f"checkpoint checksum mismatch: {digest} != {manifest['md5']}")
     with np.load(_npz_path(path)) as data:
-        m = map_state.from_numpy(data, device)
+        m = map_state.from_numpy(data, resolve_device(device))
     return m, manifest["counters"]

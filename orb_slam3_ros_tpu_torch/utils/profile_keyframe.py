@@ -1,7 +1,7 @@
-"""Card profile of the monocular mapping path: one keyframe's work split
-by stage.
+"""Card profile of the mapping paths: one keyframe's work split by stage.
 
     python -m orb_slam3_ros_tpu_torch.utils.profile_keyframe --out DIR
+    python -m orb_slam3_ros_tpu_torch.utils.profile_keyframe --out DIR --vi
 
 Maps ``chip_smoke.py``'s mapping sequence (752x480, 1000 features,
 ``bench.py``'s configuration, 120 frames) from frame 0 on the CUDA card.
@@ -13,6 +13,14 @@ is timed stage by stage with host clocks around synchronized calls. Last,
 one tracking frame runs under the profiler. Writes ``result.json``, the
 chrome traces and the profiler's tables to DIR and prints the result
 without the per-frame times.
+
+``--vi`` does the same for the mono-inertial path: ``InertialSlam`` over
+``chip_smoke.py``'s 165-frame sequence with IMU samples; after the third
+IMU initialization stage one VI keyframe (insert, triangulate, admit, fuse,
+``build_vi_ba`` with its window preintegration, ``vi_bundle_adjust``,
+apply, culls) is profiled and the next timed by stage, then one VI frame
+(preintegration, prediction, extraction, tracking, the 15-dof refinement)
+is profiled, with no keyframe.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ from pathlib import Path
 
 import torch
 
-from ..models import kf_work, local_mapping, map_updates, system, tracking
-from ..ops import ba, project_match
+import numpy as np
+
+from ..models import inertial_system, kf_work, local_mapping, map_updates, system, tracking
+from ..ops import ba, imu, orb, project_match, viba
 from . import synth
 
 # (stage, module, function): the stages keyframe_work calls, in order.
@@ -45,8 +55,46 @@ STAGES = (
     ("stats", map_updates, "refresh_point_stats"),
     ("cull_kf", map_updates, "cull_keyframes"),
 )
+# the stages of inertial_system._vi_kf_work, then those of a VI frame
+VI_STAGES = (
+    ("insert", map_updates, "insert_keyframe"),
+    ("triangulate", tracking, "triangulate_with_ref"),
+    ("admit", map_updates, "admit_new_points"),
+    ("fuse", map_updates, "fuse_in_neighbors"),
+    ("build_vi_ba", local_mapping, "build_vi_ba"),
+    ("preintegrate", imu, "preintegrate"),  # inside build_vi_ba on a keyframe
+    ("vi_ba", viba, "vi_bundle_adjust"),
+    ("apply_vi_ba", local_mapping, "apply_vi_ba"),
+    ("cull_points", map_updates, "cull_points"),
+    ("stats", map_updates, "refresh_point_stats"),
+    ("cull_kf", map_updates, "cull_keyframes"),
+    ("predict", imu, "predict_state"),
+    ("extract", orb, "extract"),
+    ("track", tracking, "track_against_map"),
+    ("vi_refine", inertial_system, "_vi_refine"),
+)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 H, W, N_FRAMES = 480, 752, 120
+# The mono-inertial configuration (``bench.py``'s ``main_vi``: EuRoC noise
+# densities at 100 Hz): ``chip_smoke.py``'s mono-inertial phase and ``--vi``
+# here drive the same run from these.
+VI_IMU_HZ = 100.0
+VI_SEQ_KW = dict(n_frames=165, height=H, width=W, frame_dt=0.1, imu_per_frame=10, seed=0,
+                 bg=np.array([0.01, -0.015, 0.02]), noise_g=1e-4, noise_a=1e-3)
+VI_SLAM_KW = dict(height=H, width=W, n_features=1000, max_keyframes=64, max_points=4096,
+                  kf_every=5, init_after_kf=6, lean_after_kf=4, track_cap=768, fuse_every=3,
+                  stats_every=3, cull_every=3, local_ba_iters=4, imu_cap_kf=64, imu_cap_frame=16)
+
+
+def vi_calib() -> imu.ImuCalib:
+    """The IMU noise calibration of the mono-inertial configuration."""
+    return imu.ImuCalib(
+        sigma_g=np.full(3, 1.7e-4 * np.sqrt(VI_IMU_HZ), np.float32),
+        sigma_a=np.full(3, 2e-3 * np.sqrt(VI_IMU_HZ), np.float32),
+        sigma_gw=np.full(3, 1.9e-5 / np.sqrt(VI_IMU_HZ), np.float32),
+        sigma_aw=np.full(3, 3e-3 / np.sqrt(VI_IMU_HZ), np.float32),
+        R_bc=np.eye(3, dtype=np.float32), t_bc=np.zeros(3, np.float32),
+    )
 
 
 class _StageHooks:
@@ -54,12 +102,13 @@ class _StageHooks:
     range named ``stage::<stage>``, or, while ``times`` is a dict, host
     clocks around the synchronized call."""
 
-    def __init__(self):
+    def __init__(self, stages=STAGES):
+        self.stages = stages
         self.times = None
         self._saved = []
 
     def install(self):
-        for name, mod, attr in STAGES:
+        for name, mod, attr in self.stages:
             fn = getattr(mod, attr)
             self._saved.append((mod, attr, fn))
             setattr(mod, attr, self._wrap(name, fn))
@@ -98,6 +147,24 @@ def _profiled(fn, trace: Path, table: Path) -> float:
     prof.export_chrome_trace(str(trace))
     table.write_text(prof.key_averages().table(sort_by="cpu_time_total", row_limit=60))
     return wall
+
+
+def device_profile(fn):
+    """(kernels launched, their summed device ms) of one ``fn()`` under
+    ``torch.profiler``, from its events in memory; (None, None) where the
+    profiler traced nothing on the card."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    launches = sum("memcpy" not in e.name.lower() and "memset" not in e.name.lower() for e in kernels)
+    # ``device_time_total`` was ``cuda_time_total`` in older torch
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0) for e in kernels)
+    return launches, us / 1e3
 
 
 def stage_split(trace: Path) -> dict:
@@ -139,9 +206,66 @@ def stage_split(trace: Path) -> dict:
     return out
 
 
+def profile_vi(out: Path, card: str) -> dict:
+    """The ``--vi`` mode: see the module docstring."""
+    n_frames = VI_SEQ_KW["n_frames"]
+    seq, im = synth.make_vi_sequence(**VI_SEQ_KW)
+    slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(), **VI_SLAM_KW)
+    result = {"card": card}
+    hooks = _StageHooks(VI_STAGES)
+    work = inertial_system._vi_kf_work
+
+    def hooked(*a, **kw):
+        kf_id = a[1]
+        full = kw["do_fuse"] and kw["do_stats"] and kw["do_cull"] and slam.imu_stage == 3
+        if full and "profiled_kf" not in result:
+            box = []
+            wall = _profiled(lambda: box.append(work(*a, **kw)),
+                             out / "vi_kf_trace.json", out / "vi_kf_table.txt")
+            result["profiled_kf"] = dict(kf_id=kf_id, wall_ms=wall,
+                                         stages=stage_split(out / "vi_kf_trace.json"))
+            return box[0]
+        if full and "timed_kf" not in result:
+            hooks.times = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = work(*a, **kw)
+            torch.cuda.synchronize()
+            result["timed_kf"] = dict(kf_id=kf_id, wall_ms=(time.perf_counter() - t0) * 1e3,
+                                      stages_ms=hooks.times)
+            hooks.times = None
+            return res
+        return work(*a, **kw)
+
+    def frame(i):
+        return slam.process_frame(seq.images[i], float(seq.timestamps[i]),
+                                  acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i])
+
+    hooks.install()
+    inertial_system._vi_kf_work = hooked
+    frame_ms = []
+    try:
+        for i in range(n_frames - 1):
+            t0 = time.perf_counter()
+            frame(i)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        # One more VI frame, kept from becoming a keyframe, under the profiler.
+        slam.activate_localization_mode()
+        wall = _profiled(lambda: frame(n_frames - 1), out / "vi_frame_trace.json",
+                         out / "vi_frame_table.txt")
+    finally:
+        inertial_system._vi_kf_work = work
+        hooks.remove()
+    result["vi_frame"] = dict(wall_ms=wall, stages=stage_split(out / "vi_frame_trace.json"))
+    result.update(n_kf=slam.n_kf, imu_stage=slam.imu_stage, init_stage_ms=slam.init_stage_ms,
+                  frame_ms=frame_ms)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True, help="output directory")
+    ap.add_argument("--vi", action="store_true", help="profile the mono-inertial path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_keyframe: no CUDA device", file=sys.stderr)
@@ -154,6 +278,12 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     project_match.build()
+    if args.vi:
+        result = profile_vi(out, card)
+        (out / "vi_result.json").write_text(json.dumps(result, indent=1))
+        (out / "vi_frame_trace.json").unlink()  # tens of MB; its stage split is in the result
+        print(json.dumps({k: v for k, v in result.items() if k != "frame_ms"}))
+        return 0
     seq = synth.make_sequence(n_frames=N_FRAMES, height=H, width=W, dt=0.1, seed=3, device="cuda")
     # chip_smoke.py's mapping configuration (bench.py:60-66).
     slam = system.MonoSlam(

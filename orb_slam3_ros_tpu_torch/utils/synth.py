@@ -1,6 +1,7 @@
 """Synthetic dataset: a ray-traced textured room with exact ground-truth
-poses and depth — port of the pinhole / orbit part of
-``orb_slam3_ros_tpu.utils.synth``.
+poses and depth — port of the pinhole part of
+``orb_slam3_ros_tpu.utils.synth``: the orbit sequence and the
+visual-inertial "wander" sequence with its exact IMU samples.
 
 The port carries its own renderer because the machine that runs it on the
 GPU has no JAX. Textures and trajectories are the same numpy code as the
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..models import map_state, map_updates
 from ..ops import orb, stereo
 
@@ -53,8 +55,10 @@ class RoomScene(NamedTuple):
     textures: torch.Tensor  # [6, S, S] one per face (+x,-x,+y,-y,+z,-z)
 
 
-def make_room(seed: int = 0, device="cpu") -> RoomScene:
-    """The JAX package's default room: 8 x 6 x 5 m, 1024^2 textures."""
+def make_room(seed: int = 0, device=None) -> RoomScene:
+    """The JAX package's default room: 8 x 6 x 5 m, 1024^2 textures, on
+    ``device`` (None: the CUDA device)."""
+    device = resolve_device(device)
     texs = np.stack([_value_noise_texture(1024, seed * 7 + i) for i in range(6)])
     return RoomScene(
         half=torch.tensor((4.0, 3.0, 2.5), dtype=torch.float32, device=device),
@@ -168,9 +172,10 @@ def make_sequence(
     dt: float = 0.1,
     seed: int = 0,
     with_depth: bool = False,
-    device="cpu",
+    device=None,
 ) -> SynthSequence:
-    """Render a sequence along the orbit trajectory on ``device``."""
+    """Render a sequence along the orbit trajectory on ``device`` (None:
+    the CUDA device)."""
     scene = make_room(seed=seed, device=device)
     f = 0.55 * width
     cam = np.asarray([f, f, (width - 1) / 2.0, (height - 1) / 2.0, 0, 0, 0, 0, 0], np.float32)
@@ -189,6 +194,110 @@ def make_sequence(
         cam_params=cam,
         depths=torch.stack(deps) if with_depth else None,
     )
+
+
+# ---------------------------------------------------------------------------
+# Visual-inertial sequence: an analytic trajectory whose exact derivatives
+# give the IMU measurements (gyro = vee(R^T dR/dt), specific force =
+# R^T (a - g)), not finite differences.
+# ---------------------------------------------------------------------------
+
+
+def _vi_pose_fn(t: torch.Tensor):
+    """Smooth body pose (R_wb(t) [3,3], p_wb(t) [3]) inside the room,
+    looking mostly at the +x wall — the JAX package's "wander" trajectory.
+    Deliberately dynamic (peak acceleration ~5 m/s^2): IMU scale and
+    gravity observability need excitation."""
+    px = 1.0 * torch.sin(0.45 * t) + 0.12 * torch.sin(2.6 * t)
+    py = 0.7 * torch.sin(0.31 * t + 0.7) + 0.10 * torch.sin(3.1 * t + 0.4)
+    pz = 0.3 * torch.sin(0.53 * t) + 0.08 * torch.sin(2.2 * t + 1.1)
+    p = torch.stack([px, py, pz])
+    look = torch.stack([4.0 + 0.0 * t, 1.4 * torch.sin(0.23 * t), 0.9 * torch.cos(0.19 * t)])
+    z = look - p
+    z = z / torch.linalg.vector_norm(z)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype)
+    x = torch.linalg.cross(z, up)
+    x = x / torch.linalg.vector_norm(x)
+    y = torch.linalg.cross(z, x)
+    return torch.stack([x, y, z], dim=-1), p
+
+
+def make_vi_sequence(
+    n_frames: int = 40,
+    height: int = 240,
+    width: int = 376,
+    frame_dt: float = 0.1,
+    imu_per_frame: int = 10,
+    seed: int = 0,
+    gravity=None,
+    bg=None,
+    ba=None,
+    noise_g: float = 0.0,
+    noise_a: float = 0.0,
+    trajectory: str = "wander",
+    device=None,
+):
+    """Render frames on ``device`` (None: the CUDA device) and make the
+    exact IMU samples of the analytic trajectory.
+
+    Returns (SynthSequence, imu dict of numpy arrays) where imu has the
+    per-frame sample blocks ``acc [N, M, 3], gyro [N, M, 3], dts [N, M]``
+    covering the interval ending at each frame (block i integrates frame
+    i-1 -> i; block 0 is zeros), the true velocities ``vel [N, 3]`` and
+    ``gravity``, ``bg``, ``ba``. Angular velocity, velocity and acceleration
+    are forward-mode derivatives of the pose function in float64 on the
+    host; the noise stream (``default_rng(seed + 100)``, gyro then
+    accelerometer per sample) is the JAX package's."""
+    if trajectory != "wander":
+        raise NotImplementedError(
+            f"trajectory {trajectory!r} is not ported (ROADMAP Queue 1 item 11: it serves loop closing)"
+        )
+    from torch.func import jacfwd, vmap
+
+    g = np.array([0.0, 0.0, -9.81]) if gravity is None else np.asarray(gravity)
+    bg = np.zeros(3) if bg is None else np.asarray(bg)
+    ba = np.zeros(3) if ba is None else np.asarray(ba)
+    rng = np.random.default_rng(seed + 100)
+    f64 = torch.float64
+
+    ts = np.arange(n_frames) * frame_dt
+    pos = lambda t: _vi_pose_fn(t)[1]
+    R_all, p_all = vmap(_vi_pose_fn)(torch.as_tensor(ts, dtype=f64))
+    vel = vmap(jacfwd(pos))(torch.as_tensor(ts, dtype=f64)).numpy().astype(np.float32)
+    R_wc = R_all.numpy().astype(np.float32)
+    t_wc = p_all.numpy().astype(np.float32)
+
+    scene = make_room(seed=seed, device=device)
+    fl = 0.55 * width
+    cam = np.asarray([fl, fl, (width - 1) / 2.0, (height - 1) / 2.0, 0, 0, 0, 0, 0], np.float32)
+    imgs = [
+        render(scene, R_wc[i], t_wc[i], cam, height=height, width=width)[0]
+        for i in range(n_frames)
+    ]
+
+    dt_imu = frame_dt / imu_per_frame
+    acc = np.zeros((n_frames, imu_per_frame, 3), np.float32)
+    gyro = np.zeros((n_frames, imu_per_frame, 3), np.float32)
+    dts = np.zeros((n_frames, imu_per_frame), np.float32)
+    if n_frames > 1:
+        # sample k of frame i is taken at ts[i-1] + k * dt_imu
+        tk = torch.as_tensor(
+            ts[:-1, None] + np.arange(imu_per_frame)[None, :] * dt_imu, dtype=f64
+        ).reshape(-1)
+        R_k = vmap(lambda t: _vi_pose_fn(t)[0])(tk).numpy()
+        dR_k = vmap(jacfwd(lambda t: _vi_pose_fn(t)[0]))(tk).numpy()
+        a_k = vmap(jacfwd(jacfwd(pos)))(tk).numpy()
+        w_hat = np.einsum("nji,njk->nik", R_k, dR_k)
+        omega = np.stack([w_hat[:, 2, 1], w_hat[:, 0, 2], w_hat[:, 1, 0]], axis=-1)
+        f_b = np.einsum("nji,nj->ni", R_k, a_k - g)
+        noise = rng.normal(size=(tk.shape[0], 2, 3))  # per sample: gyro draw, then accel draw
+        gyro[1:] = (omega + bg + noise[:, 0] * noise_g).reshape(n_frames - 1, imu_per_frame, 3)
+        acc[1:] = (f_b + ba + noise[:, 1] * noise_a).reshape(n_frames - 1, imu_per_frame, 3)
+        dts[1:] = dt_imu
+    seq = SynthSequence(
+        images=torch.stack(imgs), R_wc=R_wc, t_wc=t_wc, timestamps=ts, cam_params=cam, depths=None
+    )
+    return seq, dict(acc=acc, gyro=gyro, dts=dts, vel=vel, gravity=g, bg=bg, ba=ba)
 
 
 MAX_DEPTH = 8.0  # RgbdSlam's default depth cut-off (m)

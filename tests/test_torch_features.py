@@ -107,7 +107,8 @@ class TestMath:
 def test_render_matches_reference(seq):
     # Same textures and trajectory; float op order differs (einsum, ray
     # divisions), which moves a few bilinear samples by more than 1e-3 grey.
-    ts = tsynth.make_sequence(n_frames=2, height=H, width=W, dt=0.1, seed=3, with_depth=True)
+    ts = tsynth.make_sequence(n_frames=2, height=H, width=W, dt=0.1, seed=3, with_depth=True,
+                              device="cpu")
     np.testing.assert_array_equal(ts.R_wc, seq.R_wc)
     np.testing.assert_array_equal(ts.cam_params, seq.cam_params)
     diff = np.abs(ts.images.numpy() - seq.images)

@@ -1,0 +1,191 @@
+"""The mono-inertial slice as a whole, at the configuration of
+``tests/test_inertial_e2e.py`` (45 frames at 240x376 with 100 Hz IMU, from
+frame 0). The port's two-view initialization draws other hypotheses than
+the JAX package's, so keyframe times and the initialization stages' trigger
+frames differ: end-to-end results are compared, never trajectories.
+
+Both packages run in the module's fixture, the JAX package first (about
+200 s on two cores), and the port is held to that run's result.
+``JAX_RESULT`` below is a record of the JAX package's result, kept as a
+second check: a change in the JAX package or in ``synth`` that moves its
+result shows as a failure of ``jax_run_matches_its_record``, not as a
+silent shift of the port's bound. The file holds 20+ cases so that
+``--dist loadfile`` starts it among the first files of a whole run.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_ros_tpu.models.inertial_system import InertialSlam as JaxInertialSlam
+from orb_slam3_ros_tpu.utils import synth as jsynth
+from orb_slam3_ros_tpu.utils.evaluate_ate import align_umeyama, ate_rmse
+from orb_slam3_ros_tpu_torch.models import inertial_system as tis
+from orb_slam3_ros_tpu_torch.models import system as tsys
+from orb_slam3_ros_tpu_torch.utils import synth as tsynth
+from torch_parity import torch_calib
+from vi_sim import make_calib
+
+torch.set_num_threads(1)
+N_FRAMES, N_SKIP = 45, 12  # the first keyframes are pre-metric
+SEQ_KW = dict(n_frames=N_FRAMES, height=240, width=376, frame_dt=0.1, imu_per_frame=10, seed=0,
+              bg=np.array([0.01, -0.015, 0.02]), noise_g=1e-4, noise_a=1e-3)
+SLAM_KW = dict(height=240, width=376, n_features=1200, max_keyframes=32, max_points=4096,
+               kf_every=3, init_after_kf=6)
+# A record of ``orb_slam3_ros_tpu.models.inertial_system.InertialSlam`` over
+# SEQ_KW with SLAM_KW and ``make_calib(freq=100.0)`` on the CPU: metric ATE
+# (m), Umeyama scale, poses scored, gyro bias, keyframes.
+JAX_RESULT = dict(metric=0.02258, scale=0.96793, n=31, bg=[0.01762, -0.01235, 0.01911], n_kf=16)
+
+
+def _run(slam, seq, imu):
+    outs = [
+        slam.process_frame(seq.images[i], float(seq.timestamps[i]),
+                           acc=imu["acc"][i], gyro=imu["gyro"][i], dts=imu["dts"][i])
+        for i in range(N_FRAMES)
+    ]
+    getattr(slam, "flush", lambda: None)()  # the JAX package drains its last frame here
+    traj = slam.get_trajectory()
+    ts = np.asarray([t for t, _ in traj])[N_SKIP:]
+    est = np.stack([T[:3, 3] for _, T in traj])[N_SKIP:]
+    gt_ts = seq.timestamps.astype(np.float64)
+    _, n, scale = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=True)
+    metric, _, _ = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=False)
+    gt = seq.t_wc[np.clip(np.searchsorted(seq.timestamps, ts), 0, N_FRAMES - 1)]
+    _, R, _ = align_umeyama(est, gt, with_scale=True)
+    return dict(outs=outs, n=n, scale=scale, metric=metric, r22=R[2, 2])
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jseq, jimu = jsynth.make_vi_sequence(**SEQ_KW)
+    jslam = JaxInertialSlam(cam_params=jseq.cam_params, calib=make_calib(freq=100.0), **SLAM_KW)
+    jres = _run(jslam, jseq, jimu)
+    jres.update(initialized=bool(jslam.imu_initialized), n_kf=int(jslam.n_kf),
+                bg=np.asarray(jslam.bg_cur, np.float64))
+    del jslam
+    tseq, timu_ = tsynth.make_vi_sequence(**SEQ_KW, device="cpu")
+    tslam = tis.InertialSlam(cam_params=tseq.cam_params, calib=torch_calib(make_calib(freq=100.0)),
+                             device="cpu", **SLAM_KW)
+    tres = _run(tslam, tseq, timu_)
+    tres["jax"] = jres
+    return tslam, tres, timu_, tseq
+
+
+# Read-only checks of the finished run, one case each; the tests after
+# them drive the system further and run in file order.
+def _first_pose(res):
+    return next(i for i, o in enumerate(res["outs"]) if o is not None)
+
+
+CHECKS = {
+    "state_ok": lambda t, r, imu: t.state == tsys.OK,
+    "imu_initialized": lambda t, r, imu: t.imu_initialized,
+    "all_three_stages_done": lambda t, r, imu: t.imu_stage == 3
+    and sorted(t.init_stage_ms) == [1, 2, 3],
+    "no_bad_imu_reset": lambda t, r, imu: t.bad_imu_resets == 0,
+    "at_least_8_keyframes": lambda t, r, imu: t.n_kf >= 8,
+    "map_initialized_by_frame_3": lambda t, r, imu: _first_pose(r) <= 3,
+    "no_frame_lost_after_initialization":
+        lambda t, r, imu: all(o is not None for o in r["outs"][_first_pose(r):]),
+    "enough_poses_scored": lambda t, r, imu: r["n"] >= 20,
+    # The JAX test's bounds: scale within 5%, metric ATE < 0.10 m; and the
+    # port no worse than the JAX package's run beside it by more than 2 cm
+    # on the same sequence (measured: port 0.0083 m, scale 0.994; JAX
+    # package 0.0226 m, scale 0.968).
+    "scale_within_5_percent": lambda t, r, imu: abs(r["scale"] - 1.0) < 0.05,
+    "metric_ate_against_jax":
+        lambda t, r, imu: r["metric"] <= min(0.10, r["jax"]["metric"] + 0.02),
+    # the Umeyama rotation onto ground truth keeps the z axis: pure yaw
+    "gravity_aligned": lambda t, r, imu: abs(r["r22"]) > 0.98,
+    "gyro_bias_near_truth": lambda t, r, imu: np.abs(t.bg_cur - imu["bg"]).max() <= 1.5e-2,
+    "gyro_bias_near_jax":
+        lambda t, r, imu: np.abs(t.bg_cur - r["jax"]["bg"]).max() <= 1e-2,
+    # the map carries the inertial state
+    "keyframe_velocities_written":
+        lambda t, r, imu: float(t.map.kf_v[: t.n_kf].norm(dim=1).max()) > 0.05,
+    "host_bias_is_newest_keyframes":
+        lambda t, r, imu: np.abs(t.map.kf_bg[t.n_kf - 1].numpy() - t.bg_cur).max() < 1e-6,
+    "every_keyframe_has_its_imu_block":
+        lambda t, r, imu: bool((t.kf_imu_dts[1 : t.n_kf] > 0).any(axis=1).all()),
+    "imu_chain_unbroken": lambda t, r, imu: t.chain_breaks == set(),
+    "as_many_keyframes_as_jax_within_2": lambda t, r, imu: abs(t.n_kf - r["jax"]["n_kf"]) <= 2,
+    # The JAX package's own run meets its test's bounds and its record.
+    # Same machine, same XLA: equal to the printed digits; the tolerances
+    # allow another CPU's code generation (float32 summation order).
+    "jax_run_initialized_and_metric":
+        lambda t, r, imu: r["jax"]["initialized"] and r["jax"]["metric"] < 0.10
+        and abs(r["jax"]["scale"] - 1.0) < 0.05,
+    "jax_run_matches_its_record":
+        lambda t, r, imu: r["jax"]["n_kf"] == JAX_RESULT["n_kf"] and r["jax"]["n"] == JAX_RESULT["n"]
+        and abs(r["jax"]["metric"] - JAX_RESULT["metric"]) < 5e-3
+        and abs(r["jax"]["scale"] - JAX_RESULT["scale"]) < 5e-3
+        and np.abs(r["jax"]["bg"] - np.asarray(JAX_RESULT["bg"])).max() < 2e-3,
+}
+
+
+@pytest.mark.parametrize("name", list(CHECKS))
+def test_run(runs, name):
+    tslam, tres, imu, _ = runs
+    assert CHECKS[name](tslam, tres, imu), (
+        name, tres["scale"], tres["metric"], tres["r22"], tslam.bg_cur, tslam.n_kf,
+        {k: v for k, v in tres["jax"].items() if k != "outs"})
+
+
+def test_window_vi_ba_entry_point(runs):
+    # ``_run_local_ba`` once the IMU is initialized is the temporal-window
+    # VI-BA over the last W keyframes; on the converged map it moves the
+    # newest keyframe by millimetres, leaves the host's bias and velocity
+    # equal to that keyframe's, and drops the stale per-frame anchor.
+    slam, _, _, _ = runs
+    n = slam.n_kf
+    t_before = slam.map.kf_t[n - 1].clone()
+    slam._vi_anchor = slam._body_state_from_host()
+    slam._run_local_ba(2)
+    assert slam._vi_anchor is None and slam._vi_prior is None
+    assert float((slam.map.kf_t[n - 1] - t_before).norm()) < 0.02
+    np.testing.assert_allclose(slam.map.kf_bg[n - 1].numpy(), slam.bg_cur, atol=1e-7)
+    np.testing.assert_allclose(slam.map.kf_v[n - 1].numpy(), slam.v_cur, atol=1e-7)
+    assert slam.bad_imu_resets == 0
+
+
+def test_imu_seeds_the_visual_tracker(runs):
+    # vi_tracking=False: frames go through the visual tracker, its motion
+    # model seeded by the IMU prediction instead of constant velocity. The
+    # last frame again, 0.1 s later, with its own IMU block: the prediction
+    # is a few centimetres off and the tracker pulls it back.
+    slam, _, imu, tseq = runs
+    slam.vi_tracking = False
+    i = N_FRAMES - 1
+    before = slam._pose_mat()
+    out = slam.process_frame(tseq.images[i], float(tseq.timestamps[i]) + 0.1,
+                             acc=imu["acc"][i], gyro=imu["gyro"][i], dts=imu["dts"][i])
+    slam.vi_tracking = True
+    assert out is not None and slam.state == tsys.OK
+    assert np.linalg.norm(out[:3, 3] - before[:3, 3]) < 0.05  # the same view: the same pose
+
+
+@pytest.mark.parametrize("call", ["process_frames", "_start_async_gba"])
+def test_unported_entry_points_raise(runs, call):
+    slam, _, _, _ = runs
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(slam, call)([np.zeros((240, 376), np.float32)], [9.0])
+
+
+def test_dead_reckoning_then_lost(runs):
+    # A blank frame has no visual support: dead reckoning on the IMU
+    # (RECENTLY_LOST), and LOST once time_recently_lost has passed, where
+    # relocalization is not ported.
+    slam, _, imu, _ = runs
+    img = np.zeros((240, 376), np.float32)
+    kw = dict(acc=imu["acc"][5], gyro=imu["gyro"][5], dts=imu["dts"][5])
+    ts = float(slam._last_frame_ts)
+    assert slam.process_frame(img, ts + 0.1, **kw) is not None
+    assert slam.state == tsys.RECENTLY_LOST
+    slam.time_recently_lost = 0.05
+    assert slam.process_frame(img, ts + 0.2, **kw) is None and slam.state == tsys.LOST
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        slam.process_frame(img, ts + 0.3, **kw)
+    slam.on_frame = print
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        slam.process_frame(img, ts + 0.4, **kw)

@@ -52,7 +52,7 @@ def test_mono_slice_end_to_end(seq):
     _, n_jax, ate_jax = run(jslam, seq)
     assert n_jax >= 30 and ate_jax < 0.10
 
-    slam = tsys.MonoSlam(cam_params=seq.cam_params, **SLAM_KW)
+    slam = tsys.MonoSlam(cam_params=seq.cam_params, device="cpu", **SLAM_KW)
     first, n_port, ate_port = run(slam, seq)
     assert slam.state == tsys.OK
     assert first is not None and first <= 4, first

@@ -58,7 +58,7 @@ def test_slice_localization_tracking(tmp_path):
     jckpt.load_system(path, jslam)
     ate_jax, pos_jax = _run(jslam, seq)
 
-    tslam = tsys.MonoSlam(cam_params=seq.cam_params, **SLAM_KW)
+    tslam = tsys.MonoSlam(cam_params=seq.cam_params, device="cpu", **SLAM_KW)
     tslam.load_map(path)
     assert tslam.state == tsys.OK and tslam._current_schedule() == tslam._sched_lean
     ate_port, pos_port = _run(tslam, seq)
@@ -70,7 +70,7 @@ def test_slice_localization_tracking(tmp_path):
 
 def test_unported_states_raise():
     cam = np.asarray([200, 200, 187.5, 119.5, 0, 0, 0, 0, 0], np.float32)
-    slam = tsys.MonoSlam(cam_params=cam, **SLAM_KW)
+    slam = tsys.MonoSlam(cam_params=cam, device="cpu", **SLAM_KW)
     img = np.zeros((H, W), np.float32)
     # NOT_INITIALIZED runs two-view initialization: a blank frame has no
     # features, so it waits for a reference frame.
@@ -81,8 +81,8 @@ def test_unported_states_raise():
         slam.process_frame(img, 0.1)  # no relocalization
     for kw in ({"pipelined": True}, {"enable_loop_closing": True}, {"cam_model": "kb8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsys.MonoSlam(cam_params=cam, **{**SLAM_KW, **kw})
-    other = tsys.MonoSlam(cam_params=cam, **{**SLAM_KW, "max_points": 128})
+            tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, **kw})
+    other = tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, "max_points": 128})
     with pytest.raises(ValueError):
         slam.set_map(other.map, 0, 0, np.eye(3), np.zeros(3))
 

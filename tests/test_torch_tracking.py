@@ -153,7 +153,7 @@ def test_seed_map_from_depth(seq, jslam, jmap):
     # identical slots and bindings, descriptors up to rounding-boundary
     # bit flips, geometry to float32 rounding.
     jm, n_kf, n_pts = jmap
-    tslam = TorchSlam(cam_params=seq.cam_params, **SLAM_KW)
+    tslam = TorchSlam(cam_params=seq.cam_params, device="cpu", **SLAM_KW)
     tseq = tsynth.SynthSequence(
         images=T(seq.images), R_wc=seq.R_wc, t_wc=seq.t_wc, timestamps=seq.timestamps,
         cam_params=seq.cam_params, depths=T(seq.depths),
@@ -174,7 +174,7 @@ def test_checkpoint_round_trips(jmap, tmp_path):
                 "R_cur": np.eye(3).tolist(), "t_cur": [0.0, 0.0, 0.0]}
     p1 = str(tmp_path / "jax_map.npz")
     jckpt.save_map(p1, jm, counters)
-    tm, c1 = tckpt.load_map(p1)
+    tm, c1 = tckpt.load_map(p1, device="cpu")
     assert c1 == counters
     for k, v in np_tree(jm).items():
         got = getattr(tm, k).numpy()
@@ -192,7 +192,7 @@ def test_checkpoint_round_trips(jmap, tmp_path):
         f.seek(100)
         f.write(bytes([b[0] ^ 0xFF]))
     with pytest.raises(ValueError):
-        tckpt.load_map(p2)
+        tckpt.load_map(p2, device="cpu")
 
 
 @pytest.mark.parametrize("sched,cap", [("lean", 256), ("dense", None)])

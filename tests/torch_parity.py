@@ -19,12 +19,20 @@ from orb_slam3_ros_tpu.models.system import MonoSlam as JaxSlam
 from orb_slam3_ros_tpu.ops import stereo as jstereo
 from orb_slam3_ros_tpu_torch.models import map_state as tms
 from orb_slam3_ros_tpu_torch.ops import ba as tba
+from orb_slam3_ros_tpu_torch.ops import imu as timu
 from orb_slam3_ros_tpu_torch.ops import orb as torb
+from orb_slam3_ros_tpu_torch.ops import viba as tviba
 
 
-def np_tree(x) -> dict:
-    """Numpy dict of a JAX NamedTuple (Features, MapState, ...)."""
-    return {k: np.asarray(getattr(x, k)) for k in x._fields}
+def np_tree(x):
+    """Numpy tree of a JAX NamedTuple (Features, MapState, VIBAProblem, ...):
+    a dict by field name, nested NamedTuples as dicts of their own, None
+    kept."""
+    if x is None:
+        return None
+    if hasattr(x, "_fields"):
+        return {k: np_tree(getattr(x, k)) for k in x._fields}
+    return np.asarray(x)
 
 
 def torch_features(jf) -> torb.Features:
@@ -37,6 +45,22 @@ def torch_map(jm) -> tms.MapState:
 
 def torch_ba_problem(jp) -> tba.BAProblem:
     return tba.ba_problem_from_numpy(np_tree(jp), "cpu")
+
+
+def torch_calib(jc) -> timu.ImuCalib:
+    return timu.calib_from_numpy(np_tree(jc), "cpu")
+
+
+def torch_preint(jp) -> timu.Preintegrated:
+    return timu.preintegrated_from_numpy(np_tree(jp), "cpu")
+
+
+def torch_vi_states(js) -> tviba.VIStates:
+    return tviba.states_from_numpy(np_tree(js), "cpu")
+
+
+def torch_vi_problem(jp) -> tviba.VIBAProblem:
+    return tviba.problem_from_numpy(np_tree(jp), "cpu")
 
 
 # The JAX package's keyframe work in its scatter formulation (row_n=None):
