@@ -43,16 +43,38 @@ Phases (each raises on failure, so any failure exits non-zero):
      <= 0.015 m, Umeyama scale within 1% of 1, the alignment's R[2,2] >
      0.999 (gravity), the gyro bias within 3e-3 of the truth, and kernel
      launches equal to the tracking passes plus 2 for each fusing keyframe.
-     Then times the inertial stages alone on inputs captured from the run
-     (host ms and the CUDA-event span, and launches and device ms where the
-     profiler traces the card), tree against sequential preintegration among them, and counts
-     the synchronizing calls of a steady frame.
+     Then (after phase 9, so that phase 9's device times are taken before
+     the profiler is first used) times the inertial stages alone on inputs
+     captured from the run (host ms and the CUDA-event span, and launches
+     and device ms where the profiler traces the card), tree against
+     sequential preintegration among them, and counts the synchronizing
+     calls of a steady frame;
+  9. VI chunk loop: ``bench.py``'s ``main_vi`` protocol with the same
+     configuration: per frame until ``_vi_chunkable()``, then
+     ``InertialSlam.process_frames`` on chunks of 15 frames of a uint8 stack
+     on the card (the CUDA graphs are captured in the chunks up to frame
+     105), then the timed chunks to frame 165; it starts from a copy of
+     phase 8's system at the frame where that run first passed the gate,
+     whose prefix is ``main_vi``'s. Requires every chunk frame a
+     replay of a step graph (no eager step on the card but the warm-up
+     before each capture), K1 launches equal to 2 a frame plus 2 a fusing
+     keyframe (plus the warm-ups'), no frame lost, no bad-IMU reset, phase
+     8's accuracy limits, one replay of the step graph equal to the
+     eager step on the same inputs (integers exact, floats to 1e-4), and no
+     synchronizing call in the step or any keyframe segment run eagerly. Prints
+     frames/s and latency per chunk and per frame beside phase 8's, the
+     step and keyframe graphs' device ms (CUDA events around each replay),
+     the busy share, the host's gap between a frame's flag read and the
+     next launch, capture seconds, graphs and their nodes, peak memory, the
+     synchronizing calls a chunk frame makes, and the card's SM clock,
+     temperature and power draw during the timed chunks (nvidia-smi).
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -76,6 +98,8 @@ VI_SKIP, VI_MIN_STEADY, VI_MIN_KF, VI_INIT_BY = 12, 30, 14, 20
 # 1.5e-2; the first card run measured 0.0028 m, 0.014%, 1.00000 and 2.8e-4,
 # so each was tightened to about 5-10x what was measured.
 VI_ATE_LIMIT, VI_SCALE_TOL, VI_MIN_R22, VI_BG_TOL = 0.015, 0.01, 0.999, 3e-3
+CHUNK, CHUNK_WARM = 15, 105  # bench.py main_vi: chunks of 15, timed from frame 105 on
+GRAPH_TOL = 1e-4  # graph replay vs eager step, float fields (abs, and rel to max(1, |x|))
 
 
 def check(cond, msg: str) -> None:
@@ -533,12 +557,12 @@ def sync_calls(torch, fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_vi(torch, project_match) -> dict:
+def phase_vi(torch, project_match) -> tuple:
     """``InertialSlam`` over a rendered 165-frame sequence with IMU samples
-    on the card at ``bench.py``'s ``main_vi`` shape; then the inertial
-    stages alone."""
+    on the card at ``bench.py``'s ``main_vi`` shape. Returns (result, phase
+    9's start, what ``phase_vi_stages`` replays)."""
     from orb_slam3_ros_tpu_torch.models import inertial_system, local_mapping, system
-    from orb_slam3_ros_tpu_torch.ops import imu, lie, viba
+    from orb_slam3_ros_tpu_torch.ops import viba
     from orb_slam3_ros_tpu_torch.utils import synth
     from orb_slam3_ros_tpu_torch.utils.evaluate_ate import align_umeyama, ate_rmse
     from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_IMU_HZ, VI_SEQ_KW, VI_SLAM_KW, vi_calib
@@ -590,8 +614,13 @@ def phase_vi(torch, project_match) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches(project_match)
     passes, init_at, stage_at, frame_ms, syncs = 0, None, {}, [], []
+    start = None
     try:
         for i in range(n_frames):
+            if start is None and i < CHUNK_WARM - 2 * CHUNK and slam._vi_chunkable():
+                # Phase 9 goes on from here: where bench.py's main_vi stops
+                # going frame by frame.
+                start = (i, chunk_snapshot(slam), seq, im)
             if slam.state in (system.OK, system.RECENTLY_LOST):
                 passes += len(slam._current_schedule())
             stage0 = slam.imu_stage
@@ -664,9 +693,23 @@ def phase_vi(torch, project_match) -> dict:
     check(launches == {"track": passes, "fuse": 2 * n_fusing},
           f"matcher launches {launches}, expected {passes} from tracking and "
           f"{2 * n_fusing} from fusion")
+    return dict(
+        init_frame=init_at, stage_frames=stage_at, init_stage_ms=slam.init_stage_ms,
+        keyframes=slam.n_kf, ate_metric_m=rmse_m, scale=scale, r22=float(R_align[2, 2]),
+        bg_err=bg_err, frames_per_s=fps, steady_frames=len(frame_ms), frame_ms_p50=float(lat[0]),
+        frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
+        launches=launches, passes=passes, fusing_keyframes=n_fusing,
+        sync_calls_per_frame=sorted(set(syncs)), peak_mem_mib=peak / 2**20,
+    ), start, (slam, caps)
 
-    # The inertial stages alone, on the arguments of their last calls in
-    # the run above (the initialization stages: of each stage's own call).
+
+def phase_vi_stages(torch, slam, caps) -> dict:
+    """Phase 8's inertial stages alone, on the arguments of their last
+    calls in its run (the initialization stages: of each stage's own call).
+    Run after phase 9, so that phase 9's device times are taken before any
+    use of the profiler (PERF.md §7)."""
+    from orb_slam3_ros_tpu_torch.ops import imu, lie
+
     calib = slam.calib
     dev = slam.device
     rng = np.random.default_rng(0)
@@ -689,7 +732,7 @@ def phase_vi(torch, project_match) -> dict:
         "build_vi_ba (W=12)": caps["build"].replay,
         "pose_inertial_optimization (_vi_refine)": caps["refine"].replay,
         "vi_bundle_adjust, 4 iterations": caps["viba"].replay,
-        "normalize_rotation of one 3x3 (torch.linalg.svd)":
+        "normalize_rotation of one 3x3 (Newton polar)":
             lambda: lie.normalize_rotation(torch.eye(3, device=dev)),
         "init stage 1: inertial_init, 40 iterations": lambda: caps["init"].replay(0),
         "init stage 1: vi_bundle_adjust_gs, 25 iterations": lambda: caps["gs"].replay(0),
@@ -711,14 +754,259 @@ def phase_vi(torch, project_match) -> dict:
     seq_faster = (costs["preintegrate frame block [16], sequential"]["host_ms"]
                   < costs["preintegrate frame block [16], tree"]["host_ms"])
     print(f"preintegration on the main path: tree (sequential faster at the frame shape: {seq_faster})")
-    return dict(
-        init_frame=init_at, stage_frames=stage_at, init_stage_ms=slam.init_stage_ms,
-        keyframes=slam.n_kf, ate_metric_m=rmse_m, scale=scale, r22=float(R_align[2, 2]),
-        bg_err=bg_err, frames_per_s=fps, steady_frames=len(frame_ms), frame_ms_p50=float(lat[0]),
-        frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
-        launches=launches, passes=passes, fusing_keyframes=n_fusing,
-        sync_calls_per_frame=sorted(set(syncs)), peak_mem_mib=peak / 2**20, stages=costs,
+    return costs
+
+
+def chunk_snapshot(slam):
+    """A deep copy of an ``InertialSlam`` on the card. Its CUDA generator
+    (two-view initialization's draws, done by now) is shared, not copied."""
+    gen, slam.generator = slam.generator, None
+    try:
+        snap = copy.deepcopy(slam)
+    finally:
+        slam.generator = gen
+    snap.generator = gen
+    return snap
+
+
+def poll_card():
+    """nvidia-smi in the background, reading the card's SM clock, its
+    maximum, temperature and power draw every 100 ms until ``read_card``."""
+    q = "clocks.sm,clocks.max.sm,temperature.gpu,power.draw"
+    return subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
     )
+
+
+def read_card(proc) -> dict:
+    """Stops ``poll_card``'s process; the medians and extremes it read, or
+    {} where nvidia-smi printed nothing usable."""
+    proc.terminate()
+    out, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        try:
+            row = [float(x) for x in line.split(",")]
+        except ValueError:  # an error message, or "[N/A]"
+            continue
+        if len(row) == 4:
+            rows.append(row)
+    if not rows:
+        return {}
+    sm, sm_max, temp, power = np.asarray(rows).T
+    return dict(samples=len(sm), sm_mhz_median=float(np.median(sm)), sm_mhz_min=float(sm.min()),
+                sm_mhz_max_allowed=float(sm_max.max()), temp_c_max=float(temp.max()),
+                power_w_median=float(np.median(power)))
+
+
+def graph_nodes(g):
+    """Nodes of a captured ``torch.cuda.CUDAGraph`` by libcuda's
+    ``cuGraphGetNodes``, or None where torch or libcuda does not say."""
+    import ctypes
+
+    try:
+        handle = g.raw_cuda_graph()
+        cuda = ctypes.CDLL("libcuda.so.1")
+        n = ctypes.c_size_t(0)
+        err = cuda.cuGraphGetNodes(ctypes.c_void_p(handle), None, ctypes.byref(n))
+    except (AttributeError, OSError, RuntimeError, TypeError):
+        return None
+    return int(n.value) if err == 0 else None
+
+
+def vi_accuracy(slam, seq, im, n_frames) -> dict:
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import align_umeyama, ate_rmse
+
+    traj = slam.get_trajectory()
+    ts = np.asarray([t for t, _ in traj])[VI_SKIP:]
+    est = np.stack([T[:3, 3] for _, T in traj])[VI_SKIP:]
+    gt_ts = seq.timestamps.astype(np.float64)
+    rmse, n, _ = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=False)
+    _, _, scale = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=True)
+    gt = seq.t_wc[np.clip(np.searchsorted(seq.timestamps, ts - 1e-6), 0, n_frames - 1)]
+    _, R_align, _ = align_umeyama(est, gt, with_scale=True)
+    return dict(poses=len(traj), scored=n, ate_metric_m=rmse, scale=scale,
+                r22=float(R_align[2, 2]), bg_err=float(np.abs(slam.bg_cur - im["bg"]).max()))
+
+
+def check_vi_accuracy(acc: dict, what: str) -> None:
+    check(acc["scored"] == acc["poses"] - VI_SKIP, f"{what}: ATE matched {acc['scored']} poses")
+    check(acc["ate_metric_m"] <= VI_ATE_LIMIT,
+          f"{what}: metric ATE {acc['ate_metric_m']:.5f} m above {VI_ATE_LIMIT} m")
+    check(abs(acc["scale"] - 1.0) <= VI_SCALE_TOL, f"{what}: Umeyama scale {acc['scale']:.5f}")
+    check(acc["r22"] > VI_MIN_R22, f"{what}: gravity misaligned, R[2,2] {acc['r22']:.5f}")
+    check(acc["bg_err"] <= VI_BG_TOL, f"{what}: gyro bias off by {acc['bg_err']:.5f}")
+
+
+def graph_vs_eager(torch, runner, schedule) -> float:
+    """One step from the runner's buffers twice: eagerly on a copy of them,
+    and as a replay of the captured step graph on them. Returns the largest
+    float difference; raises on any integer or bool difference."""
+    scratch = {k: v.clone() for k, v in runner.buf.items()}
+    runner.region(("step", schedule))(scratch)
+    runner._run(("step", schedule))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k, eager in scratch.items():
+        graph = runner.buf[k]
+        if eager.dtype.is_floating_point:
+            d = ((graph - eager).abs() / torch.clamp(eager.abs(), min=1.0)).max()
+            worst = max(worst, float(d)) if eager.numel() else worst
+        else:
+            check(torch.equal(graph, eager), f"graph replay and eager step differ in {k}")
+    check(worst <= GRAPH_TOL, f"graph replay and eager step differ by {worst:.3g} in a float field")
+    return worst
+
+
+def region_syncs(torch, runner, schedule) -> dict:
+    """Synchronizing calls of each chunk region run eagerly once, in order,
+    on a copy of the runner's buffers: the step, then every keyframe
+    segment. A capture would fail on any of them; this names where."""
+    from orb_slam3_ros_tpu_torch.models import vi_device_loop
+
+    scratch = {k: v.clone() for k, v in runner.buf.items()}
+    out = {}
+    for name in [("step", schedule), *vi_device_loop.KF_SEGMENTS]:
+        fn = runner.region(name)
+        torch.cuda.synchronize()
+        out["step" if isinstance(name, tuple) else name] = sync_calls(torch, lambda: fn(scratch))
+    return out
+
+
+def phase_vi_chunk(torch, project_match, vi8: dict, start) -> dict:
+    """``bench.py``'s ``main_vi`` protocol on the card through
+    ``InertialSlam.process_frames``, with the step and keyframe bodies as
+    CUDA graphs. ``start``: (frame, system, sequence, IMU) where phase 8's
+    run first passed the chunk gate (its prefix is ``main_vi``'s)."""
+    from orb_slam3_ros_tpu_torch.models import system, vi_device_loop
+
+    check(start is not None, f"phase 8 never passed the chunk gate before frame "
+          f"{CHUNK_WARM - 2 * CHUNK}")
+    i, slam, seq, im = start
+    n_frames = len(seq.timestamps)
+    stack = torch.clamp(seq.images, 0, 255).to(torch.uint8)  # bench.py's frame stack
+    eager_steps = []  # frame_step calls outside a capture: the warm-ups
+    step_fn = vi_device_loop.frame_step
+
+    def counted_step(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            eager_steps.append(1)
+        return step_fn(*args, **kw)
+
+    per_frame = slam.process_frame
+    calls = []
+
+    def counted_frame(*args, **kw):
+        calls.append(1)
+        return per_frame(*args, **kw)
+
+    def chunk(i, n):
+        slam.process_frames((stack, i), seq.timestamps[i : i + n], acc=im["acc"][i : i + n],
+                            gyro=im["gyro"][i : i + n], dts=im["dts"][i : i + n])
+
+    i_steady = i
+    vi_device_loop.frame_step = counted_step
+    slam.process_frame = counted_frame
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        while i + CHUNK <= CHUNK_WARM:
+            chunk(i, CHUNK)
+            i += CHUNK
+        warm_s = time.perf_counter() - t0
+        runner = slam._vi_runner
+        check(runner is not None and runner.graphs, "the chunks did not run on graphs")
+        # The timed chunks, with CUDA events around every replay.
+        start = i
+        runner.timing = True
+        reset_launches(project_match)
+        runs0, warm0 = dict(runner.runs), dict(runner.warmup_launches)
+        chunk_ms = []
+
+        def timed_chunks():
+            nonlocal i
+            while i + CHUNK <= n_frames:
+                t1 = time.perf_counter()
+                chunk(i, CHUNK)  # ends in the chunk's host read
+                chunk_ms.append((time.perf_counter() - t1) * 1e3)
+                i += CHUNK
+
+        poll = poll_card()
+        try:
+            n_sync = sync_calls(torch, timed_chunks)
+            torch.cuda.synchronize()
+        finally:
+            card = read_card(poll)
+        runner.timing = False
+        launches = dict(project_match.LAUNCHES)
+        runs = {k: runner.runs[k] - runs0.get(k, 0) for k in runner.runs}
+        warm = {k: runner.warmup_launches[k] - warm0[k] for k in warm0}
+        n_last = n_frames - i  # the last frames as one more, shorter chunk
+        if n_last:
+            chunk(i, n_last)
+            i += n_last
+    finally:
+        vi_device_loop.frame_step = step_fn
+        slam.process_frame = per_frame
+    peak = torch.cuda.max_memory_allocated()
+    timed = i - n_last - start if n_last else i - start
+    step_runs = sum(v for k, v in runs.items() if isinstance(k, tuple))
+    fusing = runs.get("kf_fuse", 0)
+    n_kf_timed = runs.get("kf_insert", 0)
+    passes = len(slam._current_schedule())
+    check(not calls, f"{len(calls)} frames went through process_frame during the chunks")
+    check(step_runs == timed, f"{step_runs} step-graph replays for {timed} timed frames")
+    n_step_graphs = sum(isinstance(k, tuple) for k in runner._graph)
+    check(len(eager_steps) == n_step_graphs,
+          f"{len(eager_steps)} eager steps on the card, expected one warm-up for each of "
+          f"{n_step_graphs} step graphs")
+    check(launches == {"track": passes * timed + warm["track"], "fuse": 2 * fusing + warm["fuse"]},
+          f"matcher launches {launches}, expected {passes} x {timed} from tracking and 2 x {fusing} "
+          f"from fusion (plus warm-ups {warm})")
+    check(slam.bad_imu_resets == 0, f"{slam.bad_imu_resets} bad-IMU resets")
+    check(slam.state == system.OK, f"state {slam.state} after the chunks")
+    acc = vi_accuracy(slam, seq, im, n_frames)
+    check(acc["poses"] == n_frames - vi8["init_frame"],
+          f"{acc['poses']} poses for {n_frames - vi8['init_frame']} frames")
+    check_vi_accuracy(acc, "vi chunk")
+
+    spans = {}
+    for name, a, b in runner.spans:
+        spans.setdefault("step" if isinstance(name, tuple) else name, []).append(a.elapsed_time(b))
+    kf_graph_ms = sum(sum(v) for k, v in spans.items() if k != "step") / max(1, n_kf_timed)
+    busy = sum(sum(v) for v in spans.values()) / sum(chunk_ms)
+    step_ms = float(np.median(spans["step"]))
+    gap_us = float(np.mean(runner.gaps_s)) * 1e6
+    nodes = {("step" if isinstance(k, tuple) else k): graph_nodes(g) for k, (g, _) in runner._graph.items()}
+    fps = timed / (sum(chunk_ms) / 1e3)
+    worst = graph_vs_eager(torch, runner, slam._current_schedule())
+    audit = region_syncs(torch, runner, slam._current_schedule())
+    check(not any(audit.values()), f"synchronizing calls in the eager regions: {audit}")
+    syncs_per_frame = n_sync / timed
+    print(f"vi chunk: chunkable at frame {i_steady}; {runner.n_graphs} graphs captured in "
+          f"{runner.capture_s:.2f} s (nodes {nodes}), chunks up to frame {start} in {warm_s:.2f} s; "
+          f"timed frames {start}..{start + timed - 1}: {fps:.2f} frames/s (phase 8, per frame: "
+          f"{vi8['frames_per_s']:.2f}), chunk latency median {np.median(chunk_ms):.2f} ms over "
+          f"{len(chunk_ms)} chunks of {CHUNK} = {np.median(chunk_ms) / CHUNK:.2f} ms a frame (phase 8: "
+          f"median {vi8['frame_ms_p50']:.2f} ms); step graph {step_ms:.2f} ms median over "
+          f"{len(spans['step'])} replays; keyframe graphs {kf_graph_ms:.2f} ms a keyframe over "
+          f"{n_kf_timed} ({ {k: round(float(np.median(v)), 3) for k, v in spans.items()} } ms "
+          f"medians); busy {busy:.1%} of the chunks' wall time; host gap flag read -> next launch "
+          f"{gap_us:.1f} us mean; K1 launches {launches} (passes {passes}, fusing keyframes "
+          f"{fusing}, warm-ups {warm}); metric ATE {acc['ate_metric_m']:.5f} m, scale "
+          f"{acc['scale']:.5f}, R[2,2] {acc['r22']:.5f}, bg err {acc['bg_err']:.2e}; "
+          f"{slam.n_kf} keyframes; graph vs eager step max diff {worst:.3g}; synchronizing calls "
+          f"{n_sync} over the {timed} timed frames, {audit} in each region run eagerly; peak "
+          f"device memory {peak / 2**20:.1f} MiB; the card during the timed chunks {card}")
+    return dict(chunkable_frame=i_steady, graphs=runner.n_graphs, graph_nodes=nodes,
+                capture_s=runner.capture_s, timed_frames=timed, frames_per_s=fps,
+                chunk_ms=chunk_ms, frame_ms=float(np.median(chunk_ms)) / CHUNK, step_ms=step_ms,
+                kf_graph_ms=kf_graph_ms, busy=busy, gap_us=gap_us, launches=launches,
+                warmup_launches=warm, fusing_keyframes=fusing, passes=passes,
+                graph_vs_eager=worst, syncs_per_frame=syncs_per_frame, region_syncs=audit, card=card,
+                peak_mem_mib=peak / 2**20,
+                **acc)
 
 
 def main() -> int:
@@ -764,22 +1052,28 @@ def main() -> int:
     s, state = phase_slice(torch, project_match)
     phase_cpu(torch, state)
     mp = phase_mapping(torch, project_match)
-    vi = phase_vi(torch, project_match)
+    vi, start, (vi_slam, caps) = phase_vi(torch, project_match)
+    vc = phase_vi_chunk(torch, project_match, vi, start)
+    vi["stages"] = phase_vi_stages(torch, vi_slam, caps)
 
-    print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "card": smi[0]}))
+    print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "card": smi[0]}))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
         "source": "orb_slam3_ros_tpu_torch/csrc/project_match.cu",
         "replaces": "orb_slam3_ros_tpu/ops/pallas_match.py:37",
-        # the main paths: mapping (phase 7) and mono-inertial (phase 8), the
-        # counts set to 0 before each and read after it
+        # the main paths: mapping (phase 7), mono-inertial (phase 8) and
+        # its chunk loop (phase 9), the counts set to 0 before each and
+        # read after it
         "launches": mp["launches"]["track"] + mp["launches"]["fuse"]
-        + vi["launches"]["track"] + vi["launches"]["fuse"],
+        + vi["launches"]["track"] + vi["launches"]["fuse"]
+        + vc["launches"]["track"] + vc["launches"]["fuse"],
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
         "launches_vi_fuse": vi["launches"]["fuse"],
+        "launches_vi_chunk_track": vc["launches"]["track"],
+        "launches_vi_chunk_fuse": vc["launches"]["fuse"],
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

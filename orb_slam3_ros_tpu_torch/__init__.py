@@ -29,6 +29,12 @@ import torch as _torch
 # counterpart of jax_default_matmul_precision="highest" in the JAX package).
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+if _torch.backends.cuda.is_built():
+    # torch picks MAGMA for some shapes (LU of batches of matrices wider
+    # than 16), and MAGMA reads its status back to the host, which a
+    # captured CUDA graph cannot hold; cuSOLVER / cuBLAS leave it on the
+    # card. Pinned so that no shape switches a solver of the chunk to MAGMA.
+    _torch.backends.cuda.preferred_linalg_library("cusolver")
 
 
 def default_device() -> _torch.device:

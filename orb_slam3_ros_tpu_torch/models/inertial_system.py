@@ -21,10 +21,15 @@ dispatch and drains it one frame late to hide its device link's fetch
 latency; neither is needed here.) A keyframe costs one more host read, an
 initialization stage one for its solve and one for the state after its BA.
 
-Not ported (each raises, naming its ROADMAP item): the chunk loop
-``process_frames``, relocalization once ``time_recently_lost`` has passed,
-loop closing and the asynchronous full inertial BA, stereo / RGB-D
-inertial, the ``on_frame`` hook.
+``process_frames`` runs the steady state in chunks (``vi_device_loop``): on
+the card each frame is one replay of a captured CUDA graph of the frame
+step, each keyframe a few replays of the keyframe body's graphs, with a
+two-word host read a frame and one read a chunk; frames outside the steady
+state go through ``process_frame`` one at a time, as in the JAX package.
+
+Not ported (each raises, naming its ROADMAP item): relocalization once
+``time_recently_lost`` has passed, loop closing and the asynchronous full
+inertial BA, stereo / RGB-D inertial, the ``on_frame`` hook.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 
 from ..ops import imu as imu_ops
 from ..ops import orb, viba
-from . import local_mapping, map_state, map_updates, tracking
+from . import local_mapping, map_state, map_updates, tracking, vi_device_loop
 from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
 
 
@@ -155,6 +160,11 @@ class InertialSlam(MonoSlam):
         self.chain_breaks: set = set()
         # A divergent IMU solve resets the active map (mbBadImu).
         self.bad_imu_resets = 0
+        # The chunk loop's runner (its buffers and graphs), made at the first
+        # chunk; its inertial state stays valid from one chunk to the next
+        # until per-frame processing or a map rewrite intervenes.
+        self._vi_runner = None
+        self._vi_dev_valid = False
 
     # ------------------------------------------------------------------
     def _check_bad_imu(self) -> bool:
@@ -200,11 +210,9 @@ class InertialSlam(MonoSlam):
         self.vel_t = np.zeros(3, np.float32)
         self.state = NOT_INITIALIZED
         self._ref_cache = None
+        self._vi_dev_valid = False
 
     # ------------------------------------------------------------------
-    def process_frames(self, *args, **kw):
-        raise _not_ported("the device-resident chunk loop process_frames", "9")
-
     def _start_async_gba(self, *args, **kw):
         raise _not_ported("the asynchronous full inertial BA", "11")
 
@@ -213,6 +221,9 @@ class InertialSlam(MonoSlam):
         previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
         if self.on_frame is not None:
             raise _not_ported("the on_frame observation hook", "13")
+        # Per-frame processing changes host state the chunk's inertial state
+        # does not see: the next chunk rebuilds it.
+        self._vi_dev_valid = False
         has_imu = acc is not None and len(acc) > 0
         if has_imu:
             self._imu_history.append((
@@ -535,6 +546,7 @@ class InertialSlam(MonoSlam):
         self.chain_breaks = breaks
         self._vi_anchor = None
         self._vi_prior = None
+        self._vi_dev_valid = False  # slot layout changed
 
     # ------------------------------------------------------------------
     def _initialize_imu(self, rounds: int = 1, bias_prior_g: float = 1e2, bias_prior_a: float = 1e6):
@@ -674,6 +686,7 @@ class InertialSlam(MonoSlam):
         built = self._build_vi_window_problem(window)
         if built is None:
             return
+        self._vi_dev_valid = False  # a host-side VI solve: the chunk state is stale
         prob, window_ids = built
         res = viba.vi_bundle_adjust(prob, n_iters=n_iters)
         self.map = local_mapping.apply_vi_ba(self.map, window_ids, res, self.calib)
@@ -689,3 +702,197 @@ class InertialSlam(MonoSlam):
             return
         self._vi_anchor = None
         self._vi_prior = None
+
+    # ------------------------------------------------------------------
+    # The chunk loop (vi_device_loop.py): the steady state on the device,
+    # one graph replay a frame on the card.
+    def flush(self):
+        """Nothing is pending: a chunk is absorbed when ``process_frames``
+        returns (the JAX package drains its last chunk here)."""
+        return None
+
+    def _vi_chunkable(self) -> bool:
+        return (
+            self.imu_initialized
+            and self.vi_tracking
+            and self.imu_stage >= 3  # all three initialization stages done
+            and self.state == OK
+            and self.track_window is None
+            # the chunk's temporal window assumes it is full
+            and self.n_kf > self.W
+        )
+
+    def _vi_chunk_config(self) -> vi_device_loop.VIChunkConfig:
+        return vi_device_loop.VIChunkConfig(
+            config=self.config, cam_params=self.cam_params, calib=self.calib,
+            width=self.width, height=self.height, kf_every=self.kf_every,
+            kf_min_inliers=self.kf_min_inliers, kf_ref_ratio=self.kf_ref_ratio, W=self.W,
+            ba_window=self.ba_window, local_ba_iters=self.local_ba_iters,
+            fuse_neighbors=self.fuse_neighbors, fuse_every=self.fuse_every,
+            stats_every=self.stats_every, cull_every=self.cull_every,
+            kf_culling=self.kf_culling, K_cap=self.K_cap, imu_cap_frame=self.imu_cap_frame,
+            imu_cap_kf=self.imu_cap_kf, track_cap=self.track_cap,
+        )
+
+    def _fresh_vi_dev_state(self) -> vi_device_loop.VIDevState:
+        """The chunk's inertial state from host bookkeeping (at the first
+        chunk, or after per-frame processing): the anchor (the per-frame
+        path's, or the host pose and velocity), its covariance, the IMU
+        samples since the last keyframe and the per-keyframe blocks, in one
+        upload."""
+        t0 = self._last_kf_ts
+        a, g, d = self._collect_block(-1e18 if t0 is None else t0, 1e18)
+        S, K = self.imu_cap_kf, self.K_cap
+        edge_ok = np.ones(K, np.float32)
+        edge_ok[sorted(self.chain_breaks)] = 0.0
+        buf = torch.from_numpy(np.concatenate([
+            np.concatenate([a, g, d[:, None]], axis=-1).reshape(-1),
+            np.concatenate([self.kf_imu_acc, self.kf_imu_gyro, self.kf_imu_dts[..., None]],
+                           axis=-1).reshape(-1),
+            edge_ok, [float((d > 0).sum())],
+        ]).astype(np.float32)).to(self.device)
+        blk, kf_blk = buf[: S * 7].reshape(S, 7), buf[S * 7 : S * 7 * (K + 1)].reshape(K, S, 7)
+        R_wb, p_wb, v, bg, ba = self._vi_anchor or self._body_state_from_host()
+        Sigma = self._vi_prior
+        if Sigma is None:
+            Sigma = torch.zeros((15, 15), dtype=torch.float32, device=self.device)
+        return vi_device_loop.VIDevState(
+            R_wb=R_wb, p_wb=p_wb, v=v, bg=bg, ba=ba, Sigma=Sigma, blk=blk,
+            blk_n=buf[-1].to(torch.int32), blk_ok=torch.ones((), dtype=torch.bool, device=self.device),
+            kf_blk=kf_blk, kf_edge_ok=buf[S * 7 * (K + 1) : -1] > 0.5,
+        )
+
+    def process_frames(self, imgs, tss, acc=None, gyro=None, dts=None):
+        """Track a batch of frames with their IMU blocks (``acc[i]``,
+        ``gyro[i]``, ``dts[i]``: the samples since frame i - 1). ``imgs``:
+        ``(stack, off)``, a [N, H, W] tensor on the device (uint8 or float32,
+        values in [0, 255]) holding the frames at ``stack[off : off + C]``,
+        for the chunk loop; or a sequence of images. The steady state (IMU
+        stage 3, tracking OK, ``n_kf > W``, no timestamp jump, a stack) runs
+        as a chunk; otherwise every frame goes through ``process_frame``.
+        Without IMU samples, ``MonoSlam.process_frames``."""
+        if acc is None:
+            return super().process_frames(imgs, tss)
+        if self.on_frame is not None:
+            raise _not_ported("the on_frame observation hook", "13")
+        C = len(tss)
+        tss_np = np.asarray(tss, np.float64)
+        chunked = isinstance(imgs, tuple)
+        frames = [imgs[0][int(imgs[1]) + i] for i in range(C)] if chunked else imgs
+        ok_chunk = chunked and self._vi_chunkable()
+        if ok_chunk:
+            last = self._last_frame_ts
+            gaps = np.diff(np.concatenate([[tss_np[0] if last is None else last], tss_np]))
+            ok_chunk = not np.any(gaps > self.ts_jump_threshold)
+        if ok_chunk and not self.localization_only and self.n_kf >= self.K_cap - 1 - (C + 1) // 2:
+            self._make_room()
+        if not ok_chunk:
+            for i in range(C):
+                self.process_frame(frames[i], float(tss_np[i]), acc=acc[i], gyro=gyro[i], dts=dts[i])
+            return
+        self._run_vi_chunk(imgs[0], int(imgs[1]), frames, tss_np, acc, gyro, dts)
+
+    def _run_vi_chunk(self, stack, off, frames, tss_np, acc, gyro, dts):
+        C, M = len(tss_np), self.imu_cap_frame
+        runner = self._vi_runner
+        if runner is None:
+            runner = self._vi_runner = vi_device_loop.VIChunkRunner(
+                self._vi_chunk_config(), self.device
+            )
+        # Build the inertial state BEFORE recording the chunk's IMU in the
+        # host history: _collect_block gathers everything after the last
+        # keyframe, and the chunk appends its own frames' samples on the
+        # device.
+        st = self._fresh_vi_dev_state() if not (self._vi_dev_valid and runner.buf) else None
+        xs = np.zeros((C, M * 7 + 2), np.float32)
+        for i in range(C):
+            n = min(len(dts[i]), M)
+            blk = xs[i, : M * 7].reshape(M, 7)
+            blk[:n, 0:3], blk[:n, 3:6], blk[:n, 6] = acc[i][:n], gyro[i][:n], dts[i][:n]
+            xs[i, M * 7 :] = (tss_np[i], self.frame_id + i)
+            if len(dts[i]):
+                self._imu_history.append((
+                    float(tss_np[i]), np.asarray(acc[i], np.float32),
+                    np.asarray(gyro[i], np.float32), np.asarray(dts[i], np.float32),
+                ))
+        del self._imu_history[:-200]
+        # Localization mode: a last-keyframe id far in the future keeps the
+        # chunk from inserting keyframes (the JAX package's sentinel).
+        lkf = self.frame_id + (1 << 22) if self.localization_only else self.last_kf_frame
+        runner.load(
+            self.map, runner.carry().st if st is None else st, self.n_kf, self.n_pts, lkf,
+            self._ref_kf_inl if self._ref_kf_inl > 0 else -1,
+        )
+        n_kf0, fid0 = self.n_kf, self.frame_id
+        rows, kf_ids = runner.run_chunk(
+            stack, off, torch.from_numpy(xs).to(self.device), self._current_schedule(), n_kf0
+        )
+        c = runner.carry()
+        self.map = c.m
+        # The chunk's one read: its rows, the carried body state, the
+        # counters and the new keyframes' IMU blocks.
+        R_sc, t_sc = viba.cam_from_body(c.st.R_wb, c.st.p_wb, self.calib.R_bc, self.calib.t_bc)
+        new = slice(n_kf0, n_kf0 + len(kf_ids))
+        rows, R_sc, t_sc, v, bg, ba, sc, new_blk, new_ok = vi_device_loop.read_host(
+            rows, R_sc, t_sc, c.st.v, c.st.bg, c.st.ba,
+            torch.stack([c.n_kf, c.n_pts, c.last_kf_fid, c.alive.to(torch.int32), c.ref_inl]),
+            c.st.kf_blk[new], c.st.kf_edge_ok[new],
+        )
+        self._absorb_vi_chunk(vi_device_loop.read_rows(rows), R_sc, t_sc, v, bg, ba, sc,
+                              kf_ids, new_blk, new_ok, tss_np)
+        self.frame_id = fid0 + C
+        self._last_frame_ts = float(tss_np[-1])
+        if self._check_bad_imu():
+            return
+        n_run = rows.shape[0]
+        if sc[3] < 0.5:
+            # Visual support collapsed at frame k: hand off to the per-frame
+            # RECENTLY_LOST ladder and replay frames k.. there, their IMU
+            # samples first taken out of the history the chunk recorded (so
+            # the next keyframe's block does not hold them twice).
+            k = n_run - 1
+            self.state = RECENTLY_LOST
+            self._lost_since_ts = float(tss_np[k])
+            cut = float(tss_np[k]) - 1e-9
+            self._imu_history = [e for e in self._imu_history if e[0] < cut]
+            self.frame_id = fid0 + k
+            for i in range(k, C):
+                self.process_frame(frames[i], float(tss_np[i]), acc=acc[i], gyro=gyro[i], dts=dts[i])
+        else:
+            self._vi_dev_valid = True
+
+    def _absorb_vi_chunk(self, out, R_sc, t_sc, v, bg, ba, sc, kf_ids, new_blk, new_ok, tss_np):
+        """Host state after a chunk: counters, the carried body state, the
+        mirror of the new keyframes' IMU blocks, the motion model and the
+        trajectory logs of the tracked frames."""
+        self.n_kf, self.n_pts = int(sc[0]), int(sc[1])
+        if not self.localization_only:  # else the sentinel, not a frame id
+            self.last_kf_frame = int(sc[2])
+        self._ref_kf_inl = max(0, int(sc[4]))
+        self.R_cur, self.t_cur = R_sc.astype(np.float32), t_sc.astype(np.float32)
+        self.v_cur, self.bg_cur, self.ba_cur = v.copy(), bg.copy(), ba.copy()
+        self._ref_cache = None
+        # The chunk's state carries the exact anchor; a per-frame call after
+        # it starts from the host pose.
+        self._vi_anchor = None
+        self._vi_prior = None
+        for j, k in enumerate(kf_ids):
+            self.kf_imu_acc[k], self.kf_imu_gyro[k] = new_blk[j, :, 0:3], new_blk[j, :, 3:6]
+            self.kf_imu_dts[k] = new_blk[j, :, 6]
+            if not new_ok[j]:
+                self.chain_breaks.add(k)
+        alive = np.nonzero(out.alive)[0]
+        if len(alive) >= 2:
+            # constant velocity for a later non-VI frame
+            R0, t0, R1, t1 = out.R[alive[-2]], out.t[alive[-2]], out.R[alive[-1]], out.t[alive[-1]]
+            self.vel_R = (R1 @ R0.T).astype(np.float32)
+            self.vel_t = (t1 - self.vel_R @ t0).astype(np.float32)
+        for i in alive:
+            ts = float(tss_np[i])
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = out.R[i].T
+            T[:3, 3] = -out.R[i].T @ out.t[i]
+            self.trajectory.append((ts, T))
+            self.rel_traj.append((ts, int(out.ref[i]), out.R_cr[i].copy(), out.t_cr[i].copy()))
+            if out.is_kf[i]:
+                self._last_kf_ts = ts

@@ -23,6 +23,14 @@ from .map_state import MapState, covisibility, obs_matrix
 P_BA = 2048  # compacted landmark capacity of a local-BA window
 
 
+def _scalar(x, dtype, device) -> torch.Tensor:
+    """``x`` (a float or a 0-d tensor) as a 0-d tensor on ``device``, made
+    there: no copy from the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def select_covis_window(m: MapState, last: int, w_free: int, w_fixed: int):
     """Covisibility local-BA window around keyframe ``last``: free set =
     ``last`` + its top-(w_free - 1) keyframes by covisibility weight; fixed
@@ -122,7 +130,7 @@ def build_local_ba(
         edge_valid=edge_valid,
         cam_params=cam_params,
         ur=m.kf_ur[wid].reshape(-1),
-        bf=torch.as_tensor(bf, dtype=m.kf_t.dtype, device=dev),
+        bf=_scalar(bf, m.kf_t.dtype, dev),
     )
     return prob, sel
 
@@ -249,7 +257,7 @@ def build_vi_ba(
         t_bc=calib.t_bc,
         # stereo disparity rows; kf_ur < 0 marks mono observations
         ur=m.kf_ur[wid].reshape(-1),
-        bf=torch.as_tensor(bf, dtype=m.kf_t.dtype, device=dev),
+        bf=_scalar(bf, m.kf_t.dtype, dev),
     )
 
 

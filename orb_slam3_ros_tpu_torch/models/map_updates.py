@@ -56,27 +56,33 @@ def update_track_counters(m: MapState, visible_mask, found_mask) -> MapState:
 
 def insert_keyframe(
     m: MapState,
-    kf_id: int,
+    kf_id,
     R: torch.Tensor,
     t: torch.Tensor,
-    ts: float,
+    ts,
     feats: Features,
     feat_pt: torch.Tensor,
 ) -> MapState:
-    """Write keyframe slot ``kf_id`` in place (KeyFrame ctor + observation
-    binding) as a monocular keyframe: no stereo right-image coordinates
-    (``kf_ur`` = -1; the JAX package's ``ur`` argument serves stereo)."""
-    m.kf_valid[kf_id] = True
-    m.kf_R[kf_id] = R
-    m.kf_t[kf_id] = t
-    m.kf_xy[kf_id] = feats.xy
-    m.kf_level[kf_id] = feats.level
-    m.kf_angle[kf_id] = feats.angle
-    m.kf_desc_sign[kf_id] = feats.desc_sign
-    m.kf_feat_valid[kf_id] = feats.valid
-    m.kf_obs[kf_id] = feat_pt
-    m.kf_ts[kf_id] = ts
-    m.kf_ur[kf_id] = -1.0
+    """Write keyframe slot ``kf_id`` (an int or a 0-d tensor) in place
+    (KeyFrame ctor + observation binding) as a monocular keyframe: no stereo
+    right-image coordinates (``kf_ur`` = -1; the JAX package's ``ur``
+    argument serves stereo). ``ts``: a float or a 0-d tensor."""
+    k = kf_index(kf_id, m.kf_R.device)
+
+    def put(table, row):
+        table.index_copy_(0, k, row.to(table.dtype)[None])
+
+    m.kf_valid.index_fill_(0, k, True)
+    put(m.kf_R, R)
+    put(m.kf_t, t)
+    put(m.kf_xy, feats.xy)
+    put(m.kf_level, feats.level)
+    put(m.kf_angle, feats.angle)
+    put(m.kf_desc_sign, feats.desc_sign)
+    put(m.kf_feat_valid, feats.valid)
+    put(m.kf_obs, feat_pt)
+    put(m.kf_ts, ts if isinstance(ts, torch.Tensor) else torch.full((), ts, device=m.kf_ts.device))
+    m.kf_ur.index_fill_(0, k, -1.0)
     return m
 
 
@@ -187,30 +193,34 @@ def refresh_point_stats(
 
 def admit_new_points(
     m: MapState,
-    kf_id: int,
-    ref_kf: int,
+    kf_id,
+    ref_kf,
     tri: TriangulationResult,
-    base_id: int,
-    room: int,
+    base_id,
+    room,
 ) -> tuple[MapState, torch.Tensor]:
     """Admit the accepted triangulations into point slots [base_id,
     base_id + n) in feature order, at most ``room`` of them, and bind them
-    in both keyframes; in place. Returns (map, n_admitted as a 0-d int32
-    tensor).
+    in both keyframes; in place. The four scalars are ints or 0-d int32
+    tensors. Returns (map, n_admitted as a 0-d int32 tensor).
 
     Rows not taken share clipped slot indices with taken ones, so every
     write is a scatter-ADD of a masked delta (duplicates add zero), as in
-    the JAX package: exact, and independent of the order of the adds."""
-    P = m.P
+    the JAX package: exact, and independent of the order of the adds. The
+    keyframe rows are written through their tables (``index_copy_`` /
+    ``index_add_``): a row taken with a tensor index is a copy."""
+    P, N = m.P, m.N
+    dev = m.pt_X.device
+    k_new, k_ref = kf_index(kf_id, dev), kf_index(ref_kf, dev)
     ok = tri.ok
     rank = torch.cumsum(ok.to(torch.int32), dim=0, dtype=torch.int32) - 1
     take = ok & (rank < room)
     slot = torch.clamp(base_id + rank, 0, P - 1)
     sl = slot.long()
     ti = take.to(torch.int32)
-    desc = m.kf_desc_sign[kf_id]
-    lvl = m.kf_level[kf_id]
-    obs_ref = m.kf_obs[ref_kf]
+    desc = m.kf_desc_sign.index_select(0, k_new)[0]
+    lvl = m.kf_level.index_select(0, k_new)[0]
+    obs_ref = m.kf_obs.index_select(0, k_ref)[0]
     ref_feat = tri.ref_feat.long()
     d_valid = torch.zeros((P,), dtype=torch.int32, device=slot.device).index_add_(0, sl, ti)
     d_X = take.to(m.pt_X.dtype)[:, None] * (tri.X_w - m.pt_X[sl])
@@ -218,14 +228,14 @@ def admit_new_points(
     d_level = ti * (lvl - m.pt_level[sl])
     d_first = ti * (kf_id - m.pt_first_kf[sl])
     d_ref = ti * (slot - obs_ref[ref_feat])
-    new_obs_kf = torch.where(take, slot, m.kf_obs[kf_id])
+    new_obs_kf = torch.where(take, slot, m.kf_obs.index_select(0, k_new)[0])
     m.pt_valid.logical_or_(d_valid > 0)
     m.pt_X.index_add_(0, sl, d_X)
     m.pt_desc_sign.index_add_(0, sl, d_desc)
     m.pt_level.index_add_(0, sl, d_level)
     m.pt_first_kf.index_add_(0, sl, d_first)
-    m.kf_obs[kf_id] = new_obs_kf
-    obs_ref.index_add_(0, ref_feat, d_ref)  # a view of m.kf_obs[ref_kf]
+    m.kf_obs.index_copy_(0, k_new, new_obs_kf[None])
+    m.kf_obs.view(-1).index_add_(0, k_ref * N + ref_feat, d_ref)
     return m, torch.sum(take, dtype=torch.int32)
 
 
@@ -367,7 +377,7 @@ def _fuse_into_kf(
 
 def fuse_in_neighbors(
     m: MapState,
-    kf_id: int,
+    kf_id,
     cam_params: torch.Tensor,
     width: int,
     height: int,
@@ -376,11 +386,12 @@ def fuse_in_neighbors(
 ) -> tuple[MapState, torch.Tensor]:
     """``LocalMapping::SearchInNeighbors``: fuse duplicated landmarks
     between keyframe ``kf_id`` and its ``n_neighbors`` most covisible
-    keyframes (ties to the lower slot), both directions. Returns (map,
-    n_fused)."""
+    keyframes (ties to the lower slot), both directions. ``kf_id``: an int
+    or a 0-d tensor. Returns (map, n_fused)."""
+    k1 = kf_index(kf_id, m.kf_obs.device)
     obs = obs_matrix(m)
-    w = obs.to(torch.float32) @ obs[kf_id].to(torch.float32)  # [K]
-    w[kf_id] = -1.0
+    w = obs.to(torch.float32) @ obs.index_select(0, k1)[0].to(torch.float32)  # [K]
+    w.index_fill_(0, k1, -1.0)
     w = torch.where(m.kf_valid, w, torch.full_like(w, -1.0))
     top_w, top_ids = top_k(w, n_neighbors)
     n_fused = torch.zeros((), dtype=torch.int32, device=w.device)
@@ -389,7 +400,8 @@ def fuse_in_neighbors(
         active = top_w[i] > 0
         # forward: the new keyframe's landmarks into the neighbour
         m, f1 = _fuse_into_kf(
-            m, obs_matrix(m)[kf_id], nk, active, cam_params, width, height, radius,
+            m, obs_matrix(m).index_select(0, k1)[0], nk, active, cam_params, width, height,
+            radius,
         )
         # reverse: the neighbour's landmarks into the new keyframe
         src = obs_matrix(m).index_select(0, nk.reshape(1))[0]

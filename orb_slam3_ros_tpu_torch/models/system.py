@@ -300,6 +300,9 @@ class MonoSlam:
         self.frame_id += 1
         return out
 
+    def process_frames(self, imgs, tss):
+        raise _not_ported("the monocular chunk loop process_frames", "9")
+
     def _predict_motion(self, ts: float) -> None:
         """Hook: update vel_R / vel_t before tracking (constant velocity
         here; the inertial pipeline predicts from the IMU)."""

@@ -202,19 +202,25 @@ def kf_features(m: MapState, kf) -> Features:
 
 def triangulate_with_ref(
     m: MapState,
-    new_kf: int,
-    ref_kf: int,
+    new_kf,
+    ref_kf,
     cam_params: torch.Tensor,
     scale: float = 1.2,
 ) -> TriangulationResult:
     """Epipolar search + DLT new-landmark creation between the newest
     keyframe and a reference keyframe (LocalMapping::CreateNewMapPoints,
     reduced to one neighbour): cheirality, parallax and reprojection checks
-    in both views."""
-    f_new = kf_features(m, new_kf)
-    f_ref = kf_features(m, ref_kf)
-    R1, t1 = m.kf_R[new_kf], m.kf_t[new_kf]  # Tcw of new
-    R2, t2 = m.kf_R[ref_kf], m.kf_t[ref_kf]
+    in both views. Keyframe ids: ints or 0-d tensors."""
+    dev = m.kf_R.device
+    k_new, k_ref = kf_index(new_kf, dev), kf_index(ref_kf, dev)
+
+    def row(t, k):
+        return t.index_select(0, k)[0]
+
+    f_new = kf_features(m, k_new)
+    f_ref = kf_features(m, k_ref)
+    R1, t1 = row(m.kf_R, k_new), row(m.kf_t, k_new)  # Tcw of new
+    R2, t2 = row(m.kf_R, k_ref), row(m.kf_t, k_ref)
     # relative: x_ref = R21 x_new + t21 with 1 = new, 2 = ref
     R21 = R2 @ R1.T
     t21 = t2 - R21 @ t1
@@ -224,8 +230,8 @@ def triangulate_with_ref(
     F12 = triangulate.fundamental_from_poses(K, K, R12, t12)
     idx, _ = matching.search_for_triangulation(
         f_new, f_ref, F12,
-        already_matched1=m.kf_obs[new_kf] >= 0,
-        already_matched2=m.kf_obs[ref_kf] >= 0,
+        already_matched1=row(m.kf_obs, k_new) >= 0,
+        already_matched2=row(m.kf_obs, k_ref) >= 0,
         scale=scale,
     )
     matched = idx >= 0

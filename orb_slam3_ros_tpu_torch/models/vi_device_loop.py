@@ -1,0 +1,561 @@
+"""Device-resident visual-inertial chunk loop — port of
+``orb_slam3_ros_tpu.models.vi_device_loop``.
+
+The steady mono-inertial state (all three IMU-initialization stages done,
+tracking OK, a full temporal window) runs frame after frame on the device:
+per frame, preintegration of the frame's IMU block -> state prediction ->
+extraction -> tracking -> 15-dof VI refinement -> the keyframe decision; per
+keyframe, insertion -> triangulation -> admission -> fusion ->
+temporal-window VI-BA -> culls, with the JAX package's IMU bookkeeping: the
+since-last-keyframe block ``blk`` (its fill ``blk_n``, ``blk_ok`` False
+after an overflow), the per-keyframe edge blocks ``kf_blk`` with
+``kf_edge_ok``, and the anchor body state with its covariance ``Sigma``.
+
+Where the JAX package compiles a chunk into one XLA program (``lax.scan``
+over the frames, the keyframe work under ``lax.cond``), the port captures
+CUDA graphs (``VIChunkRunner``): one of the frame step per tracking
+schedule, and the keyframe body in six segments, of which the fuse, stats
+and cull segments are replayed only at the keyframe ids that call for them
+(ids the host knows). After each step the host reads two words,
+``(need_kf, alive)``, and replays the keyframe segments or goes on: the
+branch the JAX program takes on the device. Every region reads and writes
+one set of static buffers; on the CPU the same functions run eagerly on the
+same buffers.
+
+A frame whose refinement keeps fewer than 15 inliers ends the chunk: its
+step leaves the body state as it was, and the host replays it and the
+frames after it one at a time, from the state of the last tracked frame.
+
+Not ported (ROADMAP "Do not port"): the tunnel's packing
+(``unpack_vi_dev_state``, ``pack_vi_chunk_result``) and the
+``ORB_BATCH_EXTRACT`` branch; the stereo branch waits for ROADMAP item 12.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..ops import imu as imu_ops
+from ..ops import orb, project_match, viba
+from . import local_mapping, map_updates, tracking
+from .map_state import MapState, kf_index
+
+
+class VIDevState(NamedTuple):
+    """Inertial side state carried from frame to frame and chunk to chunk."""
+
+    R_wb: torch.Tensor  # [3,3] previous frame's body rotation (anchor)
+    p_wb: torch.Tensor  # [3]
+    v: torch.Tensor  # [3]
+    bg: torch.Tensor  # [3]
+    ba: torch.Tensor  # [3]
+    Sigma: torch.Tensor  # [15,15] anchor posterior covariance (zeros = exact)
+    blk: torch.Tensor  # [S,7] IMU samples (acc | gyro | dt) since the last keyframe
+    blk_n: torch.Tensor  # [] int32 fill count
+    blk_ok: torch.Tensor  # [] bool, False after an overflow (chain break)
+    kf_blk: torch.Tensor  # [K,S,7] per-keyframe edge blocks (k integrates k-1 -> k)
+    kf_edge_ok: torch.Tensor  # [K] bool
+
+
+class VICarry(NamedTuple):
+    m: MapState
+    st: VIDevState
+    n_kf: torch.Tensor  # [] int32
+    n_pts: torch.Tensor  # [] int32
+    last_kf_fid: torch.Tensor  # [] int32
+    alive: torch.Tensor  # [] bool
+    # Inliers at the reference keyframe for the thRefRatio rule (-1:
+    # unseeded, the first frame's count is taken).
+    ref_inl: torch.Tensor  # [] int32
+
+
+class VIChunkOut(NamedTuple):
+    """One frame's output, as the columns of its row of ``ROW_LEN`` floats."""
+
+    R: torch.Tensor  # [3,3] camera Tcw
+    t: torch.Tensor  # [3]
+    R_cr: torch.Tensor  # [3,3] pose relative to the reference keyframe
+    t_cr: torch.Tensor  # [3]
+    ref: torch.Tensor  # [] reference keyframe slot
+    n_inliers: torch.Tensor  # []
+    is_kf: torch.Tensor  # []
+    alive: torch.Tensor  # []
+
+
+ROW_LEN = 28
+
+
+class VIChunkConfig(NamedTuple):
+    """The static settings of one system's chunk (``InertialSlam``'s)."""
+
+    config: orb.ExtractorConfig
+    cam_params: torch.Tensor
+    calib: imu_ops.ImuCalib
+    width: int
+    height: int
+    kf_every: int
+    kf_min_inliers: int
+    kf_ref_ratio: float
+    W: int  # temporal VI-BA window (keyframes)
+    ba_window: int  # its free keyframes
+    local_ba_iters: int
+    fuse_neighbors: int
+    fuse_every: int
+    stats_every: int
+    cull_every: int
+    kf_culling: bool
+    K_cap: int
+    imu_cap_frame: int
+    imu_cap_kf: int
+    track_cap: int | None
+
+    def kf_segments(self, kf_id: int) -> tuple:
+        """The keyframe segments keyframe ``kf_id`` runs, in order (the
+        conditions of the JAX body's ``lax.cond`` branches)."""
+        seg = ["kf_insert"]
+        if self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0:
+            seg.append("kf_fuse")
+        seg.append("kf_ba")
+        if kf_id % self.stats_every == 0:
+            seg.append("kf_stats")
+        if self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0:
+            seg.append("kf_cull")
+        seg.append("kf_end")
+        return tuple(seg)
+
+
+def need_keyframe(ok, n_vis, since, ref_inl, n_kf, *, K_cap, kf_every, kf_min_inliers,
+                  kf_ref_ratio):
+    """The chunk's keyframe rule (JAX ``vi_device_loop.py:357-372``): a
+    tracked frame under capacity, ``kf_every`` frames after the last
+    keyframe, or two frames after it when tracking weakens (under
+    ``kf_min_inliers``, or under ``kf_ref_ratio`` of the reference
+    keyframe's inliers: NeedNewKeyFrame's thRefRatio, Tracking.cc:3103).
+    0-d tensors in, a 0-d bool tensor out."""
+    weak = (n_vis < kf_min_inliers) & (since >= 2)
+    if kf_ref_ratio > 0.0:
+        weak = weak | (
+            (n_vis.to(torch.float32) < kf_ref_ratio * ref_inl.to(torch.float32)) & (since >= 2)
+        )
+    return ok & (n_kf < K_cap) & ((since >= kf_every) | weak)
+
+
+def frame_row(m: MapState, ref, R_cur, t_cur, n_inliers, is_kf, alive) -> torch.Tensor:
+    """[ROW_LEN] f32: ``VIChunkOut``'s columns in field order, with the
+    pose relative to keyframe ``ref`` (a 0-d tensor)."""
+    k = kf_index(ref, R_cur.device)
+    R_ref = m.kf_R.index_select(0, k)[0]
+    t_ref = m.kf_t.index_select(0, k)[0]
+    R_cr = R_cur @ R_ref.T
+    t_cr = t_cur - R_cr @ t_ref
+    tail = torch.stack([x.to(torch.float32) for x in (ref, n_inliers, is_kf, alive)])
+    return torch.cat([R_cur.reshape(9), t_cur, R_cr.reshape(9), t_cr, tail])
+
+
+def read_rows(rows) -> VIChunkOut:
+    """``VIChunkOut`` of numpy arrays with a leading frame axis from the
+    host copy [C, ROW_LEN] of a chunk's rows."""
+    C = rows.shape[0]
+    return VIChunkOut(
+        R=rows[:, 0:9].reshape(C, 3, 3), t=rows[:, 9:12],
+        R_cr=rows[:, 12:21].reshape(C, 3, 3), t_cr=rows[:, 21:24],
+        ref=rows[:, 24].astype(int), n_inliers=rows[:, 25].astype(int),
+        is_kf=rows[:, 26] > 0.5, alive=rows[:, 27] > 0.5,
+    )
+
+
+def read_host(*tensors) -> list:
+    """One host read of several device tensors: numpy arrays of their
+    shapes, as float32 (exact for the counts and ids read here)."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
+    out, o = [], 0
+    for t in tensors:
+        out.append(flat[o : o + t.numel()].reshape(t.shape))
+        o += t.numel()
+    return out
+
+
+def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
+    """One frame: the JAX chunk's scan body up to its keyframe branch.
+    ``img`` [H, W] (any real dtype, values in [0, 255]); ``x_in``
+    [M*7 + 2] f32: the frame's IMU block (acc | gyro | dt rows, zero rows
+    as padding), its timestamp and its frame id. Returns (carry, fr):
+    ``fr`` holds what a keyframe at this frame needs (``f_*`` features,
+    pose, ``kf_id``) and the frame's ``row`` and ``flags`` (need_kf,
+    alive). The carry already counts the keyframe the flags call for."""
+    from .inertial_system import _vi_refine
+
+    M, S = cfg.imu_cap_frame, cfg.imu_cap_kf
+    dev = img.device
+    calib = cfg.calib
+    imu = x_in[: M * 7].reshape(M, 7)
+    ts = x_in[M * 7]
+    fid = x_in[M * 7 + 1].to(torch.int32)
+    a, g, d = imu[:, 0:3], imu[:, 3:6], imu[:, 6]
+    st = c.st
+    # Append the frame's samples to the since-last-keyframe block; samples
+    # past its capacity go to a spare row that is cut off (the JAX
+    # package's mode="drop").
+    idx = st.blk_n + torch.arange(M, dtype=torch.int32, device=dev)
+    dst = torch.where((d > 0) & (idx < S), idx, S).long()
+    blk = torch.cat([st.blk, st.blk[:1]]).index_copy_(0, dst, imu)[:S]
+    n_valid = torch.sum(d > 0, dtype=torch.int32)
+    blk_ok = st.blk_ok & (st.blk_n + n_valid <= S)
+    blk_n = torch.clamp(st.blk_n + n_valid, max=S)
+    # Preintegrate the frame block and predict the pose (PredictStateIMU,
+    # Tracking.cc:1774).
+    b = torch.cat([st.bg, st.ba])
+    pre = imu_ops.preintegrate(a, g, d, b, calib)
+    R2, p2, _ = imu_ops.predict_state(st.R_wb, st.p_wb, st.v, b, pre)
+    R_pred, t_pred = viba.cam_from_body(R2, p2, calib.R_bc, calib.t_bc)
+    feats = orb.extract(img.to(torch.float32), cfg.config)
+    res = tracking.track_against_map(
+        c.m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
+        schedule=schedule, track_cap=cfg.track_cap,
+    )
+    vires, R_cw, t_cw = _vi_refine(
+        c.m, feats, res.feat_pt, res.R, res.t, st.v, st.bg, st.ba,
+        st.R_wb, st.p_wb, st.v, st.bg, st.ba, pre, st.Sigma, cfg.cam_params,
+        calib.R_bc, calib.t_bc,
+    )
+    n_vis = vires.n_inliers
+    ok = c.alive & (n_vis >= 15)
+
+    def keep(new, old):
+        return torch.where(ok, new, old)
+
+    # The anchor advances to the refined state with its posterior
+    # covariance (the per-frame path's _vi_anchor / _vi_prior).
+    st2 = VIDevState(
+        R_wb=keep(vires.R_wb, st.R_wb), p_wb=keep(vires.p_wb, st.p_wb),
+        v=keep(vires.v_w, st.v), bg=keep(vires.bg, st.bg), ba=keep(vires.ba, st.ba),
+        Sigma=keep(vires.Sigma, st.Sigma), blk=keep(blk, st.blk),
+        blk_n=keep(blk_n, st.blk_n), blk_ok=keep(blk_ok, st.blk_ok),
+        kf_blk=st.kf_blk, kf_edge_ok=st.kf_edge_ok,
+    )
+    m = map_updates.update_track_counters(c.m, res.visible_mask & ok, res.found_mask & ok)
+    since = fid - c.last_kf_fid
+    ref_inl = torch.where(c.ref_inl < 0, n_vis, c.ref_inl)
+    need_kf = need_keyframe(
+        ok, n_vis, since, ref_inl, c.n_kf, K_cap=cfg.K_cap, kf_every=cfg.kf_every,
+        kf_min_inliers=cfg.kf_min_inliers, kf_ref_ratio=cfg.kf_ref_ratio,
+    )
+    n_inl = torch.where(c.alive, n_vis, torch.zeros_like(n_vis))
+    fr = dict(
+        f_xy=feats.xy, f_level=feats.level, f_angle=feats.angle, f_desc=feats.desc_sign,
+        f_valid=feats.valid, f_pt=res.feat_pt,
+        kf_R=torch.where(ok, R_cw, R_pred), kf_t=torch.where(ok, t_cw, t_pred),
+        kf_ts=ts, kf_id=c.n_kf, n_vis=n_vis,
+        # rewritten by kf_end on a keyframe
+        row=frame_row(m, c.n_kf - 1, R_cw, t_cw, n_inl, need_kf, ok),
+        flags=torch.stack([need_kf, ok]).to(torch.int32),
+    )
+    c2 = VICarry(
+        m=m, st=st2, n_kf=c.n_kf + need_kf.to(torch.int32), n_pts=c.n_pts,
+        last_kf_fid=torch.where(need_kf, fid, c.last_kf_fid), alive=ok,
+        ref_inl=torch.where(need_kf, n_vis, ref_inl),
+    )
+    return c2, fr
+
+
+def _kf_feats(fr: dict) -> orb.Features:
+    return orb.Features(
+        xy=fr["f_xy"], level=fr["f_level"], angle=fr["f_angle"], response=None,
+        desc_packed=None, desc_sign=fr["f_desc"], valid=fr["f_valid"],
+    )
+
+
+def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
+    """Keyframe segment 1: snapshot the since-last-keyframe IMU block into
+    ``kf_blk[kf_id]``, insert the keyframe with its body state (v, bg, ba),
+    triangulate against the previous keyframe and admit the new points."""
+    m, st, kf_id = c.m, c.st, fr["kf_id"]
+    S = cfg.imu_cap_kf
+    k = kf_index(kf_id, st.blk.device)
+    filled = torch.arange(S, device=st.blk.device) < st.blk_n
+    st.kf_blk.index_copy_(0, k, torch.where(filled[:, None], st.blk, 0.0)[None])
+    st.kf_edge_ok.index_copy_(0, k, st.blk_ok.reshape(1))
+    m = map_updates.insert_keyframe(
+        m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"]
+    )
+    m.kf_v.index_copy_(0, k, st.v[None])
+    m.kf_bg.index_copy_(0, k, st.bg[None])
+    m.kf_ba.index_copy_(0, k, st.ba[None])
+    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cfg.cam_params)
+    m, n_tri = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, c.n_pts, m.P - c.n_pts)
+    return c._replace(m=m, n_pts=c.n_pts + n_tri)
+
+
+def kf_fuse(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
+    """Keyframe segment 2: landmark fusion with the most covisible keyframes."""
+    m, _ = map_updates.fuse_in_neighbors(
+        c.m, fr["kf_id"], cfg.cam_params, cfg.width, cfg.height, n_neighbors=cfg.fuse_neighbors
+    )
+    return c._replace(m=m)
+
+
+def kf_ba(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
+    """Keyframe segment 3: the temporal window over the last W keyframes,
+    the new one included (LocalInertialBA's mPrevKF chain,
+    Optimizer.cc:2532), with its ids, fixed mask and IMU blocks gathered on
+    the device; the VI-BA, its write-back and point culling. The host gates
+    chunking on n_kf > W, so the window is always full."""
+    m, st = c.m, c.st
+    last = fr["kf_id"] + 1
+    ids = last - cfg.W + torch.arange(cfg.W, dtype=torch.int32, device=st.blk.device)
+    fixed = (ids == 0) | (ids < last - cfg.ba_window)
+    edge = ids[1:].long()
+    blocks = st.kf_blk.index_select(0, edge)  # [W-1, S, 7]
+    prob = local_mapping.build_vi_ba(
+        m, ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
+        st.kf_edge_ok.index_select(0, edge), cfg.calib, cfg.cam_params,
+    )
+    res = viba.vi_bundle_adjust(prob, n_iters=cfg.local_ba_iters)
+    m = local_mapping.apply_vi_ba(m, ids, res, cfg.calib)
+    return c._replace(m=map_updates.cull_points(m, last))
+
+
+def kf_stats(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
+    """Keyframe segment 4: representative descriptors, normals, bands."""
+    return c._replace(m=map_updates.refresh_point_stats(c.m, n_levels=cfg.config.n_levels))
+
+
+def kf_cull(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
+    """Keyframe segment 5: keyframe culling."""
+    m, _ = map_updates.cull_keyframes(c.m, fr["kf_id"] + 1, n_levels=cfg.config.n_levels)
+    return c._replace(m=m)
+
+
+def kf_end(c: VICarry, fr: dict, cfg: VIChunkConfig):
+    """Keyframe segment 6: a fresh anchor from the BA-refined keyframe
+    state, exact (Sigma = 0), an empty since-last-keyframe block, and the
+    frame's row with the keyframe's refined pose. Returns (carry, fr)."""
+    m, st, kf_id = c.m, c.st, fr["kf_id"]
+    k = kf_index(kf_id, st.blk.device)
+
+    def row(t):
+        return t.index_select(0, k)[0]
+
+    R, t = row(m.kf_R), row(m.kf_t)
+    R_wb, p_wb = viba.body_from_cam(R, t, cfg.calib.R_bc, cfg.calib.t_bc)
+    st2 = st._replace(
+        R_wb=R_wb, p_wb=p_wb, v=row(m.kf_v), bg=row(m.kf_bg), ba=row(m.kf_ba),
+        Sigma=torch.zeros_like(st.Sigma), blk=torch.zeros_like(st.blk),
+        blk_n=torch.zeros_like(st.blk_n), blk_ok=torch.ones_like(st.blk_ok),
+    )
+    one = torch.ones((), dtype=torch.int32, device=R.device)
+    fr = dict(fr, row=frame_row(m, kf_id, R, t, fr["n_vis"], one, one))
+    return c._replace(st=st2), fr
+
+
+KF_SEGMENTS = {
+    "kf_insert": kf_insert, "kf_fuse": kf_fuse, "kf_ba": kf_ba, "kf_stats": kf_stats,
+    "kf_cull": kf_cull, "kf_end": kf_end,
+}
+_CARRY_SCALARS = ("n_kf", "n_pts", "last_kf_fid", "alive", "ref_inl")
+
+
+class VIChunkRunner:
+    """Runs chunks of the steady mono-inertial state on one set of static
+    buffers (``buf``: the map, the inertial state, the carry scalars, the
+    frame's inputs and what a keyframe needs of the frame).
+
+    On CUDA (``graphs``), each region (the step per schedule, each keyframe
+    segment) is captured once as a CUDA graph on a side stream, after a
+    warm-up run of it on a scratch copy of the buffers on that stream
+    (library handles, matcher workspaces and device tables then exist
+    before capture), each graph in its own memory pool, and then replayed;
+    a failed capture or replay raises, nothing falls back to the eager
+    path. Off the card the regions run eagerly on the same buffers;
+    ``region`` gives any region's eager function on the card too. Each
+    region ends by copying every leaf it rebinds back into its buffer, so
+    the buffers are the state from one replay to the next.
+
+    K1 launches: a capture queues none, so ``project_match.LAUNCHES`` gets
+    the graph's launches on every replay; the warm-ups launch for real and
+    are counted there too, and in ``warmup_launches``."""
+
+    def __init__(self, cfg: VIChunkConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.graphs = self.device.type == "cuda"
+        self.buf: dict = {}
+        self._graph: dict = {}  # region -> (CUDAGraph, K1 launches a replay)
+        self._stream = None
+        self._workspaces = {}  # matcher workspaces the graphs hold, by address
+        self.warmup_launches = {site: 0 for site in project_match.LAUNCHES}
+        self.capture_s = 0.0
+        self.runs = collections.Counter()  # region -> runs (replays on the card)
+        # With ``timing``: CUDA events around every replay, and the host's
+        # gap between a frame's flag read and the next frame's first launch.
+        self.timing = False
+        self.spans = []  # (region, start event, end event)
+        self.gaps_s = []
+
+    # ---- state -------------------------------------------------------
+    def carry(self, buf=None) -> VICarry:
+        b = self.buf if buf is None else buf
+        return VICarry(
+            m=MapState(*(b["m." + f] for f in MapState._fields)),
+            st=VIDevState(*(b["st." + f] for f in VIDevState._fields)),
+            **{k: b[k] for k in _CARRY_SCALARS},
+        )
+
+    def load(self, m: MapState, st: VIDevState, n_kf: int, n_pts: int, last_kf_fid: int,
+             ref_inl: int) -> None:
+        """Put a chunk's starting state into the buffers: the map's and the
+        inertial state's leaves that are not the buffers already are copied
+        in (the per-frame path rebinds some); the scalars are filled."""
+        if not self.buf:
+            self._make_buffers(m, st)
+        for prefix, tup in (("m.", m), ("st.", st)):
+            for f, v in zip(tup._fields, tup):
+                dst = self.buf[prefix + f]
+                if v is not dst:
+                    dst.copy_(v)
+        for k, v in zip(_CARRY_SCALARS, (n_kf, n_pts, last_kf_fid, 1, ref_inl)):
+            self.buf[k].fill_(v)
+
+    def _make_buffers(self, m: MapState, st: VIDevState) -> None:
+        cfg, dev = self.cfg, self.device
+        N = cfg.config.total_cap
+        f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+        b = {"m." + f: torch.empty_like(v, device=dev) for f, v in zip(m._fields, m)}
+        b.update({"st." + f: torch.empty_like(v, device=dev) for f, v in zip(st._fields, st)})
+        b.update({k: torch.zeros((), **i32) for k in _CARRY_SCALARS})
+        b["alive"] = torch.zeros((), dtype=torch.bool, device=dev)
+        b.update(
+            img=torch.zeros((cfg.height, cfg.width), **f32),
+            x_in=torch.zeros((cfg.imu_cap_frame * 7 + 2,), **f32),
+            f_xy=torch.zeros((N, 2), **f32), f_level=torch.zeros((N,), **i32),
+            f_angle=torch.zeros((N,), **f32),
+            f_desc=torch.zeros((N, 256), dtype=torch.int8, device=dev),
+            f_valid=torch.zeros((N,), dtype=torch.bool, device=dev),
+            f_pt=torch.zeros((N,), **i32), kf_R=torch.zeros((3, 3), **f32),
+            kf_t=torch.zeros((3,), **f32), kf_ts=torch.zeros((), **f32),
+            kf_id=torch.zeros((), **i32), n_vis=torch.zeros((), **i32),
+            row=torch.zeros((ROW_LEN,), **f32), flags=torch.zeros((2,), **i32),
+        )
+        self.buf = b
+
+    @staticmethod
+    def _commit(buf: dict, c: VICarry, fr: dict | None = None) -> None:
+        """Copy the leaves of ``c`` (and ``fr``) that are not their buffers
+        into them. A leaf that is another buffer (the step's ``kf_id`` is
+        the carry's ``n_kf`` it increments) is copied out first."""
+        pairs = [("m." + f, v) for f, v in zip(c.m._fields, c.m)]
+        pairs += [("st." + f, v) for f, v in zip(c.st._fields, c.st)]
+        pairs += [(k, getattr(c, k)) for k in _CARRY_SCALARS]
+        pairs += list((fr or {}).items())
+        pairs = [(k, v) for k, v in pairs if v is not buf[k]]
+        written = {buf[k].untyped_storage().data_ptr() for k, _ in pairs}
+        pairs = [(k, v.clone() if v.untyped_storage().data_ptr() in written else v)
+                 for k, v in pairs]
+        for k, v in pairs:
+            buf[k].copy_(v)
+
+    # ---- regions -----------------------------------------------------
+    def region(self, name):
+        """The function of region ``name`` (``("step", schedule)`` or a
+        keyframe segment) on a buffer set: it reads its inputs there and
+        writes its results back there."""
+        cfg = self.cfg
+        if isinstance(name, tuple):
+            schedule = name[1]
+
+            def step(buf):
+                c, fr = frame_step(self.carry(buf), buf["img"], buf["x_in"], cfg, schedule)
+                self._commit(buf, c, fr)
+
+            return step
+        seg = KF_SEGMENTS[name]
+
+        def kf(buf):
+            fr = {k: buf[k] for k in ("f_xy", "f_level", "f_angle", "f_desc", "f_valid", "f_pt",
+                                      "kf_R", "kf_t", "kf_ts", "kf_id", "n_vis")}
+            out = seg(self.carry(buf), fr, cfg)
+            c, fr2 = (out, None) if isinstance(out, VICarry) else out
+            self._commit(buf, c, None if fr2 is None else {"row": fr2["row"]})
+
+        return kf
+
+    def _run(self, name) -> None:
+        self.runs[name] += 1
+        fn = self.region(name)
+        if not self.graphs:
+            fn(self.buf)
+            return
+        entry = self._graph.get(name)
+        if entry is None:
+            entry = self._graph[name] = self._capture(fn)
+        g, launches = entry
+        if self.timing:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            self.spans.append((name, a, b))
+        else:
+            g.replay()
+        project_match.count_replay(launches)
+
+    def _capture(self, fn):
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        s = self._stream
+        s.wait_stream(torch.cuda.current_stream(self.device))
+        before = dict(project_match.LAUNCHES)
+        with torch.cuda.stream(s):
+            fn({k: v.clone() for k, v in self.buf.items()})
+        for site, n in project_match.LAUNCHES.items():
+            self.warmup_launches[site] += n - before[site]
+        s.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)  # its node list stays readable
+        with project_match.captured_launches() as launches:
+            with torch.cuda.graph(g, stream=s):
+                fn(self.buf)
+        # A graph holds the addresses of the matcher workspaces of its
+        # stream: keep them alive whatever the cache evicts.
+        for ws in project_match.stream_workspaces(s.cuda_stream):
+            self._workspaces[ws.data_ptr()] = ws
+        self.capture_s += time.perf_counter() - t0
+        return g, launches
+
+    @property
+    def n_graphs(self) -> int:
+        return len(self._graph)
+
+    # ---- a chunk -----------------------------------------------------
+    def run_chunk(self, stack, off: int, xs: torch.Tensor, schedule: tuple, n_kf: int):
+        """Frames ``stack[off : off + C]`` with their input rows ``xs``
+        [C, M*7 + 2] on the device (see ``frame_step``), from the state in
+        the buffers; ``n_kf`` is the host's keyframe count, which names the
+        keyframe segments to replay. Stops after the first frame that is
+        not tracked. Returns (rows [n, ROW_LEN] on the device, the keyframe
+        ids inserted)."""
+        C = xs.shape[0]
+        rows = torch.empty((C, ROW_LEN), dtype=torch.float32, device=self.device)
+        kf_ids = []
+        t_read = None
+        for i in range(C):
+            if self.timing and t_read is not None:
+                self.gaps_s.append(time.perf_counter() - t_read)
+            self.buf["img"].copy_(stack[off + i])
+            self.buf["x_in"].copy_(xs[i])
+            self._run(("step", schedule))
+            need_kf, alive = self.buf["flags"].tolist()  # the frame's one host read
+            t_read = time.perf_counter()
+            if need_kf:
+                for seg in self.cfg.kf_segments(n_kf):
+                    self._run(seg)
+                kf_ids.append(n_kf)
+                n_kf += 1
+            rows[i].copy_(self.buf["row"])
+            if not alive:
+                return rows[: i + 1], kf_ids
+        return rows, kf_ids

@@ -108,7 +108,7 @@ def _edge_res_jac(R, t, X, uv, ur, bf, cam_params):
     ur_pred = pred[:, 0] - bf / z_safe
     r = torch.cat([pred - uv, (has_st * (ur_pred - ur))[:, None]], dim=-1)
     # d(u_r)/dXc = d(u)/dXc + (bf / z^2) e_z
-    e_z = torch.tensor([0.0, 0.0, 1.0], dtype=X.dtype, device=X.device)
+    e_z = torch.eye(3, dtype=X.dtype, device=X.device)[2]
     Jur = Jproj[:, 0] + e_z * (bf / z_safe**2)[:, None]
     Jproj3 = torch.cat([Jproj, (has_st[:, None] * Jur)[:, None]], dim=1)  # [E,3,3]
     eye = torch.eye(3, dtype=X.dtype, device=X.device).expand(X.shape[0], 3, 3)
@@ -243,7 +243,7 @@ def bundle_adjust(
         return R, t, X, lam, cost, done
 
     R, t, X = prob.R, prob.t, prob.X
-    lam = torch.tensor(lam0, dtype=dtype, device=dev)
+    lam = torch.full((), lam0, dtype=dtype, device=dev)
     cost = cost_of(R, t, X)
     iters = 0
     while iters < n_iters:

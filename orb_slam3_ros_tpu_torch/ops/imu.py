@@ -54,7 +54,7 @@ GRAVITY = 9.81  # reference GRAVITY_VALUE
 
 def gravity_vec(like: torch.Tensor) -> torch.Tensor:
     """(0, 0, -GRAVITY) with the dtype and device of ``like``."""
-    return torch.tensor([0.0, 0.0, -GRAVITY], dtype=like.dtype, device=like.device)
+    return torch.eye(3, dtype=like.dtype, device=like.device)[2] * -GRAVITY
 
 
 class Preintegrated(NamedTuple):

@@ -20,8 +20,6 @@ from __future__ import annotations
 
 import torch
 
-from . import linalg
-
 _EPS = 1e-8  # theta^2 threshold below which Taylor branches take over
 
 
@@ -167,12 +165,23 @@ def _det3(M: torch.Tensor) -> torch.Tensor:
     return torch.sum(M[..., 0, :] * torch.linalg.cross(M[..., 1, :], M[..., 2, :]), dim=-1)
 
 
+POLAR_ITERS = 5  # float32 round-off reached for inputs up to 1.0 off a rotation
+
+
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
-    """Project a near-rotation onto SO(3) via SVD (the reference's
-    ``IMU::NormalizeRotation``); NaN for a matrix with a non-finite entry
-    (an LM step from a failed Cholesky), as in the JAX package."""
-    u, _, vt = linalg.svd(R)
-    det = _det3(u @ vt)
-    one = torch.ones_like(det)
-    fix = torch.stack([one, one, det], dim=-1)
-    return (u * fix[..., None, :]) @ vt
+    """Project a near-rotation onto SO(3) (the reference's
+    ``IMU::NormalizeRotation``): its orthogonal polar factor, by
+    determinant-scaled Newton iteration X <- (g X + cof(X) / (g det X)) / 2,
+    g = |det X|^(-1/3), with the cofactor rows taken as cross products of
+    the rows (cof(X) = det(X) X^-T). A fixed number of elementwise steps: no
+    solver call and no host read, so it runs inside a captured CUDA graph.
+    For a nonsingular input with det > 0 this is the SVD projection of the
+    JAX package; an input with a non-finite entry (an LM step from a failed
+    Cholesky) gives NaN, as there."""
+    X = R
+    for _ in range(POLAR_ITERS):
+        cof = torch.linalg.cross(X.roll(-1, dims=-2), X.roll(-2, dims=-2))
+        det = torch.sum(X * cof, dim=(-1, -2)) / 3.0  # each row's dot product is det
+        g = torch.abs(det).pow(-1.0 / 3.0)
+        X = 0.5 * (g[..., None, None] * X + cof / (g * det)[..., None, None])
+    return X

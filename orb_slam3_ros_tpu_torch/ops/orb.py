@@ -16,6 +16,7 @@ import torch
 
 from . import fast as fast_mod
 from . import pyramid as pyr_mod
+from .tables import device_table
 
 PATCH_R = 15  # orientation patch radius (reference HALF_PATCH_SIZE = 15)
 PAIR_CLIP = 13  # descriptor test offsets stay within +-13
@@ -143,11 +144,20 @@ def _blur_band_matrix(S: int, ksize: int, sigma: float) -> np.ndarray:
     return B
 
 
+def _pattern() -> np.ndarray:
+    return PATTERN
+
+
+def _moment_matrix() -> np.ndarray:
+    """[31*31, 2]: the x / y moment weights of the centre disc."""
+    return np.stack([_KX.reshape(-1), _KY.reshape(-1)], axis=-1)
+
+
 def _patch_blur(patches: torch.Tensor, ksize: int = 7, sigma: float = 2.0):
     """Blur [N, S, S] patches with the descriptor Gaussian, VALID
     (output [N, S-6, S-6]), as two banded-matrix contractions."""
     S = patches.shape[-1]
-    B = torch.from_numpy(_blur_band_matrix(S, ksize, sigma)).to(patches.device)
+    B = device_table(_blur_band_matrix, (S, ksize, sigma), None, patches.device)
     x = torch.einsum("nij,ik->nkj", patches, B)  # rows (dim 1), VALID
     return torch.einsum("nkj,jl->nkl", x, B)  # cols (dim 2), VALID
 
@@ -159,7 +169,7 @@ def _descriptors_from_patches(bpatch: torch.Tensor, angle: torch.Tensor):
     rot = torch.stack(
         [torch.stack([ca, -sa], -1), torch.stack([sa, ca], -1)], dim=-2
     )  # [N, 2, 2]
-    pat = torch.from_numpy(PATTERN).to(bpatch.device)  # [P, 2, 2]
+    pat = device_table(_pattern, (), None, bpatch.device)  # [P, 2, 2]
     off = torch.round(torch.einsum("nij,pkj->npki", rot, pat)).to(torch.int64)
     cx = torch.clamp(off[..., 0] + _BLUR_R, 0, D - 1)  # [N, P, 2]
     cy = torch.clamp(off[..., 1] + _BLUR_R, 0, D - 1)
@@ -223,7 +233,7 @@ def extract(img: torch.Tensor, config: ExtractorConfig) -> Features:
     # the column index), start indices clamped like lax.dynamic_slice.
     S = 2 * PATCH_RAW + 1
     Hs, Ws = strip.shape
-    offs_arr = torch.tensor(offs, dtype=torch.int64, device=dev)[lvl.long()]
+    offs_arr = device_table(np.asarray, (tuple(offs),), torch.int64, dev)[lvl.long()]
     y0 = torch.clamp(xy_lv[:, 1].to(torch.int64) + M - PATCH_RAW, 0, Hs - S)
     x0 = torch.clamp(xy_lv[:, 0].to(torch.int64) + offs_arr - PATCH_RAW, 0, Ws - S)
     ar = torch.arange(S, device=dev)
@@ -232,14 +242,14 @@ def extract(img: torch.Tensor, config: ExtractorConfig) -> Features:
     # Orientation from the centre 31x31.
     c0 = PATCH_RAW - PATCH_R
     center = patches[:, c0 : c0 + 2 * PATCH_R + 1, c0 : c0 + 2 * PATCH_R + 1]
-    kern = torch.from_numpy(np.stack([_KX.reshape(-1), _KY.reshape(-1)], axis=-1)).to(dev)
+    kern = device_table(_moment_matrix, (), None, dev)
     mom = center.reshape(center.shape[0], -1) @ kern  # [N, 2]
     ang = torch.atan2(mom[:, 1], mom[:, 0])
 
     bits = _descriptors_from_patches(_patch_blur(patches), ang)
 
-    scale_l = torch.tensor(
-        [config.scale**l for l in range(L)], dtype=torch.float32, device=dev
+    scale_l = device_table(
+        np.asarray, (tuple(config.scale**l for l in range(L)),), torch.float32, dev
     )[lvl.long()][:, None]
     xy = xy_lv * scale_l
     return Features(

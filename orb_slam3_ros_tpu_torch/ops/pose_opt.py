@@ -84,7 +84,7 @@ def pose_optimization(
         return H, g, cost, chi2
 
     R, t, active = R0, t0, valid
-    lam = torch.tensor(1e-2, dtype=dtype, device=dev)
+    lam = torch.full((), 1e-2, dtype=dtype, device=dev)
     for _ in range(rounds):
         for _ in range(iters_per_round):
             H, g, cost, _ = compute_quad(R, t, active)

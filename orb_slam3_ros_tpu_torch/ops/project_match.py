@@ -13,6 +13,7 @@ a persistent workspace that every call leaves as it found it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -278,6 +279,33 @@ def project_match_cuda(
         raise RuntimeError(f"project_match kernel launch failed: cudaError {err}")
     LAUNCHES[site] += 1
     return out[0], out[1]
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """For a CUDA graph capture: the launches counted inside the block are
+    taken back out of ``LAUNCHES`` (a capture queues no kernel) and left in
+    the yielded dict, by site, for ``count_replay`` to add per replay."""
+    before = dict(LAUNCHES)
+    held = {}
+    try:
+        yield held
+    finally:
+        for site in LAUNCHES:
+            held[site] = LAUNCHES[site] - before[site]
+            LAUNCHES[site] = before[site]
+
+
+def count_replay(launches: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for site, n in launches.items():
+        LAUNCHES[site] += n
+
+
+def stream_workspaces(stream: int) -> list:
+    """The workspaces of the stream with handle ``stream``: a captured
+    graph holds their addresses, so its owner keeps them alive."""
+    return [ws for key, ws in _WORKSPACES.items() if key[1] == stream]
 
 
 def project_match(

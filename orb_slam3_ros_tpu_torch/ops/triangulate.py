@@ -1,16 +1,19 @@
 """DLT triangulation and fundamental-matrix composition, batched — port of
 ``orb_slam3_ros_tpu.ops.triangulate``.
 
-The 4x4 DLT systems go through ``torch.linalg.eigh`` (cuSOLVER on the
-card, by way of ``linalg.eigh``), as the JAX package leaves them to
-``jnp.linalg.eigh``.
+The JAX package takes the DLT's null vector from ``jnp.linalg.eigh`` of
+the 4x4 normal matrix. Here it comes from inverse iteration on a batched
+inverse: cuSOLVER's ``eigh`` checks its convergence flags on the host,
+which synchronizes and cannot be captured into a CUDA graph.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import lie, linalg
+from . import lie
+
+DLT_ITERS = 3  # inverse-iteration steps: each multiplies the error by ~lambda0 / lambda1
 
 
 def triangulate_dlt(ray1: torch.Tensor, ray2: torch.Tensor, R21: torch.Tensor, t21: torch.Tensor):
@@ -20,7 +23,12 @@ def triangulate_dlt(ray1: torch.Tensor, ray2: torch.Tensor, R21: torch.Tensor, t
     (R21, t21): pose of camera 1 in camera 2 (x2 = R21 x1 + t21).
     Returns X1 [..., 3], the points in the camera-1 frame, from the
     eigenvector of A^T A with the smallest eigenvalue (its sign cancels in
-    the division by w)."""
+    the division by w): inverse iteration with B = (A^T A + d I)^-1, the
+    shift d = 1e-7 trace keeping B finite without moving the eigenvectors,
+    started from B's column with the largest diagonal entry (the direction
+    the null vector dominates). No solver check and no host read. Closer to
+    the float64 solution than float32 ``eigh`` at every parallax measured.
+    """
     x1, y1 = ray1[..., 0], ray1[..., 1]
     x2, y2 = ray2[..., 0], ray2[..., 1]
     P2 = torch.cat([R21, t21[..., None]], dim=-1)  # [3, 4]
@@ -31,8 +39,14 @@ def triangulate_dlt(ray1: torch.Tensor, ray2: torch.Tensor, R21: torch.Tensor, t
     row3 = y2[..., None] * P2[2] - P2[1]
     A = torch.stack([row0, row1, row2, row3], dim=-2)  # [..., 4, 4]
     AtA = A.transpose(-1, -2) @ A
-    _, vecs = linalg.eigh(AtA)
-    h = vecs[..., :, 0]  # eigenvector of the smallest eigenvalue
+    shift = 1e-7 * torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)
+    eye = torch.eye(4, dtype=AtA.dtype, device=AtA.device)
+    B = torch.linalg.inv_ex(AtA + shift[..., None, None] * eye)[0]
+    j = torch.argmax(torch.diagonal(B, dim1=-2, dim2=-1), dim=-1)
+    h = torch.gather(B, -1, j[..., None, None].expand(B.shape[:-1] + (1,)))[..., 0]
+    for _ in range(DLT_ITERS):
+        h = h / torch.linalg.vector_norm(h, dim=-1, keepdim=True)
+        h = (B @ h[..., None])[..., 0]
     w = h[..., 3]
     w_safe = torch.where(torch.abs(w) < 1e-9, torch.full_like(w, 1e-9), w)
     return h[..., :3] / w_safe[..., None]

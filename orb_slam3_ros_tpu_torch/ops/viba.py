@@ -159,7 +159,7 @@ def _visual_res_jac(R, p, X, uv, cam_params, R_bc, t_bc, ur=None, rmask3=None, b
         # d(u - bf/z)/dXc = du/dXc + (bf / z^2) e_z where z is not clamped
         zc = Xc[..., 2]
         dz = torch.where(zc > 1e-6, bf / torch.clamp(zc, min=1e-6) ** 2, torch.zeros_like(zc))
-        e_z = torch.tensor([0.0, 0.0, 1.0], dtype=X.dtype, device=X.device)
+        e_z = torch.eye(3, dtype=X.dtype, device=X.device)[2]
         Jur = (Jproj[..., 0, :] + e_z * dz[..., None]) * rmask3[..., None]
         Jproj = torch.cat([Jproj, Jur[..., None, :]], dim=-2)  # [E,3,3]
     JXb = Jproj @ R_bc.transpose(-1, -2)  # dXc/dXb = R_bc^T
@@ -414,7 +414,8 @@ def _vi_lm(
     X = prob.X
     Rwg = Rwg0.to(dtype)
     s = torch.ones((), dtype=dtype, device=dev)
-    lam = torch.as_tensor(lam0, dtype=dtype, device=dev)
+    lam = (torch.as_tensor(lam0, dtype=dtype, device=dev) if isinstance(lam0, torch.Tensor)
+           else torch.full((), lam0, dtype=dtype, device=dev))
     cost = total_cost(st, X, Rwg, s)
     for _ in range(n_iters):
         st, X, Rwg, s, lam, cost = step(st, X, Rwg, s, lam, cost)
@@ -695,7 +696,7 @@ def pose_inertial_optimization(
 
     R, p, v, bg, ba = R_wb0, p_wb0, v0, bg0, ba0
     active = valid
-    lam = torch.tensor(1e-2, dtype=dtype, device=dev)
+    lam = torch.full((), 1e-2, dtype=dtype, device=dev)
     for _ in range(rounds):
         for _ in range(iters_per_round):
             H, g, cost, _ = quad(R, p, v, bg, ba, active)

@@ -357,11 +357,17 @@ def test_dedup_obs_rows(seed):
         assert len(ids) == len(np.unique(ids))
 
 
-def test_keyframe_work(run):
+def test_keyframe_work(run, monkeypatch):
     # One whole keyframe step from the same map and tracking output. Integer
     # and bool fields equal; floats to 1e-5, but the local BA's output
     # (poses to 1e-4, landmark geometry by assert_points_close): its normal
-    # equations are summed in another order.
+    # equations are summed in another order. The new points enter as the
+    # JAX package's triangulation, as every stage of this file gets the JAX
+    # package's intermediate: the port solves the DLT by inverse iteration
+    # (no host read), the JAX package by float32 eigh, up to 2.5e-3 apart at
+    # low parallax, which test_triangulate_with_ref holds.
+    jtri = ttrk.TriangulationResult(*(T(np.asarray(x)) for x in run["tri"]))
+    monkeypatch.setattr(ttrk, "triangulate_with_ref", lambda *a, **k: jtri)
     args, kw, (jm, nj) = run["args"], run["kw"], run["out"]
     m0, kf, R, t, ts, feats, feat_pt, n_pts, room, cam, bf = args
     tm, nt, iters = tkf.keyframe_work(
