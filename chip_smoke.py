@@ -68,6 +68,30 @@ Phases (each raises on failure, so any failure exits non-zero):
      next launch, capture seconds, graphs and their nodes, peak memory, the
      synchronizing calls a chunk frame makes, and the card's SM clock,
      temperature and power draw during the timed chunks (nvidia-smi).
+ 10. mono chunk loop: ``bench.py``'s ``main`` protocol and configuration
+     (phase 7's sequence, ``transfer_uint8``, the lean schedule ((40, 2, 4),
+     (4, 2, 4))): per frame until ``_chunkable()``, then
+     ``MonoSlam.process_frames`` on chunks of 15 of a uint8 stack on the
+     card up to frame 45 (the CUDA graphs are captured there), then the
+     timed chunks 45..120. Requires every timed frame a step-graph replay,
+     K1 launches equal to 2 a frame plus 2 a fusing keyframe (plus the
+     warm-ups'), no frame lost after initialization, >= 12 keyframes, Sim(3)
+     ATE <= 0.02 m, one replay of the step graph equal to the eager step
+     (integers exact, floats to 1e-4), the device-form local BA equal to
+     the host-exit one on the BA segment's problem (to the bit, under
+     torch's deterministic algorithms), and no
+     synchronizing call in any region run eagerly. Prints frames/s beside
+     phase 7's, the step and segment graphs' device ms, the busy share, the
+     host gap, graphs and nodes, capture seconds and peak memory;
+ 11. relocalization, from copies of phase 10's system at frame 45 sharing
+     its graphs: (a) the timestamps from frame 90 on 2 s later: frame 90
+     goes LOST and must relocalize there, and tracking goes on to frame 120
+     without another loss; (b) frames 60..62 black: the chunk hands its dead
+     tail to the per-frame path, LOST, and the system must be OK again at
+     frame 63, the first good frame, as the JAX package is on the CPU at
+     240x376 (``scripts/reloc_blackout.py``), with no loss after it. Prints
+     each attempt's host ms, candidates tried, PnP and tracking inliers, and
+     the K1 launches of each relocalization.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -99,6 +123,13 @@ VI_SKIP, VI_MIN_STEADY, VI_MIN_KF, VI_INIT_BY = 12, 30, 14, 20
 # so each was tightened to about 5-10x what was measured.
 VI_ATE_LIMIT, VI_SCALE_TOL, VI_MIN_R22, VI_BG_TOL = 0.015, 0.01, 0.999, 3e-3
 CHUNK, CHUNK_WARM = 15, 105  # bench.py main_vi: chunks of 15, timed from frame 105 on
+MONO_WARM = 45  # bench.py main: chunks of 15, timed from frame 45 on
+BENCH_LEAN = ((40.0, 2, 4), (4.0, 2, 4))  # bench.py main's lean schedule
+JUMP_AT, JUMP_S, DARK = 90, 2.0, (60, 63)  # phase 11's timestamp jump and blackout
+# Frames after the blackout's first good frame that the JAX package needs
+# to relocalize at bench.py's protocol (scripts/reloc_blackout.py, CPU,
+# 240x376): it relocalizes at that frame.
+RELOC_AFTER_DARK = 0
 GRAPH_TOL = 1e-4  # graph replay vs eager step, float fields (abs, and rel to max(1, |x|))
 
 
@@ -291,16 +322,16 @@ def ate(slam, seq, frames, with_scale=False) -> float:
     return rmse
 
 
-def make_slam(seq, device):
+def make_slam(seq, device, **kw):
     from orb_slam3_ros_tpu_torch.models.system import MonoSlam
 
-    # bench.py's EuRoC-shape configuration (bench.py:60-66, its default
-    # lean schedule).
+    # bench.py's EuRoC-shape configuration (bench.py:60-66; phases 5-7 with
+    # the port's default lean schedule, phase 10 with bench.py's).
     return MonoSlam(
         height=H, width=W, cam_params=seq.cam_params, n_features=N_FEATURES,
         max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3,
         stats_every=3, cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
-        pipelined=False, device=device,
+        pipelined=False, device=device, **kw,
     )
 
 
@@ -490,7 +521,7 @@ def phase_mapping(torch, project_match) -> dict:
     return dict(init_frame=init_at, init_ms=init_ms, keyframes=n_kf_made, ate_sim3_m=rmse,
                 frames_per_s=len(frame_ms) / t_steady, frame_ms_p50=float(lat[0]),
                 frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
-                ba_iters=slam.ba_iters, launches=launches, peak_mem_mib=peak / 2**20)
+                ba_iters=slam.ba_iters, launches=launches, peak_mem_mib=peak / 2**20), seq
 
 
 class Captured:
@@ -758,14 +789,16 @@ def phase_vi_stages(torch, slam, caps) -> dict:
 
 
 def chunk_snapshot(slam):
-    """A deep copy of an ``InertialSlam`` on the card. Its CUDA generator
-    (two-view initialization's draws, done by now) is shared, not copied."""
-    gen, slam.generator = slam.generator, None
+    """A deep copy of a system on the card that shares, not copies, its CUDA
+    generator and its mono chunk runner (graphs cannot be copied; each chunk
+    loads its own state into the runner's buffers)."""
+    gen, runner = slam.generator, slam._mono_runner
+    slam.generator = slam._mono_runner = None
     try:
         snap = copy.deepcopy(slam)
     finally:
-        slam.generator = gen
-    snap.generator = gen
+        slam.generator, slam._mono_runner = gen, runner
+    snap.generator, snap._mono_runner = gen, runner
     return snap
 
 
@@ -863,15 +896,28 @@ def region_syncs(torch, runner, schedule) -> dict:
     """Synchronizing calls of each chunk region run eagerly once, in order,
     on a copy of the runner's buffers: the step, then every keyframe
     segment. A capture would fail on any of them; this names where."""
-    from orb_slam3_ros_tpu_torch.models import vi_device_loop
-
     scratch = {k: v.clone() for k, v in runner.buf.items()}
     out = {}
-    for name in [("step", schedule), *vi_device_loop.KF_SEGMENTS]:
+    for name in [("step", schedule), *runner.SEGMENTS]:
         fn = runner.region(name)
         torch.cuda.synchronize()
         out["step" if isinstance(name, tuple) else name] = sync_calls(torch, lambda: fn(scratch))
     return out
+
+
+def replay_stats(runner, chunk_ms, n_kf: int):
+    """From a runner's CUDA events of the timed chunks: (device ms of each
+    replay by region, keyframe graphs' ms a keyframe, busy share of the
+    chunks' wall time, the step's median ms, the host's mean gap from a flag
+    read to the next launch in µs, each graph's nodes)."""
+    spans = {}
+    for name, a, b in runner.spans:
+        spans.setdefault("step" if isinstance(name, tuple) else name, []).append(a.elapsed_time(b))
+    kf_graph_ms = sum(sum(v) for k, v in spans.items() if k != "step") / max(1, n_kf)
+    busy = sum(sum(v) for v in spans.values()) / sum(chunk_ms)
+    nodes = {("step" if isinstance(k, tuple) else k): graph_nodes(g) for k, (g, _) in runner._graph.items()}
+    return (spans, kf_graph_ms, busy, float(np.median(spans["step"])),
+            float(np.mean(runner.gaps_s)) * 1e6, nodes)
 
 
 def phase_vi_chunk(torch, project_match, vi8: dict, start) -> dict:
@@ -971,14 +1017,7 @@ def phase_vi_chunk(torch, project_match, vi8: dict, start) -> dict:
           f"{acc['poses']} poses for {n_frames - vi8['init_frame']} frames")
     check_vi_accuracy(acc, "vi chunk")
 
-    spans = {}
-    for name, a, b in runner.spans:
-        spans.setdefault("step" if isinstance(name, tuple) else name, []).append(a.elapsed_time(b))
-    kf_graph_ms = sum(sum(v) for k, v in spans.items() if k != "step") / max(1, n_kf_timed)
-    busy = sum(sum(v) for v in spans.values()) / sum(chunk_ms)
-    step_ms = float(np.median(spans["step"]))
-    gap_us = float(np.mean(runner.gaps_s)) * 1e6
-    nodes = {("step" if isinstance(k, tuple) else k): graph_nodes(g) for k, (g, _) in runner._graph.items()}
+    spans, kf_graph_ms, busy, step_ms, gap_us, nodes = replay_stats(runner, chunk_ms, n_kf_timed)
     fps = timed / (sum(chunk_ms) / 1e3)
     worst = graph_vs_eager(torch, runner, slam._current_schedule())
     audit = region_syncs(torch, runner, slam._current_schedule())
@@ -1007,6 +1046,274 @@ def phase_vi_chunk(torch, project_match, vi8: dict, start) -> dict:
                 graph_vs_eager=worst, syncs_per_frame=syncs_per_frame, region_syncs=audit, card=card,
                 peak_mem_mib=peak / 2**20,
                 **acc)
+
+
+def ba_forms(torch, runner, kf_id: int, n_iters: int) -> dict:
+    """The BA segment's problem (the covisibility window around keyframe
+    ``kf_id`` of the runner's map, the id a 0-d tensor on the card as the
+    segment has it) solved by both early-stop forms of ``bundle_adjust``:
+    under torch's deterministic algorithms (``index_add_`` then sums in a
+    fixed order) they must be equal to the bit; as the graphs run them
+    (atomic sums), their difference is printed beside that of two runs of
+    one form."""
+    import warnings
+
+    from orb_slam3_ros_tpu_torch.models import local_mapping
+    from orb_slam3_ros_tpu_torch.ops import ba
+
+    m = runner.carry().m
+    ids, fixed, ev = local_mapping.select_covis_window(
+        m, torch.tensor(kf_id, dtype=torch.int32, device=runner.device), runner.cfg.ba_window,
+        runner.cfg.ba_fixed)
+    prob, _ = local_mapping.build_local_ba(m, ids, fixed, runner.cfg.cam_params, entry_valid=ev)
+
+    def solve(on_device):
+        return ba.bundle_adjust(prob, n_iters=n_iters, rel_tol=1e-3, on_device=on_device)
+
+    def diff(a, b):
+        return max(float(((getattr(a, f) - getattr(b, f)).abs()
+                          / torch.clamp(getattr(a, f).abs(), min=1.0)).max())
+                   for f in ("R", "t", "X", "chi2", "cost"))
+
+    host, dev, host2 = solve(False), solve(True), solve(False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            host_d, dev_d = solve(False), solve(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    exact = all(torch.equal(getattr(host_d, f), getattr(dev_d, f))
+                for f in ("R", "t", "X", "chi2", "inlier", "cost", "n_inliers"))
+    check(int(dev_d.iters) == host_d.iters and exact,
+          f"BA forms differ under deterministic algorithms: {int(dev_d.iters)} against "
+          f"{host_d.iters} iterations, max diff {diff(host_d, dev_d):.3g}")
+    return dict(iters=host_d.iters, of=n_iters, deterministic_bitwise_equal=exact,
+                atomic_forms_max_diff=diff(host, dev), atomic_same_form_max_diff=diff(host, host2),
+                atomic_iters=(host.iters, int(dev.iters)), edges=int(prob.edge_valid.sum()),
+                inliers=int(host_d.n_inliers),
+                nondeterministic_ops=sorted({str(w.message).split(" does not")[0][:80]
+                                             for w in caught}))
+
+
+def phase_mono_chunk(torch, project_match, mp: dict, seq) -> tuple:
+    """``bench.py``'s ``main`` protocol on the card through
+    ``MonoSlam.process_frames`` (phase 7's sequence), the step and keyframe
+    segments as CUDA graphs. Returns (result, the system at frame
+    MONO_WARM for phase 11, the uint8 stack)."""
+    from orb_slam3_ros_tpu_torch.models import device_loop, system
+
+    n_frames = len(seq.timestamps)
+    slam = make_slam(seq, "cuda", transfer_uint8=True)
+    slam._sched_lean = BENCH_LEAN
+    stack = torch.clamp(seq.images, 0, 255).to(torch.uint8)  # bench.py's frame stack
+    eager_steps, calls = [], []
+    step_fn, per_frame = device_loop.frame_step, slam.process_frame
+
+    def counted_step(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            eager_steps.append(1)
+        return step_fn(*args, **kw)
+
+    def counted_frame(*args, **kw):
+        calls.append(1)
+        return per_frame(*args, **kw)
+
+    def chunk(i):
+        slam.process_frames((stack, i), seq.timestamps[i : i + CHUNK])
+
+    device_loop.frame_step = counted_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        i, init_at = 0, None
+        while (slam.state != system.OK or not slam._chunkable()) and i < MONO_WARM - CHUNK:
+            if slam.process_frame(seq.images[i], float(seq.timestamps[i])) is not None:
+                init_at = i if init_at is None else init_at
+            i += 1
+        i_steady = i
+        while i + CHUNK <= MONO_WARM:
+            chunk(i)
+            i += CHUNK
+        while i < MONO_WARM:
+            slam.process_frame(seq.images[i], float(seq.timestamps[i]))
+            i += 1
+        warm_s = time.perf_counter() - t0
+        runner = slam._mono_runner
+        check(runner is not None and runner.graphs, "the mono chunks did not run on graphs")
+        snap = chunk_snapshot(slam)
+        slam.process_frame = counted_frame
+        runner.timing = True
+        runner.spans, runner.gaps_s = [], []
+        reset_launches(project_match)
+        runs0, warm0 = dict(runner.runs), dict(runner.warmup_launches)
+        chunk_ms = []
+
+        def timed_chunks():
+            nonlocal i
+            while i + CHUNK <= n_frames:
+                t1 = time.perf_counter()
+                chunk(i)  # ends in the chunk's host read
+                chunk_ms.append((time.perf_counter() - t1) * 1e3)
+                i += CHUNK
+
+        n_sync = sync_calls(torch, timed_chunks)
+        torch.cuda.synchronize()
+        runner.timing = False
+        launches = dict(project_match.LAUNCHES)
+    finally:
+        device_loop.frame_step = step_fn
+        slam.process_frame = per_frame
+    peak = torch.cuda.max_memory_allocated()
+    timed = i - MONO_WARM
+    runs = {k: runner.runs[k] - runs0.get(k, 0) for k in runner.runs}
+    warm = {k: runner.warmup_launches[k] - warm0[k] for k in warm0}
+    step_runs = sum(v for k, v in runs.items() if isinstance(k, tuple))
+    fusing, n_kf_timed = runs.get("kf_fuse", 0), runs.get("kf_insert", 0)
+    passes = len(slam._sched_lean)
+    check(init_at is not None, "the mono run never initialized")
+    check(not calls, f"{len(calls)} frames went through process_frame during the timed chunks")
+    check(step_runs == timed, f"{step_runs} step-graph replays for {timed} timed frames")
+    n_step_graphs = sum(isinstance(k, tuple) for k in runner._graph)
+    check(len(eager_steps) == n_step_graphs,
+          f"{len(eager_steps)} eager steps on the card, expected one warm-up for each of "
+          f"{n_step_graphs} step graphs")
+    check(launches == {"track": passes * timed + warm["track"], "fuse": 2 * fusing + warm["fuse"]},
+          f"matcher launches {launches}, expected {passes} x {timed} from tracking and 2 x {fusing} "
+          f"from fusion (plus warm-ups {warm})")
+    check(slam.state == system.OK, f"state {slam.state} after the chunks")
+    check(slam.n_kf >= MAP_MIN_KF, f"only {slam.n_kf} keyframes")
+    rmse = ate(slam, seq, n_frames - init_at, with_scale=True)
+    check(rmse <= MAP_ATE_LIMIT, f"mono chunk ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
+    spans, kf_graph_ms, busy, step_ms, gap_us, nodes = replay_stats(runner, chunk_ms, n_kf_timed)
+    gap_med_us = float(np.median(runner.gaps_s)) * 1e6
+    fps = timed / (sum(chunk_ms) / 1e3)
+    worst = graph_vs_eager(torch, runner, slam._sched_lean)
+    audit = region_syncs(torch, runner, slam._sched_lean)
+    check(not any(audit.values()), f"synchronizing calls in the eager regions: {audit}")
+    bas = ba_forms(torch, runner, slam.n_kf - 1, slam.local_ba_iters)
+    print(f"mono chunk: initialized at frame {init_at}, chunkable at frame {i_steady}; "
+          f"{runner.n_graphs} graphs captured in {runner.capture_s:.2f} s (nodes {nodes}), chunks "
+          f"up to frame {MONO_WARM} in {warm_s:.2f} s; timed frames {MONO_WARM}..{i - 1}: "
+          f"{fps:.2f} frames/s (phase 7, per frame: {mp['frames_per_s']:.2f}), chunk latency median "
+          f"{np.median(chunk_ms):.2f} ms over {len(chunk_ms)} chunks of {CHUNK} = "
+          f"{np.median(chunk_ms) / CHUNK:.2f} ms a frame (phase 7: median {mp['frame_ms_p50']:.2f} "
+          f"ms); step graph {step_ms:.2f} ms median over {len(spans['step'])} replays; keyframe "
+          f"graphs {kf_graph_ms:.2f} ms a keyframe over {n_kf_timed} "
+          f"({ {k: round(float(np.median(v)), 3) for k, v in spans.items()} } ms medians); busy "
+          f"{busy:.1%} of the chunks' wall time; host gap flag read -> next launch {gap_us:.1f} us "
+          f"mean, {gap_med_us:.1f} us median (a segment's first capture falls in the gap); K1 "
+          f"launches {launches} (passes {passes}, fusing keyframes {fusing}, warm-ups "
+          f"{warm}); Sim(3) ATE {rmse:.5f} m; {slam.n_kf} keyframes, {slam.n_pts} points; graph vs "
+          f"eager step max diff {worst:.3g}; BA forms {bas}; synchronizing calls {n_sync} over the "
+          f"{timed} timed frames, {audit} in each region run eagerly; peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    return dict(init_frame=init_at, chunkable_frame=i_steady, graphs=runner.n_graphs,
+                graph_nodes=nodes, capture_s=runner.capture_s, timed_frames=timed,
+                frames_per_s=fps, chunk_ms=chunk_ms, frame_ms=float(np.median(chunk_ms)) / CHUNK,
+                step_ms=step_ms, kf_graph_ms=kf_graph_ms,
+                segment_ms={k: float(np.median(v)) for k, v in spans.items()}, busy=busy,
+                gap_us=gap_us, gap_us_median=gap_med_us, launches=launches,
+                warmup_launches=warm, fusing_keyframes=fusing,
+                passes=passes, keyframes=slam.n_kf, ate_sim3_m=rmse, graph_vs_eager=worst,
+                ba_forms=bas, syncs_per_frame=n_sync / timed, region_syncs=audit,
+                peak_mem_mib=peak / 2**20), snap, stack
+
+
+def phase_reloc(torch, project_match, snap, seq, stack) -> dict:
+    """Two losses from copies of phase 10's system at frame MONO_WARM, the
+    rest of the sequence in chunks of 15 (frames a chunk cannot take go
+    through ``process_frame``): (a) a timestamp jump at JUMP_AT, (b) the
+    frames DARK black. Each relocalization call and attempt is timed and
+    its K1 launches (the counts set to 0 just before the call, read just
+    after it: one search a pass of the dense schedule an attempt) and
+    inliers kept. First the kernel against its plain version at an
+    attempt's searches: the whole point table, each pass's radius, the
+    tracker's settings."""
+    from orb_slam3_ros_tpu_torch.models import system, tracking
+    from orb_slam3_ros_tpu_torch.ops import pnp
+
+    n_points = snap.map.P
+    for i, (radius_px, _, _) in enumerate(tracking.SCHEDULE_DENSE):
+        args = search_inputs(8 + i, n_points, N_SLOTS, radius_px)
+        err, n_match = kernel_vs_plain(torch, project_match, args, {}, f"relocalization pass {i}")
+        check(n_match > 50, "a relocalization-shaped case matched too little to mean anything")
+        print(f"kernel vs plain at relocalization's pass {i}: P={n_points}, radius {radius_px}: "
+              f"matches {n_match}, max |diff| {err}")
+    n_passes = len(tracking.SCHEDULE_DENSE)
+    n_frames = len(seq.timestamps)
+    attempt_fn, solve_fn = system._reloc_attempt, pnp.solve_pnp
+
+    def run(name, tss, frames):
+        slam = chunk_snapshot(snap)
+        reloc, calls, attempts, pnp_inl = slam._try_relocalize, [], [], []
+
+        def frame_of(ts):
+            return int(np.argmin(np.abs(tss - ts)))
+
+        def timed_attempt(*args, **kw):
+            t0 = time.perf_counter()
+            out = attempt_fn(*args, **kw)
+            torch.cuda.synchronize()
+            attempts.append(dict(cand=int(args[1]), host_ms=(time.perf_counter() - t0) * 1e3,
+                                 out=out))
+            return out
+
+        def kept_pnp(*args, **kw):
+            res = solve_fn(*args, **kw)
+            pnp_inl.append(res.n_inliers)
+            return res
+
+        def logged(feats, ts):
+            n0 = len(attempts)
+            reset_launches(project_match)
+            t0 = time.perf_counter()
+            out = reloc(feats, ts)
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(project_match.LAUNCHES)
+            want = {"track": n_passes * (len(attempts) - n0), "fuse": 0}
+            check(launches == want, f"reloc {name}: K1 launches {launches} in a relocalization "
+                  f"call, expected {want}")
+            calls.append(dict(frame=frame_of(ts), ok=out is not None, ms=ms,
+                              attempts=attempts[n0:], launches=launches))
+            return out
+
+        slam._try_relocalize = logged
+        system._reloc_attempt, pnp.solve_pnp = timed_attempt, kept_pnp
+        try:
+            for i in range(MONO_WARM, n_frames, CHUNK):
+                slam.process_frames((frames, i), tss[i : i + CHUNK])
+        finally:
+            system._reloc_attempt, pnp.solve_pnp = attempt_fn, solve_fn
+        for a, n in zip([a for c in calls for a in c["attempts"]], pnp_inl):
+            a.update(pnp_inliers=int(n), track_inliers=int(a.pop("out")[12]))
+        posed = {frame_of(t) for t, _ in slam.get_trajectory()}
+        print(f"reloc {name}: " + "; ".join(
+            f"frame {c['frame']}: {'recovered' if c['ok'] else 'failed'} in {c['ms']:.1f} ms, K1 "
+            f"launches {c['launches']}, attempts " + ", ".join(
+                f"(candidate {a['cand']}: {a['host_ms']:.1f} ms, PnP inliers {a['pnp_inliers']}, "
+                f"tracking inliers {a['track_inliers']})" for a in c["attempts"])
+            for c in calls) + f"; state {slam.state}, {slam.n_kf} keyframes")
+        check(slam.state == system.OK, f"reloc {name}: state {slam.state} at the end")
+        return calls, posed
+
+    tss_jump = np.asarray(seq.timestamps, np.float64).copy()
+    tss_jump[JUMP_AT:] += JUMP_S
+    calls, posed = run("(a) timestamp jump", tss_jump, stack)
+    check([c["frame"] for c in calls] == [JUMP_AT] and calls[0]["ok"],
+          f"reloc (a): relocalization calls {[(c['frame'], c['ok']) for c in calls]}, expected one "
+          f"that succeeds at frame {JUMP_AT}")
+    check(set(range(MONO_WARM, n_frames)) <= posed, "reloc (a): a frame after the jump lost")
+    dark = stack.clone()
+    dark[DARK[0] : DARK[1]] = 0
+    calls_b, posed_b = run("(b) blackout", np.asarray(seq.timestamps, np.float64), dark)
+    ok_at = [c["frame"] for c in calls_b if c["ok"]]
+    check(len(ok_at) == 1 and ok_at[0] <= DARK[1] + RELOC_AFTER_DARK,
+          f"reloc (b): relocalization calls {[(c['frame'], c['ok']) for c in calls_b]}, expected "
+          f"a recovery by frame {DARK[1] + RELOC_AFTER_DARK}")
+    check(set(range(ok_at[0], n_frames)) <= posed_b, "reloc (b): a frame after the recovery lost")
+    launches = {k: sum(c["launches"][k] for c in calls + calls_b) for k in project_match.LAUNCHES}
+    return dict(jump=calls, blackout=calls_b, recovered_at=ok_at[0], launches=launches)
 
 
 def main() -> int:
@@ -1051,29 +1358,35 @@ def main() -> int:
     phase_kernel_edges(torch, project_match)
     s, state = phase_slice(torch, project_match)
     phase_cpu(torch, state)
-    mp = phase_mapping(torch, project_match)
+    mp, map_seq = phase_mapping(torch, project_match)
     vi, start, (vi_slam, caps) = phase_vi(torch, project_match)
     vc = phase_vi_chunk(torch, project_match, vi, start)
+    mc, mono_snap, mono_stack = phase_mono_chunk(torch, project_match, mp, map_seq)
+    rl = phase_reloc(torch, project_match, mono_snap, map_seq, mono_stack)
     vi["stages"] = phase_vi_stages(torch, vi_slam, caps)
 
-    print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "card": smi[0]}))
+    print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
+                      "reloc": rl, "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
         "source": "orb_slam3_ros_tpu_torch/csrc/project_match.cu",
         "replaces": "orb_slam3_ros_tpu/ops/pallas_match.py:37",
-        # the main paths: mapping (phase 7), mono-inertial (phase 8) and
-        # its chunk loop (phase 9), the counts set to 0 before each and
+        # the main paths: mapping (phase 7), mono-inertial (phase 8), its
+        # chunk loop (phase 9), the mono chunk loop (phase 10) and
+        # relocalization (phase 11), the counts set to 0 before each and
         # read after it
-        "launches": mp["launches"]["track"] + mp["launches"]["fuse"]
-        + vi["launches"]["track"] + vi["launches"]["fuse"]
-        + vc["launches"]["track"] + vc["launches"]["fuse"],
+        "launches": sum(sum(x["launches"].values()) for x in (mp, vi, vc, mc, rl)),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
         "launches_vi_fuse": vi["launches"]["fuse"],
         "launches_vi_chunk_track": vc["launches"]["track"],
         "launches_vi_chunk_fuse": vc["launches"]["fuse"],
+        "launches_mono_chunk_track": mc["launches"]["track"],
+        "launches_mono_chunk_fuse": mc["launches"]["fuse"],
+        "launches_reloc_track": rl["launches"]["track"],
+        "launches_reloc_fuse": rl["launches"]["fuse"],
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -27,9 +27,14 @@ step, each keyframe a few replays of the keyframe body's graphs, with a
 two-word host read a frame and one read a chunk; frames outside the steady
 state go through ``process_frame`` one at a time, as in the JAX package.
 
-Not ported (each raises, naming its ROADMAP item): relocalization once
-``time_recently_lost`` has passed, loop closing and the asynchronous full
-inertial BA, stereo / RGB-D inertial, the ``on_frame`` hook.
+Once ``time_recently_lost`` has passed, tracking is LOST and each frame
+tries to relocalize through ``MonoSlam``'s path (``_try_relocalize``); the
+first frame after a recovery rebuilds the inertial anchor from the host's
+pose, velocity and biases.
+
+Not ported (each raises, naming its ROADMAP item): loop closing and the
+asynchronous full inertial BA, stereo / RGB-D inertial, the ``on_frame``
+hook.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 from ..ops import imu as imu_ops
 from ..ops import orb, viba
 from . import local_mapping, map_state, map_updates, tracking, vi_device_loop
+from .chunk_runner import read_host, read_rows
 from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
 
 
@@ -214,13 +220,13 @@ class InertialSlam(MonoSlam):
 
     # ------------------------------------------------------------------
     def _start_async_gba(self, *args, **kw):
-        raise _not_ported("the asynchronous full inertial BA", "11")
+        raise _not_ported("the asynchronous full inertial BA", "5")
 
     def process_frame(self, img, ts: float, acc=None, gyro=None, dts=None):
         """Track one frame with its IMU block (the samples since the
         previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
         if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "13")
+            raise _not_ported("the on_frame observation hook", "7")
         # Per-frame processing changes host state the chunk's inertial state
         # does not see: the next chunk rebuilds it.
         self._vi_dev_valid = False
@@ -706,11 +712,6 @@ class InertialSlam(MonoSlam):
     # ------------------------------------------------------------------
     # The chunk loop (vi_device_loop.py): the steady state on the device,
     # one graph replay a frame on the card.
-    def flush(self):
-        """Nothing is pending: a chunk is absorbed when ``process_frames``
-        returns (the JAX package drains its last chunk here)."""
-        return None
-
     def _vi_chunkable(self) -> bool:
         return (
             self.imu_initialized
@@ -774,7 +775,7 @@ class InertialSlam(MonoSlam):
         if acc is None:
             return super().process_frames(imgs, tss)
         if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "13")
+            raise _not_ported("the on_frame observation hook", "7")
         C = len(tss)
         tss_np = np.asarray(tss, np.float64)
         chunked = isinstance(imgs, tuple)
@@ -833,12 +834,12 @@ class InertialSlam(MonoSlam):
         # counters and the new keyframes' IMU blocks.
         R_sc, t_sc = viba.cam_from_body(c.st.R_wb, c.st.p_wb, self.calib.R_bc, self.calib.t_bc)
         new = slice(n_kf0, n_kf0 + len(kf_ids))
-        rows, R_sc, t_sc, v, bg, ba, sc, new_blk, new_ok = vi_device_loop.read_host(
+        rows, R_sc, t_sc, v, bg, ba, sc, new_blk, new_ok = read_host(
             rows, R_sc, t_sc, c.st.v, c.st.bg, c.st.ba,
             torch.stack([c.n_kf, c.n_pts, c.last_kf_fid, c.alive.to(torch.int32), c.ref_inl]),
             c.st.kf_blk[new], c.st.kf_edge_ok[new],
         )
-        self._absorb_vi_chunk(vi_device_loop.read_rows(rows), R_sc, t_sc, v, bg, ba, sc,
+        self._absorb_vi_chunk(read_rows(rows), R_sc, t_sc, v, bg, ba, sc,
                               kf_ids, new_blk, new_ok, tss_np)
         self.frame_id = fid0 + C
         self._last_frame_ts = float(tss_np[-1])
@@ -887,12 +888,7 @@ class InertialSlam(MonoSlam):
             R0, t0, R1, t1 = out.R[alive[-2]], out.t[alive[-2]], out.R[alive[-1]], out.t[alive[-1]]
             self.vel_R = (R1 @ R0.T).astype(np.float32)
             self.vel_t = (t1 - self.vel_R @ t0).astype(np.float32)
-        for i in alive:
-            ts = float(tss_np[i])
-            T = np.eye(4, dtype=np.float32)
-            T[:3, :3] = out.R[i].T
-            T[:3, 3] = -out.R[i].T @ out.t[i]
-            self.trajectory.append((ts, T))
-            self.rel_traj.append((ts, int(out.ref[i]), out.R_cr[i].copy(), out.t_cr[i].copy()))
-            if out.is_kf[i]:
-                self._last_kf_ts = ts
+        self._log_chunk_rows(out, tss_np)
+        kf_rows = [i for i in alive if out.is_kf[i]]
+        if kf_rows:
+            self._last_kf_ts = float(tss_np[kf_rows[-1]])

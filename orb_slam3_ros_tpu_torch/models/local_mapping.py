@@ -5,6 +5,9 @@ the map (the reference's LocalMapping local-BA dispatch,
 Optimizer.cc:1120-1460), and the temporal-window visual-inertial problem
 ``build_vi_ba`` / ``apply_vi_ba`` (``LocalInertialBA``, Optimizer.cc:2528).
 
+Keyframe ids may be 0-d device tensors (the chunk loop's): the mono and VI
+windows, their gathers and their write-backs read nothing back to the host.
+
 Window entries that do not exist (fewer covisible keyframes than the
 window holds) carry ``entry_valid`` False; their ids may alias live
 entries. The JAX package routes their writes out of bounds and lets
@@ -18,7 +21,7 @@ import torch
 
 from ..ops import ba, imu, viba
 from ..ops.topk import top_k
-from .map_state import MapState, covisibility, obs_matrix
+from .map_state import MapState, covisibility, kf_index, obs_matrix
 
 P_BA = 2048  # compacted landmark capacity of a local-BA window
 
@@ -31,8 +34,9 @@ def _scalar(x, dtype, device) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=device)
 
 
-def select_covis_window(m: MapState, last: int, w_free: int, w_fixed: int):
-    """Covisibility local-BA window around keyframe ``last``: free set =
+def select_covis_window(m: MapState, last, w_free: int, w_fixed: int):
+    """Covisibility local-BA window around keyframe ``last`` (an int, or a
+    0-d tensor on the map's device: no host read): free set =
     ``last`` + its top-(w_free - 1) keyframes by covisibility weight; fixed
     set = the top-w_fixed other keyframes by the number of the free set's
     points they observe. Slot 0 (the gauge root) is always fixed, and the
@@ -43,9 +47,10 @@ def select_covis_window(m: MapState, last: int, w_free: int, w_fixed: int):
     K = m.K
     dev = m.kf_valid.device
     valid = m.kf_valid
-    row = covisibility(m)[last].to(torch.float32)
+    k = kf_index(last, dev)
+    row = covisibility(m).index_select(0, k)[0].to(torch.float32)
     row = torch.where(valid, row, torch.full_like(row, -float("inf")))
-    row[last] = float("inf")  # the current keyframe always leads the window
+    row.index_fill_(0, k, float("inf"))  # the current keyframe always leads the window
     fv, fids = top_k(row, w_free)
     f_ok = fv > 0.0  # self, or shares >= 1 point
     obsM = obs_matrix(m)  # [K,P]

@@ -3,19 +3,32 @@
 synchronous per-keyframe ``LocalMapping`` body).
 
 State machine: NOT_INITIALIZED -> (two-view initialization) -> OK ->
-(tracking loss) -> LOST. Per frame: constant-velocity pose prediction on
-the host, ORB extraction and coarse-to-fine tracking on ``device``, one
-host read of (inliers, R, t); then the keyframe decision, and on a
-keyframe the mapping work (``kf_work.keyframe_work``) and one host read of
-(admitted points, refined pose). At capacity, culled keyframe slots are
-recycled by compaction. A map can also be loaded and tracked in
+(tracking loss) -> LOST -> (relocalization) -> OK. Per frame:
+constant-velocity pose prediction on the host, ORB extraction and
+coarse-to-fine tracking on ``device``, one host read of (inliers, R, t);
+then the keyframe decision, and on a keyframe the mapping work
+(``kf_work.keyframe_work``) and one host read of (admitted points, refined
+pose). At capacity, culled keyframe slots
+are recycled by compaction. A map can also be loaded and tracked in
 localization mode (``set_map`` / ``load_map`` +
 ``activate_localization_mode``).
 
-What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item: relocalization (``LOST``), the pipelined one-frame-lag mode, loop
-closing, the Atlas, the two-device split, cameras other than pinhole, and
-the ``on_frame`` / ``points_every`` observation hooks.
+``process_frames`` runs the steady state in chunks (``device_loop``): on
+the card each frame is one replay of a captured CUDA graph of the frame
+step, each keyframe a few replays of the keyframe body's graphs, with a
+two-word host read a frame and one read a chunk; frames outside the steady
+state go through ``process_frame`` one at a time, as in the JAX package.
+
+A LOST frame relocalizes (``Tracking::Relocalization``): retrieval
+candidates by covisibility-grouped word signatures, descriptor matches
+against each candidate keyframe's landmarks, PnP RANSAC, then tracking
+against the map from the PnP pose; one host read of the candidates and one
+of each attempt's result.
+
+What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
+loop closing and the Atlas, the two-device split, cameras other than
+pinhole, the ``on_frame`` / ``points_every`` observation hooks; the
+pipelined one-frame-lag mode is not ported by design.
 """
 
 from __future__ import annotations
@@ -26,8 +39,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import matching, orb, ransac
-from . import kf_work, local_mapping, map_state, map_updates, tracking
+from ..ops import matching, orb, pnp, ransac, retrieval
+from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
+from .chunk_runner import read_host, read_rows
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -39,15 +53,79 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 item {item})")
 
 
+class _ChunkReplayView:
+    """Frame ``i`` of a chunk given as ``(stack, offset)``: ``stack[offset + i]``
+    (the per-frame fallback and the dead-tail replay read frames so)."""
+
+    def __init__(self, stack, offset: int):
+        self._stack = stack
+        self._off = offset
+
+    def __getitem__(self, i):
+        return self._stack[self._off + i]
+
+
+def _reloc_pnp_inputs(m: map_state.MapState, kf: int, feats: orb.Features):
+    """2D-3D correspondences for relocalization's PnP (the JAX package's
+    ``_reloc_pnp_inputs``; the reference's SearchByBoW(pKF, frame)): the
+    query frame's descriptors matched against keyframe ``kf``'s features,
+    the keyframe's bound live landmarks paired with the query pixels.
+    Returns (X [N, 3], uv [N, 2], ok [N])."""
+    kf_feats = orb.Features(
+        xy=m.kf_xy[kf], level=m.kf_level[kf], angle=m.kf_angle[kf], response=None,
+        desc_packed=None, desc_sign=m.kf_desc_sign[kf], valid=m.kf_feat_valid[kf],
+    )
+    idx, _ = matching.search_frame_frame(kf_feats, feats, max_dist=64, ratio=0.8)
+    pt = m.kf_obs[kf]
+    ptc = torch.clamp(pt, 0, m.P - 1).long()
+    ok = (idx >= 0) & (pt >= 0) & m.pt_valid[ptc]
+    uv = feats.xy[torch.clamp(idx, 0, m.N - 1).long()]
+    return m.pt_X[ptc], uv, ok
+
+
+def _reloc_detect(m: map_state.MapState, desc_sign, valid, vocab) -> torch.Tensor:
+    """Relocalization candidates (DetectRelocalizationCandidates,
+    KeyFrameDatabase.cc:733-856; the JAX package's ``_reloc_detect_fused``):
+    every keyframe's signature, the query's, the covisibility and the
+    grouped ranking. Returns the candidate ids [3] int32, -1 for none."""
+    sigs = retrieval.kf_signatures(m.kf_desc_sign, m.kf_feat_valid, vocab)
+    q = retrieval.signature(desc_sign, valid, vocab)
+    cand, _ = retrieval.detect_candidates_grouped(
+        q, sigs, map_state.covisibility(m), m.kf_valid,
+        torch.zeros((m.K,), dtype=torch.bool, device=m.kf_valid.device), min_common_score=0.0,
+    )
+    return cand
+
+
+def _reloc_attempt(m: map_state.MapState, cand: int, feats: orb.Features, cam_params,
+                   width: int, height: int, generator=None, samples=None) -> torch.Tensor:
+    """One relocalization attempt against keyframe ``cand``
+    (Tracking::Relocalization, Tracking.cc:3648-3760; the JAX package's
+    ``_reloc_attempt_fused``, pinhole): descriptor matches to its landmarks,
+    a PnP RANSAC seed (the keyframe's own pose when PnP has too little
+    support), then tracking against the map from the seed. ``samples``
+    [256, 6]: the PnP hypotheses' samples (drawn by ``generator`` when
+    None). Returns [13] f32 on the device: (R, t, tracking inliers)."""
+    X, uv, ok = _reloc_pnp_inputs(m, cand, feats)
+    if samples is None:
+        pres = pnp.solve_pnp(X, uv, ok, cam_params, generator)
+    else:
+        pres = pnp.solve_pnp_from_samples(X, uv, ok, cam_params, samples)
+    use = pres.ok & (torch.sum(ok) >= 15)
+    R0 = torch.where(use, pres.R, m.kf_R[cand])
+    t0 = torch.where(use, pres.t, m.kf_t[cand])
+    res = tracking.track_against_map(m, feats, R0, t0, cam_params, width, height)
+    return torch.cat([res.R.reshape(-1), res.t, res.n_inliers.reshape(1).to(res.t.dtype)])
+
+
 class MonoSlam:
     """Monocular pipeline (the reference's ``System(..., MONOCULAR)``).
 
-    Takes the JAX package's constructor arguments with its defaults, plus
-    ``device`` (None: the CUDA device, an error where there is none; the
-    CPU only when asked for); the options whose paths are not ported raise
-    when set.
-    ``transfer_uint8`` sets the frame format of the chunk loop, which is not
-    ported; it is kept on the object."""
+    Takes the JAX package's constructor arguments with its defaults, but
+    for the Atlas's ``lost_patience``, plus ``device`` (None: the CUDA
+    device, an error where there is none; the CPU only when asked for); the
+    options whose paths are not ported raise when set.
+    ``transfer_uint8`` sets the frame format of the chunk loop's stack."""
 
     def __init__(
         self,
@@ -85,17 +163,19 @@ class MonoSlam:
         device: str | torch.device | None = None,
     ):
         if pipelined:
-            raise _not_ported("the pipelined one-frame-lag mode", "9")
+            raise NotImplementedError(
+                "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
+            )
         if enable_loop_closing:
-            raise _not_ported("loop closing", "11")
+            raise _not_ported("loop closing", "5")
         if enable_atlas:
-            raise _not_ported("the Atlas", "11")
+            raise _not_ported("the Atlas", "5")
         if devices is not None:
-            raise _not_ported("the two-device tracking/mapping split", "9")
+            raise _not_ported("the two-device tracking/mapping split", "8")
         if cam_model != "pinhole":
-            raise _not_ported(f"camera model {cam_model!r}", "12")
+            raise _not_ported(f"camera model {cam_model!r}", "6")
         if points_every:
-            raise _not_ported("the points_every observation hook", "13")
+            raise _not_ported("the points_every observation hook", "7")
         self.device = resolve_device(device)
         self.height, self.width = height, width
         self.cam_params = torch.as_tensor(np.asarray(cam_params, np.float32), device=self.device)
@@ -141,7 +221,12 @@ class MonoSlam:
         self.init_feats: Optional[orb.Features] = None
         self.init_ts = 0.0
         self.on_frame = None  # observation hook: not ported, must stay None
-        self.ba_iters = []  # local-BA iterations run, one entry per BA
+        self.ba_iters = []  # local-BA iterations run, one entry per BA of the per-frame path
+        # The retrieval vocabulary ([A, 256] +-1 int8 on ``device``); the
+        # shipped one is installed here (the reference loads its ORBvoc at
+        # startup, System.cc:114).
+        self.set_vocabulary(retrieval.default_vocabulary())
+        self._mono_runner = None  # the chunk loop's runner, made at the first chunk
 
         # Motion model (velocity = T_cur * T_last^-1), kept on the host.
         self.R_cur = np.eye(3, dtype=np.float32)
@@ -197,6 +282,13 @@ class MonoSlam:
         self.localization_only = False
         self.last_kf_frame = self.frame_id
         self._ref_kf_inl = 0
+
+    def set_vocabulary(self, vocab) -> None:
+        """Install a retrieval vocabulary ([A, 256] +-1, numpy or a tensor),
+        used by relocalization from the next lost frame on."""
+        if isinstance(vocab, torch.Tensor):
+            vocab = vocab.cpu().numpy()
+        self.vocab = torch.from_numpy(np.asarray(vocab, np.int8)).to(self.device)
 
     # ------------------------------------------------------------------
     def _set_ref_cache(self, ref_id, R_ref, t_ref):
@@ -255,19 +347,20 @@ class MonoSlam:
 
     # ------------------------------------------------------------------
     def _current_schedule(self) -> tuple:
-        """Dense passes while the map is young, lean passes on a mature
-        map. (The JAX package also goes dense right after a recovery from
-        loss, which waits for relocalization.)"""
+        """Dense passes while the map is young, lean passes on a mature map.
+        (The JAX package also stays dense while its Atlas counts failed
+        relocalizations; the Atlas is not ported.)"""
         if self.n_kf < self.lean_after_kf:
             return self._sched_dense
         return self._sched_lean
 
     def _check_ts_jump(self, ts: float) -> None:
         """An input gap longer than ``ts_jump_threshold`` breaks the motion
-        model: tracking drops to LOST (there is no Atlas)."""
+        model: tracking drops to LOST and relocalizes (there is no Atlas)."""
         last = self._last_frame_ts
         self._last_frame_ts = ts
-        if last is not None and self.state == OK and ts - last > self.ts_jump_threshold:
+        if (last is not None and self.state in (OK, RECENTLY_LOST)
+                and ts - last > self.ts_jump_threshold):
             self.state = LOST
 
     def process_frame(self, img, ts: float):
@@ -275,14 +368,14 @@ class MonoSlam:
         [0, 255]). Returns Twc [4, 4] (numpy), or None while initializing
         or when tracking is lost."""
         if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "13")
+            raise _not_ported("the on_frame observation hook", "7")
         self._check_ts_jump(ts)
-        if self.state == LOST:
-            raise _not_ported("relocalization after loss", "11")
         dev = self.device
         feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
         if self.state == NOT_INITIALIZED:
             out = self._try_initialize(feats, ts)
+        elif self.state == LOST:
+            out = self._try_relocalize(feats, ts)
         else:
             self._predict_motion(ts)
             R_pred = self.vel_R @ self.R_cur
@@ -300,8 +393,147 @@ class MonoSlam:
         self.frame_id += 1
         return out
 
+    # ------------------------------------------------------------------
+    # The chunk loop (device_loop.py): the steady state on the device, one
+    # graph replay a frame on the card.
+    def flush(self):
+        """Nothing is pending: a chunk is absorbed when ``process_frames``
+        returns (the JAX package drains its last chunk here)."""
+        return None
+
+    def _chunkable(self) -> bool:
+        """The chunk loop's gate (the JAX package's, without its conditions
+        for what is not ported: the two-device split, stereo)."""
+        return (
+            self.state == OK
+            and self.covis_ba
+            # a subclass with its own local BA (the inertial one) runs per frame
+            and type(self)._run_local_ba is MonoSlam._run_local_ba
+            # the per-frame path's dense warm-up on a young map first
+            and self.n_kf >= max(2, self.lean_after_kf)
+        )
+
+    def _chunk_config(self) -> device_loop.ChunkConfig:
+        return device_loop.ChunkConfig(
+            config=self.config, cam_params=self.cam_params, width=self.width,
+            height=self.height, kf_every=self.kf_every, kf_min_inliers=self.kf_min_inliers,
+            kf_ref_ratio=self.kf_ref_ratio, ba_window=self.ba_window, ba_fixed=self.ba_fixed,
+            local_ba_iters=self.local_ba_iters, fuse_neighbors=self.fuse_neighbors,
+            fuse_every=self.fuse_every, stats_every=self.stats_every,
+            cull_every=self.cull_every, kf_culling=self.kf_culling, K_cap=self.K_cap,
+            track_cap=self.track_cap, track_window=self.track_window,
+        )
+
+    def _frame_stack(self, imgs) -> torch.Tensor:
+        """A chunk's frames on the device as one [C, H, W] stack: uint8 with
+        ``transfer_uint8``, float32 otherwise."""
+        if isinstance(imgs, torch.Tensor):
+            return imgs.to(self.device)
+        if all(isinstance(im, torch.Tensor) for im in imgs):
+            stack = torch.stack([im.to(self.device) for im in imgs])
+        else:
+            stack = torch.from_numpy(np.stack([np.asarray(im) for im in imgs])).to(self.device)
+        if self.transfer_uint8:
+            return torch.clamp(stack, 0, 255).to(torch.uint8)
+        return stack.to(torch.float32)
+
     def process_frames(self, imgs, tss):
-        raise _not_ported("the monocular chunk loop process_frames", "9")
+        """Track a batch of frames. ``imgs``: ``(stack, off)``, a [N, H, W]
+        tensor on the device (uint8 or float32, values in [0, 255]) holding
+        the frames at ``stack[off : off + C]``; a [C, H, W] tensor; or a
+        sequence of images. The steady state (tracking OK on a mature map,
+        no timestamp jump) runs as a chunk; otherwise every frame goes
+        through ``process_frame``. A chunk that loses track hands the frame
+        that lost it and the frames after it to ``process_frame``, in state
+        LOST: they relocalize."""
+        if self.on_frame is not None:
+            raise _not_ported("the on_frame observation hook", "7")
+        C = len(tss)
+        tss_np = np.asarray(tss, np.float64)
+        frames = _ChunkReplayView(imgs[0], int(imgs[1])) if isinstance(imgs, tuple) else imgs
+        if not self._chunkable():
+            for i in range(C):
+                self.process_frame(frames[i], float(tss_np[i]))
+            return
+        # The weak-tracking rule can make a keyframe every 2 frames: reserve
+        # for that, so that the chunk's capacity guard never drops one.
+        if not self.localization_only and self.n_kf >= self.K_cap - 1 - (C + 1) // 2:
+            self._make_room()
+        last = self._last_frame_ts
+        gaps = np.diff(np.concatenate([[tss_np[0] if last is None else last], tss_np]))
+        if np.any(gaps > self.ts_jump_threshold):
+            for i in range(C):
+                self.process_frame(frames[i], float(tss_np[i]))
+            return
+        self._last_frame_ts = float(tss_np[-1])
+        if isinstance(imgs, tuple):
+            stack, off = imgs[0], int(imgs[1])
+        else:
+            stack, off = self._frame_stack(imgs), 0
+        self._run_chunk(stack, off, frames, tss_np)
+
+    def _run_chunk(self, stack, off: int, frames, tss_np) -> None:
+        C = len(tss_np)
+        runner = self._mono_runner
+        if runner is None:
+            runner = self._mono_runner = device_loop.MonoChunkRunner(
+                self._chunk_config(), self.device
+            )
+        n_kf0, fid0 = self.n_kf, self.frame_id
+        # Localization mode: a last-keyframe id far in the future keeps the
+        # chunk from inserting keyframes (the JAX package's sentinel).
+        lkf = fid0 + (1 << 22) if self.localization_only else self.last_kf_frame
+        # One upload: the pose and motion model, then each frame's (ts, id).
+        up = torch.from_numpy(np.concatenate([
+            self.R_cur.reshape(-1), self.t_cur, self.vel_R.reshape(-1), self.vel_t,
+            np.stack([tss_np, fid0 + np.arange(C)], axis=1).reshape(-1),
+        ]).astype(np.float32)).to(self.device)
+        # ref_inl -1: the thRefRatio bar reseeds from the chunk's first frame,
+        # as the JAX package's host sends it (carrying it was measured there
+        # to densify keyframes into weak-parallax windows).
+        runner.load(self.map, up[:24], n_kf0, self.n_pts, lkf, -1)
+        rows, kf_ids = runner.run_chunk(stack, off, up[24:].reshape(C, 2), self._sched_lean, n_kf0)
+        c = runner.carry()
+        self.map = c.m
+        # The chunk's one read: its rows, the end pose and motion model, the counters.
+        rows, pose, sc = read_host(
+            rows, torch.cat([c.R.reshape(9), c.t, c.vel_R.reshape(9), c.vel_t]),
+            torch.stack([c.n_kf, c.n_pts, c.last_kf_fid, c.alive.to(torch.int32), c.ref_inl]),
+        )
+        self._absorb_chunk(read_rows(rows), pose, sc, tss_np)
+        self.frame_id = fid0 + C
+        if sc[3] < 0.5:
+            # Tracking failed at frame k: LOST, and frames k.. replayed one
+            # at a time, through relocalization.
+            k = rows.shape[0] - 1
+            self.state = LOST
+            self.frame_id = fid0 + k
+            for i in range(k, C):
+                self.process_frame(frames[i], float(tss_np[i]))
+            self.frame_id = max(fid0 + C, self.frame_id)
+
+    def _absorb_chunk(self, out, pose, sc, tss_np) -> None:
+        """Host state after a chunk: counters, the pose and motion model, and
+        the trajectory logs of the tracked frames."""
+        self.n_kf, self.n_pts = int(sc[0]), int(sc[1])
+        if not self.localization_only:  # else the sentinel, not a frame id
+            self.last_kf_frame = int(sc[2])
+        self._ref_kf_inl = max(0, int(sc[4]))
+        self.R_cur, self.t_cur = pose[0:9].reshape(3, 3).copy(), pose[9:12].copy()
+        self.vel_R, self.vel_t = pose[12:21].reshape(3, 3).copy(), pose[21:24].copy()
+        self._ref_cache = None
+        self._log_chunk_rows(out, tss_np)
+
+    def _log_chunk_rows(self, out, tss_np) -> None:
+        """The trajectory logs of a chunk's tracked frames (``out``: its
+        rows read on the host)."""
+        for i in np.nonzero(out.alive)[0]:
+            ts = float(tss_np[i])
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = out.R[i].T
+            T[:3, 3] = -out.R[i].T @ out.t[i]
+            self.trajectory.append((ts, T))
+            self.rel_traj.append((ts, int(out.ref[i]), out.R_cr[i].copy(), out.t_cr[i].copy()))
 
     def _predict_motion(self, ts: float) -> None:
         """Hook: update vel_R / vel_t before tracking (constant velocity
@@ -310,6 +542,34 @@ class MonoSlam:
     def _compact_hook(self, order, new_of_old, n_valid) -> None:
         """Hook: reindex per-slot host state after keyframe compaction (the
         inertial pipeline reorders and merges its IMU blocks here)."""
+
+    # ------------------------------------------------------------------
+    def _try_relocalize(self, feats: orb.Features, ts: float):
+        """Relocalization after tracking loss (``Tracking::Relocalization``,
+        Tracking.cc:3648): up to 3 retrieval candidates (one host read), each
+        tried as descriptor matches -> PnP RANSAC -> tracking against the map
+        (one 13-float read an attempt); the first with >= 30 tracking
+        inliers wins, with the motion model reset. Returns Twc, or None while
+        lost (without an Atlas the map is kept and the next frame tries
+        again)."""
+        if self.n_kf < 2:
+            return None
+        cand_ids = _reloc_detect(self.map, feats.desc_sign, feats.valid, self.vocab).cpu().numpy()
+        for c in cand_ids:
+            if c < 0:
+                continue
+            buf = _reloc_attempt(
+                self.map, int(c), feats, self.cam_params, self.width, self.height, self.generator
+            ).cpu().numpy()
+            if int(buf[12]) >= 30:
+                self.R_cur = buf[:9].reshape(3, 3).copy()
+                self.t_cur = buf[9:12].copy()
+                self.vel_R = np.eye(3, dtype=np.float32)
+                self.vel_t = np.zeros(3, np.float32)
+                self.state = OK
+                self._log_pose(ts)
+                return self._pose_mat()
+        return None
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats: orb.Features, ts: float):

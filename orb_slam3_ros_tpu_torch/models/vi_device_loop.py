@@ -11,16 +11,11 @@ since-last-keyframe block ``blk`` (its fill ``blk_n``, ``blk_ok`` False
 after an overflow), the per-keyframe edge blocks ``kf_blk`` with
 ``kf_edge_ok``, and the anchor body state with its covariance ``Sigma``.
 
-Where the JAX package compiles a chunk into one XLA program (``lax.scan``
-over the frames, the keyframe work under ``lax.cond``), the port captures
-CUDA graphs (``VIChunkRunner``): one of the frame step per tracking
-schedule, and the keyframe body in six segments, of which the fuse, stats
-and cull segments are replayed only at the keyframe ids that call for them
-(ids the host knows). After each step the host reads two words,
-``(need_kf, alive)``, and replays the keyframe segments or goes on: the
-branch the JAX program takes on the device. Every region reads and writes
-one set of static buffers; on the CPU the same functions run eagerly on the
-same buffers.
+``VIChunkRunner`` runs it on ``chunk_runner.ChunkRunner``'s machinery: on
+the card one CUDA graph of the frame step per tracking schedule, and the
+keyframe body in six segments, of which the fuse, stats and cull segments
+are replayed only at the keyframe ids that call for them (ids the host
+knows); after each step the host reads two words, ``(need_kf, alive)``.
 
 A frame whose refinement keeps fewer than 15 inliers ends the chunk: its
 step leaves the body state as it was, and the host replays it and the
@@ -28,20 +23,19 @@ frames after it one at a time, from the state of the last tracked frame.
 
 Not ported (ROADMAP "Do not port"): the tunnel's packing
 (``unpack_vi_dev_state``, ``pack_vi_chunk_result``) and the
-``ORB_BATCH_EXTRACT`` branch; the stereo branch waits for ROADMAP item 12.
+``ORB_BATCH_EXTRACT`` branch; the stereo branch waits for ROADMAP item 6.
 """
 
 from __future__ import annotations
 
-import collections
-import time
 from typing import NamedTuple
 
 import torch
 
 from ..ops import imu as imu_ops
-from ..ops import orb, project_match, viba
+from ..ops import orb, viba
 from . import local_mapping, map_updates, tracking
+from .chunk_runner import ChunkRunner, frame_row
 from .map_state import MapState, kf_index
 
 
@@ -73,22 +67,6 @@ class VICarry(NamedTuple):
     ref_inl: torch.Tensor  # [] int32
 
 
-class VIChunkOut(NamedTuple):
-    """One frame's output, as the columns of its row of ``ROW_LEN`` floats."""
-
-    R: torch.Tensor  # [3,3] camera Tcw
-    t: torch.Tensor  # [3]
-    R_cr: torch.Tensor  # [3,3] pose relative to the reference keyframe
-    t_cr: torch.Tensor  # [3]
-    ref: torch.Tensor  # [] reference keyframe slot
-    n_inliers: torch.Tensor  # []
-    is_kf: torch.Tensor  # []
-    alive: torch.Tensor  # []
-
-
-ROW_LEN = 28
-
-
 class VIChunkConfig(NamedTuple):
     """The static settings of one system's chunk (``InertialSlam``'s)."""
 
@@ -113,70 +91,24 @@ class VIChunkConfig(NamedTuple):
     imu_cap_kf: int
     track_cap: int | None
 
-    def kf_segments(self, kf_id: int) -> tuple:
-        """The keyframe segments keyframe ``kf_id`` runs, in order (the
-        conditions of the JAX body's ``lax.cond`` branches)."""
-        seg = ["kf_insert"]
-        if self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0:
-            seg.append("kf_fuse")
-        seg.append("kf_ba")
-        if kf_id % self.stats_every == 0:
-            seg.append("kf_stats")
-        if self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0:
-            seg.append("kf_cull")
-        seg.append("kf_end")
-        return tuple(seg)
-
 
 def need_keyframe(ok, n_vis, since, ref_inl, n_kf, *, K_cap, kf_every, kf_min_inliers,
-                  kf_ref_ratio):
-    """The chunk's keyframe rule (JAX ``vi_device_loop.py:357-372``): a
-    tracked frame under capacity, ``kf_every`` frames after the last
-    keyframe, or two frames after it when tracking weakens (under
-    ``kf_min_inliers``, or under ``kf_ref_ratio`` of the reference
-    keyframe's inliers: NeedNewKeyFrame's thRefRatio, Tracking.cc:3103).
-    0-d tensors in, a 0-d bool tensor out."""
+                  kf_ref_ratio, min_kf: int = 0):
+    """The chunk's keyframe rule (JAX ``vi_device_loop.py:357-372``; the
+    monocular chunk's, ``device_loop.py:262-281``, adds ``min_kf`` = 2): a
+    tracked frame under capacity with at least ``min_kf`` keyframes,
+    ``kf_every`` frames after the last keyframe, or two frames after it when
+    tracking weakens (under ``kf_min_inliers``, or under ``kf_ref_ratio`` of
+    the reference keyframe's inliers: NeedNewKeyFrame's thRefRatio,
+    Tracking.cc:3103). 0-d tensors in, a 0-d bool tensor out."""
     weak = (n_vis < kf_min_inliers) & (since >= 2)
     if kf_ref_ratio > 0.0:
         weak = weak | (
             (n_vis.to(torch.float32) < kf_ref_ratio * ref_inl.to(torch.float32)) & (since >= 2)
         )
+    if min_kf > 0:
+        ok = ok & (n_kf >= min_kf)
     return ok & (n_kf < K_cap) & ((since >= kf_every) | weak)
-
-
-def frame_row(m: MapState, ref, R_cur, t_cur, n_inliers, is_kf, alive) -> torch.Tensor:
-    """[ROW_LEN] f32: ``VIChunkOut``'s columns in field order, with the
-    pose relative to keyframe ``ref`` (a 0-d tensor)."""
-    k = kf_index(ref, R_cur.device)
-    R_ref = m.kf_R.index_select(0, k)[0]
-    t_ref = m.kf_t.index_select(0, k)[0]
-    R_cr = R_cur @ R_ref.T
-    t_cr = t_cur - R_cr @ t_ref
-    tail = torch.stack([x.to(torch.float32) for x in (ref, n_inliers, is_kf, alive)])
-    return torch.cat([R_cur.reshape(9), t_cur, R_cr.reshape(9), t_cr, tail])
-
-
-def read_rows(rows) -> VIChunkOut:
-    """``VIChunkOut`` of numpy arrays with a leading frame axis from the
-    host copy [C, ROW_LEN] of a chunk's rows."""
-    C = rows.shape[0]
-    return VIChunkOut(
-        R=rows[:, 0:9].reshape(C, 3, 3), t=rows[:, 9:12],
-        R_cr=rows[:, 12:21].reshape(C, 3, 3), t_cr=rows[:, 21:24],
-        ref=rows[:, 24].astype(int), n_inliers=rows[:, 25].astype(int),
-        is_kf=rows[:, 26] > 0.5, alive=rows[:, 27] > 0.5,
-    )
-
-
-def read_host(*tensors) -> list:
-    """One host read of several device tensors: numpy arrays of their
-    shapes, as float32 (exact for the counts and ids read here)."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
-    out, o = [], 0
-    for t in tensors:
-        out.append(flat[o : o + t.numel()].reshape(t.shape))
-        o += t.numel()
-    return out
 
 
 def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
@@ -356,206 +288,26 @@ KF_SEGMENTS = {
     "kf_insert": kf_insert, "kf_fuse": kf_fuse, "kf_ba": kf_ba, "kf_stats": kf_stats,
     "kf_cull": kf_cull, "kf_end": kf_end,
 }
-_CARRY_SCALARS = ("n_kf", "n_pts", "last_kf_fid", "alive", "ref_inl")
 
 
-class VIChunkRunner:
-    """Runs chunks of the steady mono-inertial state on one set of static
-    buffers (``buf``: the map, the inertial state, the carry scalars, the
-    frame's inputs and what a keyframe needs of the frame).
+class VIChunkRunner(ChunkRunner):
+    """Runs chunks of the steady mono-inertial state (``ChunkRunner``): the
+    buffers hold the map, the inertial state and the carry scalars besides
+    the frame's inputs, an IMU block, its timestamp and id a frame."""
 
-    On CUDA (``graphs``), each region (the step per schedule, each keyframe
-    segment) is captured once as a CUDA graph on a side stream, after a
-    warm-up run of it on a scratch copy of the buffers on that stream
-    (library handles, matcher workspaces and device tables then exist
-    before capture), each graph in its own memory pool, and then replayed;
-    a failed capture or replay raises, nothing falls back to the eager
-    path. Off the card the regions run eagerly on the same buffers;
-    ``region`` gives any region's eager function on the card too. Each
-    region ends by copying every leaf it rebinds back into its buffer, so
-    the buffers are the state from one replay to the next.
+    CARRY = VICarry
+    NESTED = {"m": MapState, "st": VIDevState}
+    SEGMENTS = KF_SEGMENTS
 
-    K1 launches: a capture queues none, so ``project_match.LAUNCHES`` gets
-    the graph's launches on every replay; the warm-ups launch for real and
-    are counted there too, and in ``warmup_launches``."""
+    @staticmethod
+    def step(c, img, x_in, cfg, schedule):
+        return frame_step(c, img, x_in, cfg, schedule)
 
-    def __init__(self, cfg: VIChunkConfig, device: torch.device):
-        self.cfg = cfg
-        self.device = torch.device(device)
-        self.graphs = self.device.type == "cuda"
-        self.buf: dict = {}
-        self._graph: dict = {}  # region -> (CUDAGraph, K1 launches a replay)
-        self._stream = None
-        self._workspaces = {}  # matcher workspaces the graphs hold, by address
-        self.warmup_launches = {site: 0 for site in project_match.LAUNCHES}
-        self.capture_s = 0.0
-        self.runs = collections.Counter()  # region -> runs (replays on the card)
-        # With ``timing``: CUDA events around every replay, and the host's
-        # gap between a frame's flag read and the next frame's first launch.
-        self.timing = False
-        self.spans = []  # (region, start event, end event)
-        self.gaps_s = []
-
-    # ---- state -------------------------------------------------------
-    def carry(self, buf=None) -> VICarry:
-        b = self.buf if buf is None else buf
-        return VICarry(
-            m=MapState(*(b["m." + f] for f in MapState._fields)),
-            st=VIDevState(*(b["st." + f] for f in VIDevState._fields)),
-            **{k: b[k] for k in _CARRY_SCALARS},
-        )
+    def x_len(self) -> int:
+        return self.cfg.imu_cap_frame * 7 + 2
 
     def load(self, m: MapState, st: VIDevState, n_kf: int, n_pts: int, last_kf_fid: int,
              ref_inl: int) -> None:
-        """Put a chunk's starting state into the buffers: the map's and the
-        inertial state's leaves that are not the buffers already are copied
-        in (the per-frame path rebinds some); the scalars are filled."""
-        if not self.buf:
-            self._make_buffers(m, st)
-        for prefix, tup in (("m.", m), ("st.", st)):
-            for f, v in zip(tup._fields, tup):
-                dst = self.buf[prefix + f]
-                if v is not dst:
-                    dst.copy_(v)
-        for k, v in zip(_CARRY_SCALARS, (n_kf, n_pts, last_kf_fid, 1, ref_inl)):
-            self.buf[k].fill_(v)
-
-    def _make_buffers(self, m: MapState, st: VIDevState) -> None:
-        cfg, dev = self.cfg, self.device
-        N = cfg.config.total_cap
-        f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
-        b = {"m." + f: torch.empty_like(v, device=dev) for f, v in zip(m._fields, m)}
-        b.update({"st." + f: torch.empty_like(v, device=dev) for f, v in zip(st._fields, st)})
-        b.update({k: torch.zeros((), **i32) for k in _CARRY_SCALARS})
-        b["alive"] = torch.zeros((), dtype=torch.bool, device=dev)
-        b.update(
-            img=torch.zeros((cfg.height, cfg.width), **f32),
-            x_in=torch.zeros((cfg.imu_cap_frame * 7 + 2,), **f32),
-            f_xy=torch.zeros((N, 2), **f32), f_level=torch.zeros((N,), **i32),
-            f_angle=torch.zeros((N,), **f32),
-            f_desc=torch.zeros((N, 256), dtype=torch.int8, device=dev),
-            f_valid=torch.zeros((N,), dtype=torch.bool, device=dev),
-            f_pt=torch.zeros((N,), **i32), kf_R=torch.zeros((3, 3), **f32),
-            kf_t=torch.zeros((3,), **f32), kf_ts=torch.zeros((), **f32),
-            kf_id=torch.zeros((), **i32), n_vis=torch.zeros((), **i32),
-            row=torch.zeros((ROW_LEN,), **f32), flags=torch.zeros((2,), **i32),
-        )
-        self.buf = b
-
-    @staticmethod
-    def _commit(buf: dict, c: VICarry, fr: dict | None = None) -> None:
-        """Copy the leaves of ``c`` (and ``fr``) that are not their buffers
-        into them. A leaf that is another buffer (the step's ``kf_id`` is
-        the carry's ``n_kf`` it increments) is copied out first."""
-        pairs = [("m." + f, v) for f, v in zip(c.m._fields, c.m)]
-        pairs += [("st." + f, v) for f, v in zip(c.st._fields, c.st)]
-        pairs += [(k, getattr(c, k)) for k in _CARRY_SCALARS]
-        pairs += list((fr or {}).items())
-        pairs = [(k, v) for k, v in pairs if v is not buf[k]]
-        written = {buf[k].untyped_storage().data_ptr() for k, _ in pairs}
-        pairs = [(k, v.clone() if v.untyped_storage().data_ptr() in written else v)
-                 for k, v in pairs]
-        for k, v in pairs:
-            buf[k].copy_(v)
-
-    # ---- regions -----------------------------------------------------
-    def region(self, name):
-        """The function of region ``name`` (``("step", schedule)`` or a
-        keyframe segment) on a buffer set: it reads its inputs there and
-        writes its results back there."""
-        cfg = self.cfg
-        if isinstance(name, tuple):
-            schedule = name[1]
-
-            def step(buf):
-                c, fr = frame_step(self.carry(buf), buf["img"], buf["x_in"], cfg, schedule)
-                self._commit(buf, c, fr)
-
-            return step
-        seg = KF_SEGMENTS[name]
-
-        def kf(buf):
-            fr = {k: buf[k] for k in ("f_xy", "f_level", "f_angle", "f_desc", "f_valid", "f_pt",
-                                      "kf_R", "kf_t", "kf_ts", "kf_id", "n_vis")}
-            out = seg(self.carry(buf), fr, cfg)
-            c, fr2 = (out, None) if isinstance(out, VICarry) else out
-            self._commit(buf, c, None if fr2 is None else {"row": fr2["row"]})
-
-        return kf
-
-    def _run(self, name) -> None:
-        self.runs[name] += 1
-        fn = self.region(name)
-        if not self.graphs:
-            fn(self.buf)
-            return
-        entry = self._graph.get(name)
-        if entry is None:
-            entry = self._graph[name] = self._capture(fn)
-        g, launches = entry
-        if self.timing:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            g.replay()
-            b.record()
-            self.spans.append((name, a, b))
-        else:
-            g.replay()
-        project_match.count_replay(launches)
-
-    def _capture(self, fn):
-        t0 = time.perf_counter()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=self.device)
-        s = self._stream
-        s.wait_stream(torch.cuda.current_stream(self.device))
-        before = dict(project_match.LAUNCHES)
-        with torch.cuda.stream(s):
-            fn({k: v.clone() for k, v in self.buf.items()})
-        for site, n in project_match.LAUNCHES.items():
-            self.warmup_launches[site] += n - before[site]
-        s.synchronize()
-        g = torch.cuda.CUDAGraph(keep_graph=True)  # its node list stays readable
-        with project_match.captured_launches() as launches:
-            with torch.cuda.graph(g, stream=s):
-                fn(self.buf)
-        # A graph holds the addresses of the matcher workspaces of its
-        # stream: keep them alive whatever the cache evicts.
-        for ws in project_match.stream_workspaces(s.cuda_stream):
-            self._workspaces[ws.data_ptr()] = ws
-        self.capture_s += time.perf_counter() - t0
-        return g, launches
-
-    @property
-    def n_graphs(self) -> int:
-        return len(self._graph)
-
-    # ---- a chunk -----------------------------------------------------
-    def run_chunk(self, stack, off: int, xs: torch.Tensor, schedule: tuple, n_kf: int):
-        """Frames ``stack[off : off + C]`` with their input rows ``xs``
-        [C, M*7 + 2] on the device (see ``frame_step``), from the state in
-        the buffers; ``n_kf`` is the host's keyframe count, which names the
-        keyframe segments to replay. Stops after the first frame that is
-        not tracked. Returns (rows [n, ROW_LEN] on the device, the keyframe
-        ids inserted)."""
-        C = xs.shape[0]
-        rows = torch.empty((C, ROW_LEN), dtype=torch.float32, device=self.device)
-        kf_ids = []
-        t_read = None
-        for i in range(C):
-            if self.timing and t_read is not None:
-                self.gaps_s.append(time.perf_counter() - t_read)
-            self.buf["img"].copy_(stack[off + i])
-            self.buf["x_in"].copy_(xs[i])
-            self._run(("step", schedule))
-            need_kf, alive = self.buf["flags"].tolist()  # the frame's one host read
-            t_read = time.perf_counter()
-            if need_kf:
-                for seg in self.cfg.kf_segments(n_kf):
-                    self._run(seg)
-                kf_ids.append(n_kf)
-                n_kf += 1
-            rows[i].copy_(self.buf["row"])
-            if not alive:
-                return rows[: i + 1], kf_ids
-        return rows, kf_ids
+        """Put a chunk's starting state into the buffers (``ChunkRunner._load``)."""
+        self._load(VICarry(m=m, st=st, n_kf=n_kf, n_pts=n_pts, last_kf_fid=last_kf_fid,
+                           alive=1, ref_inl=ref_inl))

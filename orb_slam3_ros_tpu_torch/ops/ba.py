@@ -10,10 +10,13 @@ axis, the camera / point / camera-point blocks accumulate with
 onto the cameras, and the reduced system is solved by Cholesky. A step is
 accepted when it lowers the robust cost.
 
-``rel_tol`` early stopping reads the step's ``done`` flag on the host:
-one device sync per LM iteration, in exchange for not running the
-iterations after convergence (the JAX package's ``while_loop``; the same
-numbers).
+``rel_tol`` early stopping comes in two forms with the same numbers as
+the JAX package's ``while_loop``. The host form reads the step's ``done``
+flag after each LM iteration (one device sync each) and skips the
+iterations after convergence: the per-frame path. The device form
+(``on_device=True``) always runs ``n_iters`` steps and freezes the state
+from the step that set ``done``, with no host read: the form a captured
+CUDA graph can hold (the chunk loop).
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ class BAResult(NamedTuple):
     inlier: torch.Tensor  # [E]
     cost: torch.Tensor  # [] final robust cost
     n_inliers: torch.Tensor  # [] int32
-    iters: int  # LM iterations run (the port's addition: rel_tol stops early)
+    # LM iterations run before rel_tol stopped the solve (the port's
+    # addition): an int in the host form, a 0-d int32 tensor in the device form.
+    iters: int | torch.Tensor
 
 
 def ba_problem_from_numpy(arrays, device) -> BAProblem:
@@ -136,14 +141,17 @@ def bundle_adjust(
     use_robust: bool = True,
     lam0: float = 1e-3,
     rel_tol: float = 0.0,
+    on_device: bool = False,
 ) -> BAResult:
     """Run up to ``n_iters`` LM iterations of full BA on the problem.
 
     ``rel_tol``: stop once an accepted step improves the robust cost by
     less than ``rel_tol`` of its value (g2o's terminate action); 0 runs all
-    ``n_iters``. A Cholesky that fails (an indefinite Schur matrix) gives
-    NaN, as ``cho_factor`` does in the JAX package: the step's cost is NaN
-    and the step is rejected."""
+    ``n_iters``. ``on_device``: stop by freezing the state on the device
+    instead of leaving the loop on the host (see the module docstring);
+    the results are the same to the bit. A Cholesky that fails (an
+    indefinite Schur matrix) gives NaN, as ``cho_factor`` does in the JAX
+    package: the step's cost is NaN and the step is rejected."""
     K = prob.R.shape[0]
     P = prob.X.shape[0]
     dtype, dev = prob.R.dtype, prob.R.device
@@ -245,12 +253,23 @@ def bundle_adjust(
     R, t, X = prob.R, prob.t, prob.X
     lam = torch.full((), lam0, dtype=dtype, device=dev)
     cost = cost_of(R, t, X)
-    iters = 0
-    while iters < n_iters:
-        R, t, X, lam, cost, done = step(R, t, X, lam, cost)
-        iters += 1
-        if rel_tol > 0.0 and bool(done):
-            break
+    if on_device:
+        stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        iters = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(n_iters):
+            out = step(R, t, X, lam, cost)
+            iters = iters + (~stopped).to(torch.int32)
+            R, t, X, lam, cost = (torch.where(stopped, old, new)
+                                  for old, new in zip((R, t, X, lam, cost), out[:5]))
+            if rel_tol > 0.0:
+                stopped = stopped | out[5]
+    else:
+        iters = 0
+        while iters < n_iters:
+            R, t, X, lam, cost, done = step(R, t, X, lam, cost)
+            iters += 1
+            if rel_tol > 0.0 and bool(done):
+                break
     chi2 = chi2_of(R, t, X)
     inlier = prob.edge_valid & (chi2 <= delta2)
     return BAResult(

@@ -73,7 +73,7 @@ def pinhole_project_nodist(params: torch.Tensor, X: torch.Tensor) -> torch.Tenso
 def _pinhole_only(model: str) -> None:
     if model != "pinhole":
         raise NotImplementedError(
-            f"camera model {model!r} is not ported yet (ROADMAP Queue 1 item 12)"
+            f"camera model {model!r} is not ported yet (ROADMAP Queue 1 item 6)"
         )
 
 

@@ -55,3 +55,10 @@ def inv(A: torch.Tensor) -> torch.Tensor:
     """Inverse of [..., n, n]; NaN for a singular or non-finite matrix."""
     Ai, info = torch.linalg.inv_ex(A)
     return _nan_where_not((info == 0) & _finite(A), Ai)
+
+
+def solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A x = b`` ([..., n, n], [..., n]) by LU; NaN for a singular
+    or non-finite ``A``."""
+    x, info = torch.linalg.solve_ex(A, b)
+    return _nan_where_not((info == 0) & _finite(A), x)

@@ -1,13 +1,14 @@
 """Guided feature matching — port of ``orb_slam3_ros_tpu.ops.matching``:
 the projection search of tracking and landmark fusion, the windowed
-search of initialization and the epipolar search of triangulation, with
-the rotation-histogram check.
+search of initialization, the epipolar search of triangulation and the
+unconstrained frame-to-frame search of relocalization, with the
+rotation-histogram check.
 
 There is no switch between routes for the projection search: on CUDA
 tensors it always runs the hand-written matcher kernel, on CPU tensors its
-plain torch version (``project_match.project_match``). The initialization
-and triangulation searches are the dense ``hamming.mutual_nn`` path on
-both devices, as in the JAX package.
+plain torch version (``project_match.project_match``). The initialization,
+triangulation and frame-to-frame searches are the dense
+``hamming.mutual_nn`` path on both devices, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -104,6 +105,26 @@ def search_for_initialization(
     )
     idx, d = hamming.mutual_nn(dist, mask, max_dist=max_dist, ratio=ratio)
     idx = rotation_consistency(f1.angle, f2.angle, idx)
+    return idx, torch.where(idx >= 0, d, hamming.INVALID_DIST)
+
+
+def search_frame_frame(
+    f1: Features,
+    f2: Features,
+    max_dist: int = hamming.TH_LOW,
+    ratio: float = 0.75,
+    use_rotation: bool = True,
+):
+    """Unconstrained descriptor matching between two frames (the role of
+    the reference's SearchByBoW, ORBmatcher.cc:765-905, whose BoW node
+    constraint only prunes candidates): every valid pair, mutual nearest
+    neighbours with the ratio test, then the rotation check. Returns
+    (match_idx [N1] into f2, match_dist [N1])."""
+    dist = hamming.hamming_matrix(f1.desc_sign, f2.desc_sign)
+    mask = f1.valid[:, None] & f2.valid[None, :]
+    idx, d = hamming.mutual_nn(dist, mask, max_dist=max_dist, ratio=ratio)
+    if use_rotation:
+        idx = rotation_consistency(f1.angle, f2.angle, idx)
     return idx, torch.where(idx >= 0, d, hamming.INVALID_DIST)
 
 

@@ -13,7 +13,8 @@ import torch
 
 
 def top_k(x: torch.Tensor, k: int):
-    """(values [k], indices [k] int64) of the k largest entries of the 1-D
-    ``x``, in descending order, lower index first among ties."""
-    order = torch.sort(x, descending=True, stable=True)
-    return order.values[:k], order.indices[:k]
+    """(values [..., k], indices [..., k] int64) of the k largest entries
+    along the last axis of ``x``, in descending order, lower index first
+    among ties."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]

@@ -250,7 +250,7 @@ def make_vi_sequence(
     accelerometer per sample) is the JAX package's."""
     if trajectory != "wander":
         raise NotImplementedError(
-            f"trajectory {trajectory!r} is not ported (ROADMAP Queue 1 item 11: it serves loop closing)"
+            f"trajectory {trajectory!r} is not ported (ROADMAP Queue 1 item 7)"
         )
     from torch.func import jacfwd, vmap
 

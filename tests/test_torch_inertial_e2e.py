@@ -13,6 +13,8 @@ silent shift of the port's bound. The file holds 20+ cases so that
 ``--dist loadfile`` starts it among the first files of a whole run.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -63,12 +65,15 @@ def runs():
     jres = _run(jslam, jseq, jimu)
     jres.update(initialized=bool(jslam.imu_initialized), n_kf=int(jslam.n_kf),
                 bg=np.asarray(jslam.bg_cur, np.float64))
-    del jslam
     tseq, timu_ = tsynth.make_vi_sequence(**SEQ_KW, device="cpu")
     tslam = tis.InertialSlam(cam_params=tseq.cam_params, calib=torch_calib(make_calib(freq=100.0)),
                              device="cpu", **SLAM_KW)
     tres = _run(tslam, tseq, timu_)
     tres["jax"] = jres
+    # both systems as their runs left them, for the relocalization cases at
+    # the end (the cases before those drive ``tslam`` on)
+    tres["jax_system"] = (jslam, jseq, jimu)
+    tres["port_system"] = copy.deepcopy(tslam)
     return tslam, tres, timu_, tseq
 
 
@@ -167,15 +172,24 @@ def test_imu_seeds_the_visual_tracker(runs):
 
 @pytest.mark.parametrize("call", ["process_frames", "_start_async_gba"])
 def test_unported_entry_points_raise(runs, call):
-    slam, _, _, _ = runs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(slam, call)([np.zeros((240, 376), np.float32)], [9.0])
+    # The asynchronous full inertial BA waits for loop closing and raises.
+    # ``process_frames`` without IMU samples is MonoSlam's, whose chunk gate
+    # keeps an InertialSlam per frame: a blank frame 4.6 s after the last one
+    # is a timestamp jump, goes LOST and finds nothing to relocalize on.
+    slam = copy.deepcopy(runs[0])
+    if call == "_start_async_gba":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            slam._start_async_gba([np.zeros((240, 376), np.float32)], [9.0])
+        return
+    slam.process_frames([np.zeros((240, 376), np.float32)], [9.0])
+    assert slam.frame_id == runs[0].frame_id + 1 and slam._mono_runner is None
+    assert slam.state == tsys.LOST
 
 
 def test_dead_reckoning_then_lost(runs):
     # A blank frame has no visual support: dead reckoning on the IMU
-    # (RECENTLY_LOST), and LOST once time_recently_lost has passed, where
-    # relocalization is not ported.
+    # (RECENTLY_LOST), and LOST once time_recently_lost has passed; a LOST
+    # blank frame then fails to relocalize and stays LOST.
     slam, _, imu, _ = runs
     img = np.zeros((240, 376), np.float32)
     kw = dict(acc=imu["acc"][5], gyro=imu["gyro"][5], dts=imu["dts"][5])
@@ -184,8 +198,76 @@ def test_dead_reckoning_then_lost(runs):
     assert slam.state == tsys.RECENTLY_LOST
     slam.time_recently_lost = 0.05
     assert slam.process_frame(img, ts + 0.2, **kw) is None and slam.state == tsys.LOST
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.process_frame(img, ts + 0.3, **kw)
+    assert slam.process_frame(img, ts + 0.3, **kw) is None and slam.state == tsys.LOST
+    assert slam._vi_anchor is None and slam._vi_prior is None
     slam.on_frame = print
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.process_frame(img, ts + 0.4, **kw)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            slam.process_frame(img, ts + 0.4, **kw)
+    finally:
+        slam.on_frame = None
+
+
+def _lose_and_relocalize(slam, seq, imu, flush):
+    """The last frame's state 0.1 s on: two blank frames (RECENTLY_LOST,
+    then LOST), a third blank (LOST, relocalization fails), then the last
+    frame's image again with its IMU block (relocalization), then once more
+    (``flush`` settles the JAX package's one-frame lag after each). Returns
+    (the state after each frame, the VI state and pose after the
+    relocalizing frame)."""
+    img, i = np.zeros((240, 376), np.float32), N_FRAMES - 1
+    kw = dict(acc=imu["acc"][i], gyro=imu["gyro"][i], dts=imu["dts"][i])
+    ts = float(slam._last_frame_ts)
+    states = []
+    for k, frame in enumerate([img, img, img, seq.images[i], seq.images[i]]):
+        if k == 1:
+            slam.time_recently_lost = 0.05
+        slam.process_frame(frame, ts + 0.1 * (k + 1), **kw)
+        flush()
+        states.append(slam.state)
+        if k == 3:
+            after = dict(anchor=slam._vi_anchor, prior=slam._vi_prior,
+                         lost_since=slam._lost_since_ts - ts,
+                         vel_R=np.asarray(slam.vel_R).copy(), vel_t=np.asarray(slam.vel_t).copy(),
+                         pose=slam._pose_mat())
+    return states, after
+
+
+@pytest.fixture(scope="module")
+def recovered(runs):
+    tslam, tres, timu_, tseq = runs
+    jslam, jseq, jimu = tres["jax_system"]
+    return dict(port=_lose_and_relocalize(tres["port_system"], tseq, timu_, lambda: None),
+                jax=_lose_and_relocalize(jslam, jseq, jimu, jslam.flush),
+                systems=(tres["port_system"], jslam))
+
+
+def test_lost_frame_relocalizes_in_both_packages(recovered):
+    want = [tsys.RECENTLY_LOST, tsys.LOST, tsys.LOST, tsys.OK]
+    assert recovered["port"][0][:4] == want and recovered["jax"][0][:4] == want
+    # the next frame is a VI frame again, in both
+    assert recovered["port"][0][4] in (tsys.OK, tsys.RECENTLY_LOST)
+    assert recovered["jax"][0][4] in (tsys.OK, tsys.RECENTLY_LOST)
+
+
+def test_vi_state_after_relocalization_is_the_jax_packages(recovered):
+    # The state the relocalizing frame leaves (JAX inertial_system.py:302 ->
+    # system.py:1121): no inertial anchor and no prior (the next VI frame
+    # starts from the host's pose, velocity and biases), the dead-reckoning
+    # start time kept, the motion model reset.
+    p, j = recovered["port"][1], recovered["jax"][1]
+    assert p["anchor"] is None and j["anchor"] is None
+    assert p["prior"] is None and j["prior"] is None
+    assert abs(p["lost_since"] - 0.1) < 1e-6 and abs(j["lost_since"] - 0.1) < 1e-6
+    for k in ("vel_R", "vel_t"):
+        np.testing.assert_array_equal(p[k], j[k])
+
+
+def test_relocalized_pose_is_the_frames(recovered, runs):
+    # Each package lands within 2 cm of the pose it tracked the same image
+    # at in its run.
+    ts = float(runs[3].timestamps[N_FRAMES - 1])
+    for slam, name in zip(recovered["systems"], ("port", "jax")):
+        logged = [T for t, T in slam.trajectory if abs(t - ts) < 1e-6][0]
+        got = recovered[name][1]["pose"]
+        assert np.abs(got[:3, 3] - logged[:3, 3]).max() < 0.02, name

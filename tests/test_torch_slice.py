@@ -76,9 +76,10 @@ def test_unported_states_raise():
     # features, so it waits for a reference frame.
     assert slam.process_frame(img, 0.0) is None and slam.state == tsys.NOT_INITIALIZED
     assert slam.init_feats is None
+    # LOST relocalizes; without two keyframes there is nothing to relocalize
+    # against, and the frame stays LOST.
     slam.state = tsys.LOST
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.process_frame(img, 0.1)  # no relocalization
+    assert slam.process_frame(img, 0.1) is None and slam.state == tsys.LOST
     for kw in ({"pipelined": True}, {"enable_loop_closing": True}, {"cam_model": "kb8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, **kw})

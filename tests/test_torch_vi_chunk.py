@@ -38,6 +38,7 @@ from orb_slam3_ros_tpu_torch.models import inertial_system as tis
 from orb_slam3_ros_tpu_torch.models import map_state as tms
 from orb_slam3_ros_tpu_torch.models import system as tsys
 from orb_slam3_ros_tpu_torch.models import vi_device_loop as tvdl
+from orb_slam3_ros_tpu_torch.models.chunk_runner import read_rows
 from orb_slam3_ros_tpu_torch.ops import lie as tlie
 from orb_slam3_ros_tpu_torch.ops import triangulate as ttri
 from orb_slam3_ros_tpu_torch.utils import synth as tsynth
@@ -129,7 +130,7 @@ def _against_jax(snap, seq, imu, i0):
         seq.images, i0, torch.from_numpy(xs), slam._current_schedule(), slam.n_kf
     )
     c = runner.carry()
-    return dict(out=tvdl.read_rows(rows.numpy()), c=c, kf_ids=kf_ids, jout=jout, jsc=jsc,
+    return dict(out=read_rows(rows.numpy()), c=c, kf_ids=kf_ids, jout=jout, jsc=jsc,
                 jblk=jblk, jok=jok, jm=jm2, n_kf0=slam.n_kf)
 
 
@@ -297,9 +298,14 @@ def test_gate_with_a_list_of_images_runs_per_frame(runs):
 
 
 def test_without_imu_the_mono_chunk_loop_raises(runs):
-    slam = copy.deepcopy(runs["snap"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.process_frames((runs["stack"], 0), runs["seq"].timestamps[0:2])
+    # Without IMU samples, MonoSlam.process_frames: its chunk gate keeps an
+    # InertialSlam (its own local BA) per frame, as in the JAX package.
+    # The name is kept from when this path raised; it checks that it runs.
+    slam, i = copy.deepcopy(runs["snap"]), runs["i0"]
+    assert not slam._chunkable()
+    slam.process_frames((runs["stack"], i), runs["seq"].timestamps[i : i + 2])
+    assert slam._mono_runner is None and slam._vi_runner is None
+    assert slam.frame_id == runs["snap"].frame_id + 2 and slam.state == tsys.OK
 
 
 # ---- (f) the chunk's keyframe rule, after tests/test_need_keyframe.py ----
