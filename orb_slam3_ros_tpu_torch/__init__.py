@@ -14,7 +14,11 @@ covisibility local BA, culling, slot recycling, localization against a
 stored map); and monocular-inertial SLAM
 (``models/inertial_system.py::InertialSlam``: IMU preintegration
 ``ops/imu.py``, the three-stage IMU initialization, the per-frame 15-dof
-refinement and the temporal-window visual-inertial BA of ``ops/viba.py``).
+refinement and the temporal-window visual-inertial BA of ``ops/viba.py``);
+the chunk loops of both as CUDA graphs (``models/chunk_runner.py``),
+relocalization, and loop closing with its asynchronous global BA
+(``models/loop_closing.py``, ``ops/sim3solver.py``, ``ops/pgo.py``,
+``ops/ba_pcg.py``).
 
 Entry points run on the CUDA device unless the caller passes ``device``:
 ``device=None`` resolves through :func:`default_device`, which raises where

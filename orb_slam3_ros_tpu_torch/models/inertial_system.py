@@ -32,9 +32,19 @@ tries to relocalize through ``MonoSlam``'s path (``_try_relocalize``); the
 first frame after a recovery rebuilds the inertial anchor from the host's
 pose, velocity and biases.
 
-Not ported (each raises, naming its ROADMAP item): loop closing and the
-asynchronous full inertial BA, stereo / RGB-D inertial, the ``on_frame``
-hook.
+With ``enable_loop_closing`` the closer checks each new keyframe (per
+keyframe, or over a chunk's new keyframes at its boundary); on an
+initialized map it solves the Sim(3) with the scale fixed and corrects
+through the 4-dof essential graph, and the asynchronous global BA is the
+full inertial BA over every keyframe (``viba.vi_bundle_adjust`` on a cloned
+snapshot, two LM iterations a dispatch with the damping carried between
+them, folded in by ``apply_vi_gba_partial``). A correction or a fold-in
+moves keyframe poses and velocities, so the chunk's inertial state is
+rebuilt from the host at the next chunk, and the end-of-chunk pose rides
+the correction of the newest keyframe.
+
+Not ported (each raises, naming its ROADMAP item): stereo / RGB-D
+inertial, the ``on_frame`` hook.
 """
 
 from __future__ import annotations
@@ -219,8 +229,75 @@ class InertialSlam(MonoSlam):
         self._vi_dev_valid = False
 
     # ------------------------------------------------------------------
-    def _start_async_gba(self, *args, **kw):
-        raise _not_ported("the asynchronous full inertial BA", "5")
+    # The chunked, abortable full inertial BA (the reference's
+    # RunGlobalBundleAdjustment calls FullInertialBA on an inertial map,
+    # LoopClosing.cc:3611-3620, with the same mbStopGBA flag).
+    def _start_async_gba(self, n_iters: int, n_cg: int = 50, chunk: int = 2) -> None:
+        """The visual global BA before the IMU is initialized; after it, the
+        full inertial BA over every keyframe on a clone of the map (see
+        ``MonoSlam._start_async_gba``), a previous solve stopped and folded
+        in first."""
+        if not self.imu_initialized:
+            return super()._start_async_gba(n_iters, n_cg=n_cg, chunk=chunk)
+        if self._gba is not None:
+            self.abort_gba()
+            while self._gba is not None:
+                self._poll_gba(force=True)
+        built = self._build_vi_window_problem(self.n_kf)
+        if built is None:
+            return
+        prob, window_ids = built
+        prob = prob._replace(states=viba.VIStates(*(x.clone() for x in prob.states)),
+                             X=prob.X.clone(), uv=prob.uv.clone(), pt_valid=prob.pt_valid.clone())
+        self._gba = dict(kind="vi", prob=prob, window_ids=window_ids, done=0, target=n_iters,
+                         chunk=chunk, lam=torch.full((), 1e-3, device=self.device),
+                         n_kf0=self.n_kf, res=None, abort=False, obs0=self.map.kf_obs.clone())
+        self.gba_counts["started"] += 1
+        self._dispatch_gba_chunk()
+
+    def _dispatch_gba_chunk(self) -> None:
+        g = self._gba
+        if g.get("kind") != "vi":
+            return super()._dispatch_gba_chunk()
+        it = min(g["chunk"], g["target"] - g["done"])
+        res = viba.vi_bundle_adjust(g["prob"], n_iters=it, lam0=g["lam"])
+        g["prob"] = g["prob"]._replace(states=res.states, X=res.X)
+        g["lam"] = res.lam
+        g["res"] = res
+        g["done"] += it
+        self._gba_mark(g)
+
+    def _finish_gba(self) -> None:
+        """Fold in the solve; its correction of the last keyframe it saw
+        also moves the tracker's pose and velocity (the keyframes made
+        during the solve ride it too), and the chunk's inertial state and
+        the per-frame anchor are rebuilt from the host."""
+        g = self._gba
+        if g.get("kind") != "vi":
+            super()._finish_gba()
+        else:
+            self._gba = None
+            r = g["n_kf0"] - 1
+            pre = torch.cat([self.map.kf_R[r].reshape(9), self.map.kf_t[r]])
+            self.map = local_mapping.apply_vi_gba_partial(
+                self.map, g["window_ids"], g["res"], self.calib, g["n_kf0"], kf_obs0=g["obs0"]
+            )
+            self.map = map_updates.refresh_point_stats(self.map, n_levels=self.config.n_levels)
+            pre, post = read_host(pre, torch.cat([self.map.kf_R[r].reshape(9), self.map.kf_t[r]]))
+            Rr_o, tr_o, Rr_n, tr_n = pre[:9].reshape(3, 3), pre[9:], post[:9].reshape(3, 3), post[9:]
+            # Tcw_cur' = (Tcw_cur Twc_r_old) Tcw_r_new
+            R_cr = self.R_cur @ Rr_o.T
+            t_cr = self.t_cur - R_cr @ tr_o
+            self.R_cur = (R_cr @ Rr_n).astype(np.float32)
+            self.t_cur = (R_cr @ tr_n + t_cr).astype(np.float32)
+            self.v_cur = ((Rr_n.T @ Rr_o) @ self.v_cur).astype(np.float32)
+            self._ref_cache = None
+            self.gba_counts["finished"] += 1
+        self._vi_dev_valid = False
+        self._vi_anchor = None
+        self._vi_prior = None
+        if g.get("kind") == "vi":
+            self._check_bad_imu()
 
     def process_frame(self, img, ts: float, acc=None, gyro=None, dts=None):
         """Track one frame with its IMU block (the samples since the
@@ -464,7 +541,10 @@ class InertialSlam(MonoSlam):
 
     def _insert_keyframe_vi(self, feats, ts, track_res, kf_id):
         """A keyframe once the IMU is initialized: the VI keyframe work and
-        one host read of (admitted points, the keyframe's refined state)."""
+        one host read of (admitted points, the keyframe's refined state),
+        then the loop-closure check. It stops a global BA in flight after
+        its current dispatch, as ``MonoSlam._insert_keyframe`` does."""
+        self.abort_gba()
         # Temporal VI-BA window over the last W keyframes INCLUDING the new
         # one (LocalInertialBA's mPrevKF chain).
         last = kf_id + 1
@@ -501,7 +581,10 @@ class InertialSlam(MonoSlam):
         # BA moved keyframe poses: the per-frame anchor / prior are stale.
         self._vi_anchor = None
         self._vi_prior = None
-        self._check_bad_imu()
+        if self._check_bad_imu():
+            return
+        if self.loop_closer is not None:
+            self.loop_closer.try_close(self, kf_id)
 
     def _take_kf_state(self, kf_id: int, buf: np.ndarray) -> None:
         """Host state from a keyframe's packed (v, bg, ba, R, t)."""
@@ -776,6 +859,7 @@ class InertialSlam(MonoSlam):
             return super().process_frames(imgs, tss)
         if self.on_frame is not None:
             raise _not_ported("the on_frame observation hook", "7")
+        self._poll_between_chunks()
         C = len(tss)
         tss_np = np.asarray(tss, np.float64)
         chunked = isinstance(imgs, tuple)
@@ -839,11 +923,14 @@ class InertialSlam(MonoSlam):
             torch.stack([c.n_kf, c.n_pts, c.last_kf_fid, c.alive.to(torch.int32), c.ref_inl]),
             c.st.kf_blk[new], c.st.kf_edge_ok[new],
         )
-        self._absorb_vi_chunk(read_rows(rows), R_sc, t_sc, v, bg, ba, sc,
-                              kf_ids, new_blk, new_ok, tss_np)
+        out = read_rows(rows)
+        self._absorb_vi_chunk(out, R_sc, t_sc, v, bg, ba, sc, kf_ids, new_blk, new_ok, tss_np)
         self.frame_id = fid0 + C
         self._last_frame_ts = float(tss_np[-1])
         if self._check_bad_imu():
+            return
+        self._vi_dev_valid = True  # unless a closure or the dead tail below moves things
+        if self.loop_closer is not None and self._close_at_boundary(self._new_kf_slots(out)):
             return
         n_run = rows.shape[0]
         if sc[3] < 0.5:
@@ -859,8 +946,40 @@ class InertialSlam(MonoSlam):
             self.frame_id = fid0 + k
             for i in range(k, C):
                 self.process_frame(frames[i], float(tss_np[i]), acc=acc[i], gyro=gyro[i], dts=dts[i])
+
+    def _close_at_boundary(self, new_kfs) -> bool:
+        """The loop-closure check of a chunk's new keyframes at its
+        boundary. A closure moves the map: the chunk's inertial state is
+        rebuilt at the next chunk, and the end-of-chunk pose (frames past
+        the newest keyframe) is carried through that keyframe's correction,
+        T_cur' = (T_cur T_kf_old^-1) T_kf_new, its velocity rotated alike
+        (CorrectLoop's velocity update). Returns True on a bad-IMU reset."""
+        if not new_kfs:
+            return False
+        last = self.n_kf - 1
+        R_cur, t_cur, v_cur = self.R_cur, self.t_cur, self.v_cur
+        R_old, t_old = read_host(self.map.kf_R[last], self.map.kf_t[last])
+        if not self.loop_closer.try_close_batch(self, new_kfs):
+            return False
+        self._vi_dev_valid = False
+        self._vi_anchor = None
+        self._vi_prior = None
+        buf = _pack_kf_state(self.map, self.n_kf - 1).cpu().numpy()
+        self.bg_cur, self.ba_cur = buf[3:6].copy(), buf[6:9].copy()
+        R_new, t_new = buf[9:18].reshape(3, 3), buf[18:21]
+        if self.n_kf - 1 == last:
+            # the pose the chunk ended at, read before the closure moved it
+            R_rel = R_cur @ R_old.T
+            t_rel = t_cur - R_rel @ t_old
+            self.R_cur = (R_rel @ R_new).astype(np.float32)
+            self.t_cur = (R_rel @ t_new + t_rel).astype(np.float32)
+            self.v_cur = ((R_new.T @ R_old) @ v_cur).astype(np.float32)
         else:
-            self._vi_dev_valid = True
+            self.R_cur, self.t_cur, self.v_cur = R_new.copy(), t_new.copy(), buf[0:3].copy()
+            self._set_ref_cache(self.n_kf - 1, R_new, t_new)
+        self.vel_R = np.eye(3, dtype=np.float32)
+        self.vel_t = np.zeros(3, np.float32)
+        return self._check_bad_imu()
 
     def _absorb_vi_chunk(self, out, R_sc, t_sc, v, bg, ba, sc, kf_ids, new_blk, new_ok, tss_np):
         """Host state after a chunk: counters, the carried body state, the

@@ -2,8 +2,11 @@
 of ``orb_slam3_ros_tpu.models.local_mapping``: covisibility window
 selection, the window -> ``BAProblem`` gather and the scatter back into
 the map (the reference's LocalMapping local-BA dispatch,
-Optimizer.cc:1120-1460), and the temporal-window visual-inertial problem
-``build_vi_ba`` / ``apply_vi_ba`` (``LocalInertialBA``, Optimizer.cc:2528).
+Optimizer.cc:1120-1460), the temporal-window visual-inertial problem
+``build_vi_ba`` / ``apply_vi_ba`` (``LocalInertialBA``, Optimizer.cc:2528),
+and the global BA of loop closing: ``build_global_ba`` and the fold-ins of a
+result solved on a snapshot, ``apply_global_ba_partial`` /
+``apply_vi_gba_partial`` (LoopClosing.cc:3660-3780).
 
 Keyframe ids may be 0-d device tensors (the chunk loop's): the mono and VI
 windows, their gathers and their write-backs read nothing back to the host.
@@ -284,4 +287,132 @@ def apply_vi_ba(m: MapState, window_ids: torch.Tensor, res, calib: imu.ImuCalib)
         kf_bg=put(m.kf_bg, res.states.bg),
         kf_ba=put(m.kf_ba, res.states.ba),
         pt_X=res.X,
+    )
+
+
+def build_global_ba(m: MapState, n_kf, cam_params: torch.Tensor, scale: float = 1.2,
+                    bf: float | torch.Tensor = 0.0) -> ba.BAProblem:
+    """The all-keyframe, all-landmark problem of the global BA (the
+    reference's ``GlobalBundleAdjustemnt``, Optimizer.cc:52: every keyframe,
+    keyframe 0 fixed, every point): one edge per (keyframe, feature) slot,
+    K * N rows, uncompacted, for ``ba_pcg.bundle_adjust_pcg``. ``n_kf``: an
+    int or a 0-d tensor."""
+    K, N, P = m.K, m.N, m.P
+    dev = m.kf_obs.device
+    ids = torch.arange(K, device=dev)
+    valid = m.kf_valid & (ids < n_kf)
+    cam_idx = ids.to(torch.int32).repeat_interleave(N)
+    flat_obs = m.kf_obs.reshape(-1)
+    pt_idx = torch.clamp(flat_obs, 0, P - 1)
+    edge_valid = (
+        (flat_obs >= 0) & m.kf_feat_valid.reshape(-1) & valid.repeat_interleave(N)
+        & m.pt_valid[pt_idx.long()]
+    )
+    inv_sigma2 = 1.0 / scale ** (2.0 * m.kf_level.reshape(-1).to(torch.float32))
+    return ba.BAProblem(
+        R=m.kf_R, t=m.kf_t, cam_fixed=(ids == 0) | ~valid, cam_valid=valid,
+        X=m.pt_X, pt_valid=m.pt_valid, cam_idx=cam_idx, pt_idx=pt_idx.to(torch.int32),
+        uv=m.kf_xy.reshape(-1, 2), inv_sigma2=inv_sigma2, edge_valid=edge_valid,
+        cam_params=cam_params, ur=m.kf_ur.reshape(-1), bf=_scalar(bf, m.kf_t.dtype, dev),
+    )
+
+
+def _propagated_poses(m: MapState, R_s, t_s, n_kf0):
+    """Poses after a solve of the keyframes below ``n_kf0`` (the snapshot's
+    keyframes) whose optimized poses are (R_s, t_s): those take them, and
+    every later keyframe keeps its pose relative to the reference keyframe
+    r = n_kf0 - 1 (LoopClosing.cc:3660-3780's spanning-tree propagation,
+    collapsed to the temporal parent). Returns (kf_R, kf_t, old_kf, r's
+    pre- and post-solve pose)."""
+    K = m.K
+    dev = m.kf_R.device
+    ids = torch.arange(K, device=dev)
+    old_kf = ids < n_kf0
+    r = kf_index(torch.clamp(torch.as_tensor(n_kf0, device=dev) - 1, 0, K - 1), dev)
+    Rr_o, tr_o = m.kf_R.index_select(0, r)[0], m.kf_t.index_select(0, r)[0]
+    Rr_n, tr_n = R_s.index_select(0, r)[0], t_s.index_select(0, r)[0]
+    # T_k<-r = Tcw_k * Twc_r(old), held fixed; then Tcw_k' = T_k<-r * Tcw_r'
+    Rk_r = m.kf_R @ Rr_o.T
+    tk_r = m.kf_t - torch.einsum("kij,j->ki", Rk_r, tr_o)
+    kf_R = torch.where(old_kf[:, None, None], R_s, Rk_r @ Rr_n)
+    kf_t = torch.where(old_kf[:, None], t_s, torch.einsum("kij,j->ki", Rk_r, tr_n) + tk_r)
+    return kf_R, kf_t, old_kf, (Rr_o, tr_o, Rr_n, tr_n)
+
+
+def _propagated_points(m: MapState, X_s, n_kf0, ref_pose):
+    """Points after a solve: those of the snapshot's keyframes take the
+    solve's positions, those born later move with the reference keyframe's
+    correction (world -> r's old camera -> new world)."""
+    Rr_o, tr_o, Rr_n, tr_n = ref_pose
+    old_pt = m.pt_first_kf < n_kf0
+    X_prop = (m.pt_X @ Rr_o.T + tr_o - tr_n) @ Rr_n
+    return torch.where((old_pt & m.pt_valid)[:, None], X_s,
+                       torch.where(m.pt_valid[:, None], X_prop, m.pt_X))
+
+
+def apply_global_ba_partial(m: MapState, res: ba.BAResult, n_kf0,
+                            kf_obs0: torch.Tensor | None = None) -> MapState:
+    """Fold in a global-BA result solved on a snapshot while tracking kept
+    inserting keyframes (LoopClosing::RunGlobalBundleAdjustment's post-GBA
+    update, LoopClosing.cc:3660-3780): keyframes below ``n_kf0`` take their
+    optimized poses, later ones and the points they made ride the
+    correction of keyframe ``n_kf0 - 1``. Outlier observations are unbound
+    on the snapshot's keyframes only, and (given ``kf_obs0``, the
+    snapshot's observation table) only where the binding is unchanged since
+    the snapshot: a binding made during the solve was never in it."""
+    K, N = m.K, m.N
+    kf_R, kf_t, old_kf, ref_pose = _propagated_poses(m, res.R, res.t, n_kf0)
+    clear = ((m.kf_obs.reshape(-1) >= 0) & ~res.inlier).reshape(K, N) & old_kf[:, None]
+    if kf_obs0 is not None:
+        clear = clear & (m.kf_obs == kf_obs0)
+    return m._replace(
+        kf_R=kf_R, kf_t=kf_t, pt_X=_propagated_points(m, res.X, n_kf0, ref_pose),
+        kf_obs=torch.where(clear, -1, m.kf_obs),
+    )
+
+
+def apply_global_ba(m: MapState, res: ba.BAResult) -> MapState:
+    """Scatter a global-BA result back (every keyframe was in the problem;
+    fixed and invalid slots come back unchanged) and unbind the chi2
+    outlier observations."""
+    clear = ((m.kf_obs.reshape(-1) >= 0) & ~res.inlier).reshape(m.K, m.N)
+    return m._replace(
+        kf_R=res.R, kf_t=res.t, pt_X=torch.where(m.pt_valid[:, None], res.X, m.pt_X),
+        kf_obs=torch.where(clear, -1, m.kf_obs),
+    )
+
+
+def apply_vi_gba_partial(m: MapState, window_ids: torch.Tensor, res, calib: imu.ImuCalib,
+                         n_kf0, kf_obs0: torch.Tensor | None = None) -> MapState:
+    """Fold in a full-inertial-BA result solved on a snapshot (the inertial
+    twin of ``apply_global_ba_partial``, the reference's FullInertialBA
+    branch of RunGlobalBundleAdjustment): keyframes the solve saw take
+    their optimized pose, velocity and biases; later keyframes keep their
+    pose relative to keyframe ``n_kf0 - 1`` with their world velocity
+    rotated by its correction, and the points they made move with it.
+    Outliers are unbound only on rows the solve saw, on the snapshot's
+    keyframes, where the binding is unchanged since ``kf_obs0``."""
+    K, N = m.K, m.N
+    R_cw, t_cw = viba.cam_from_body(res.states.R_wb, res.states.p_wb, calib.R_bc, calib.t_bc)
+    wid = window_ids.long()
+
+    def put(table, rows):
+        return table.index_copy(0, wid, rows)
+
+    kf_R, kf_t, old_kf, ref_pose = _propagated_poses(m, put(m.kf_R, R_cw), put(m.kf_t, t_cw), n_kf0)
+    Rr_o, _, Rr_n, _ = ref_pose
+    R_corr = Rr_n.T @ Rr_o  # new world <- old world
+    kf_v = torch.where(old_kf[:, None], put(m.kf_v, res.states.v_w), m.kf_v @ R_corr.T)
+    kf_bg = torch.where(old_kf[:, None], put(m.kf_bg, res.states.bg), m.kf_bg)
+    kf_ba = torch.where(old_kf[:, None], put(m.kf_ba, res.states.ba), m.kf_ba)
+    W = window_ids.shape[0]
+    inl = torch.ones((K, N), dtype=torch.bool, device=m.kf_obs.device).index_copy(
+        0, wid, res.inlier.reshape(W, N))
+    clear = (m.kf_obs >= 0) & ~inl & old_kf[:, None]
+    if kf_obs0 is not None:
+        clear = clear & (m.kf_obs == kf_obs0)
+    return m._replace(
+        kf_R=kf_R, kf_t=kf_t, kf_v=kf_v, kf_bg=kf_bg, kf_ba=kf_ba,
+        pt_X=_propagated_points(m, res.X, n_kf0, ref_pose),
+        kf_obs=torch.where(clear, -1, m.kf_obs),
     )

@@ -25,10 +25,22 @@ against each candidate keyframe's landmarks, PnP RANSAC, then tracking
 against the map from the PnP pose; one host read of the candidates and one
 of each attempt's result.
 
+With ``enable_loop_closing`` a ``loop_closing.LoopCloser`` checks every new
+keyframe (per keyframe on the per-frame path, over a chunk's new keyframes
+at the chunk boundary) and corrects the map on a verified revisit, then
+starts the asynchronous global BA: a Schur-PCG solve of a cloned snapshot
+of the map, two LM iterations a dispatch, interleaved with tracking on the
+card's one stream. A CUDA event recorded after each dispatch paces the
+next one (polled at chunk boundaries and frames, no sync, no thread); a
+new keyframe of the per-frame path aborts the solve after its current
+dispatch; the result folds in with the keyframes and points made during
+the solve carried along (``apply_global_ba_partial``). ``flush`` folds in
+a solve still in flight.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-loop closing and the Atlas, the two-device split, cameras other than
-pinhole, the ``on_frame`` / ``points_every`` observation hooks; the
-pipelined one-frame-lag mode is not ported by design.
+the Atlas, the two-device split, cameras other than pinhole, the
+``on_frame`` / ``points_every`` observation hooks; the pipelined
+one-frame-lag mode is not ported by design.
 """
 
 from __future__ import annotations
@@ -39,9 +51,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import matching, orb, pnp, ransac, retrieval
+from ..ops import ba_pcg, matching, orb, pnp, ransac, retrieval
 from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
 from .chunk_runner import read_host, read_rows
+from .loop_closing import LoopCloser
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -166,8 +179,6 @@ class MonoSlam:
             raise NotImplementedError(
                 "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
             )
-        if enable_loop_closing:
-            raise _not_ported("loop closing", "5")
         if enable_atlas:
             raise _not_ported("the Atlas", "5")
         if devices is not None:
@@ -222,6 +233,11 @@ class MonoSlam:
         self.init_ts = 0.0
         self.on_frame = None  # observation hook: not ported, must stay None
         self.ba_iters = []  # local-BA iterations run, one entry per BA of the per-frame path
+        self.loop_closer = LoopCloser() if enable_loop_closing else None
+        # The global BA in flight (mbStopGBA semantics), or None; with counts
+        # of the solves started and folded in and of the dispatches made.
+        self._gba = None
+        self.gba_counts = {"started": 0, "finished": 0, "dispatches": 0}
         # The retrieval vocabulary ([A, 256] +-1 int8 on ``device``); the
         # shipped one is installed here (the reference loads its ORBvoc at
         # startup, System.cc:114).
@@ -285,10 +301,13 @@ class MonoSlam:
 
     def set_vocabulary(self, vocab) -> None:
         """Install a retrieval vocabulary ([A, 256] +-1, numpy or a tensor),
-        used by relocalization from the next lost frame on."""
+        used by relocalization from the next lost frame on and by loop
+        closing from its next check on."""
         if isinstance(vocab, torch.Tensor):
             vocab = vocab.cpu().numpy()
         self.vocab = torch.from_numpy(np.asarray(vocab, np.int8)).to(self.device)
+        if self.loop_closer is not None:
+            self.loop_closer.vocab = self.vocab
 
     # ------------------------------------------------------------------
     def _set_ref_cache(self, ref_id, R_ref, t_ref):
@@ -361,6 +380,7 @@ class MonoSlam:
         self._last_frame_ts = ts
         if (last is not None and self.state in (OK, RECENTLY_LOST)
                 and ts - last > self.ts_jump_threshold):
+            self.flush()
             self.state = LOST
 
     def process_frame(self, img, ts: float):
@@ -397,9 +417,85 @@ class MonoSlam:
     # The chunk loop (device_loop.py): the steady state on the device, one
     # graph replay a frame on the card.
     def flush(self):
-        """Nothing is pending: a chunk is absorbed when ``process_frames``
+        """Fold in a global BA still in flight (end of a sequence, before
+        bulk map reads). A chunk is absorbed when ``process_frames``
         returns (the JAX package drains its last chunk here)."""
-        return None
+        while self._gba is not None:
+            self._poll_gba(force=True)
+
+    # ------------------------------------------------------------------
+    # The chunked, abortable global BA (the reference's background GBA
+    # thread and its mbStopGBA flag, LoopClosing.cc:3609-3780).
+    def _start_async_gba(self, n_iters: int, n_cg: int = 50, chunk: int = 2) -> None:
+        """Start a global BA of ``n_iters`` LM iterations, ``chunk`` a
+        dispatch, on a clone of the map as it stands: the chunk loop's
+        buffers hold the map and the next chunk overwrites them in place,
+        so neither the problem nor the snapshot of the observation table
+        (against which the fold-in tells an outlier binding from one made
+        during the solve) may alias them."""
+        if self._gba is not None:
+            self._poll_gba(force=True)  # fold in the previous solve first
+        prob = local_mapping.build_global_ba(self.map, self.n_kf, self.cam_params)
+        prob = prob._replace(**{f: getattr(prob, f).clone()
+                                for f in ("R", "t", "X", "uv", "pt_valid", "ur")})
+        self._gba = dict(prob=prob, done=0, target=n_iters, chunk=chunk, n_cg=n_cg,
+                         n_kf0=self.n_kf, res=None, abort=False, obs0=self.map.kf_obs.clone())
+        self.gba_counts["started"] += 1
+        self._dispatch_gba_chunk()
+
+    def abort_gba(self) -> None:
+        """Issue no further dispatch (mbStopGBA); the one on the device
+        completes and is folded in."""
+        if self._gba is not None:
+            self._gba["abort"] = True
+
+    def _dispatch_gba_chunk(self) -> None:
+        g = self._gba
+        it = min(g["chunk"], g["target"] - g["done"])
+        res = ba_pcg.bundle_adjust_pcg(g["prob"], n_iters=it, n_cg=g["n_cg"])
+        g["prob"] = g["prob"]._replace(R=res.R, t=res.t, X=res.X)
+        g["res"] = res
+        g["done"] += it
+        self._gba_mark(g)
+
+    def _gba_mark(self, g: dict) -> None:
+        """Record the pacing event of a dispatch (none off the card: done)."""
+        self.gba_counts["dispatches"] += 1
+        g["event"] = None
+        if self.device.type == "cuda":
+            g["event"] = torch.cuda.Event()
+            g["event"].record()
+
+    def _poll_gba(self, force: bool = False) -> None:
+        """At a boundary: once the last dispatch has run on the card (or
+        when forced), fold the solve in if it is done or aborted, else
+        dispatch its next chunk."""
+        g = self._gba
+        if g is None:
+            return
+        if not force and g["event"] is not None and not g["event"].query():
+            return
+        if g["abort"] or g["done"] >= g["target"]:
+            self._finish_gba()
+        else:
+            self._dispatch_gba_chunk()
+
+    def _poll_between_chunks(self) -> None:
+        """Advance a global BA in flight at a chunk boundary: two polls, as
+        the JAX package makes there (``process_frames`` and its
+        ``_drain_pending``). Off the card each dispatches; on the card the
+        second finds the first's dispatch still queued unless the card is
+        idle."""
+        self._poll_gba()
+        self._poll_gba()
+
+    def _finish_gba(self) -> None:
+        g, self._gba = self._gba, None
+        self.map = local_mapping.apply_global_ba_partial(self.map, g["res"], g["n_kf0"],
+                                                         kf_obs0=g["obs0"])
+        self.map = map_updates.refresh_point_stats(self.map, n_levels=self.config.n_levels)
+        self._ref_cache = None
+        self.gba_counts["finished"] += 1
 
     def _chunkable(self) -> bool:
         """The chunk loop's gate (the JAX package's, without its conditions
@@ -448,6 +544,7 @@ class MonoSlam:
         LOST: they relocalize."""
         if self.on_frame is not None:
             raise _not_ported("the on_frame observation hook", "7")
+        self._poll_between_chunks()
         C = len(tss)
         tss_np = np.asarray(tss, np.float64)
         frames = _ChunkReplayView(imgs[0], int(imgs[1])) if isinstance(imgs, tuple) else imgs
@@ -500,8 +597,13 @@ class MonoSlam:
             rows, torch.cat([c.R.reshape(9), c.t, c.vel_R.reshape(9), c.vel_t]),
             torch.stack([c.n_kf, c.n_pts, c.last_kf_fid, c.alive.to(torch.int32), c.ref_inl]),
         )
-        self._absorb_chunk(read_rows(rows), pose, sc, tss_np)
+        out = read_rows(rows)
+        self._absorb_chunk(out, pose, sc, tss_np)
         self.frame_id = fid0 + C
+        if self.loop_closer is not None:
+            # the chunk's new keyframes, at its boundary (the reference's loop
+            # thread consuming its keyframe queue, LoopClosing.cc:1108)
+            self.loop_closer.try_close_batch(self, self._new_kf_slots(out))
         if sc[3] < 0.5:
             # Tracking failed at frame k: LOST, and frames k.. replayed one
             # at a time, through relocalization.
@@ -523,6 +625,11 @@ class MonoSlam:
         self.vel_R, self.vel_t = pose[12:21].reshape(3, 3).copy(), pose[21:24].copy()
         self._ref_cache = None
         self._log_chunk_rows(out, tss_np)
+
+    @staticmethod
+    def _new_kf_slots(out) -> list:
+        """The keyframe slots a chunk inserted, from its rows on the host."""
+        return [int(out.ref[i]) for i in np.nonzero(out.is_kf & out.alive)[0]]
 
     def _log_chunk_rows(self, out, tss_np) -> None:
         """The trajectory logs of a chunk's tracked frames (``out``: its
@@ -703,6 +810,9 @@ class MonoSlam:
         for 10 frames."""
         if self.frame_id - self._cap_retry_frame < 10:
             return False
+        # compaction remaps slots: fold in a global BA in flight first (its
+        # snapshot indexes the current layout)
+        self.flush()
         if int(self.map.kf_valid.sum()) >= self.K_cap:
             self.map, n_c = map_updates.cull_keyframes(
                 self.map, self.n_kf, redundancy=0.5, n_levels=self.config.n_levels
@@ -740,11 +850,17 @@ class MonoSlam:
         self.map = m2
         self.n_kf = n_valid
         self._ref_cache = None
+        if self.loop_closer is not None:
+            self.loop_closer.remap_slots(new_of_old)
         self._compact_hook(order, new_of_old, n_valid)
 
     def _insert_keyframe(self, feats, ts, track_res):
         """Insert the current frame as keyframe ``n_kf`` and run its mapping
-        work, then read back (admitted points, BA-refined pose) at once."""
+        work, then read back (admitted points, BA-refined pose) at once;
+        then the loop-closure check of the new keyframe. A new keyframe stops
+        a global BA in flight after its current dispatch (the JAX package's
+        bound on the staleness of the snapshot)."""
+        self.abort_gba()
         kf_id = self.n_kf
         dev = self.device
         self.map, n_new, iters = kf_work.keyframe_work(
@@ -770,6 +886,9 @@ class MonoSlam:
         self.n_pts += int(buf[0])
         self.R_cur = buf[1:10].reshape(3, 3).copy()
         self.t_cur = buf[10:13].copy()
+        if self.loop_closer is not None:
+            self.loop_closer.try_close(self, kf_id)
+        # the (possibly loop-corrected) pose of the newest keyframe
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
 
     def _temporal_window(self, n_kf: int):

@@ -1,5 +1,6 @@
-"""SO(3) / SE(3) operations in torch — the subset of ``orb_slam3_ros_tpu.ops.lie``
-that pose optimization, bundle adjustment and the inertial factors need.
+"""SO(3) / SE(3) / Sim(3) operations in torch — the subset of
+``orb_slam3_ros_tpu.ops.lie`` that pose optimization, bundle adjustment, the
+inertial factors and loop closing (Sim(3) solving, the pose graphs) need.
 
 Conventions are the JAX package's: rotations are 3x3 matrices, se(3)
 tangent vectors are ``xi = [rho, phi]`` (translation first) with
@@ -8,12 +9,15 @@ Taylor series selected with ``torch.where`` on sanitized inputs. Every
 function is batched over leading dimensions and free of in-place writes
 and data-dependent Python branches, so it traces under
 ``torch.func.jacfwd`` and ``vmap`` (``tests/test_torch_imu.py``
-differentiates ``so3_log`` so, at the identity and batched). The port's
-solvers do not differentiate through these functions: forward-mode AD
-promotes the tangent of a float32 tensor times a 0-dim tensor to float64,
-which then meets float32 matmuls, and costs functorch's overhead per
-operation, so the inertial and visual Jacobians are closed forms
-(``imu.inertial_residual_jac``, ``viba._visual_res_jac``).
+differentiates ``so3_log`` so, at the identity and batched). The per-frame
+and keyframe solvers do not differentiate through these functions:
+forward-mode AD promotes the tangent of a float32 tensor times a 0-dim
+tensor to float64, which then meets float32 matmuls, and costs functorch's
+overhead per operation, so the inertial and visual Jacobians are closed
+forms (``imu.inertial_residual_jac``, ``viba._visual_res_jac``). The pose
+graphs of loop closing (``pgo.py``), which run once a closure, take
+forward-mode derivatives of their Sim(3) / SE(3) residuals, batched over
+the edges so that no scalar is 0-dim.
 """
 
 from __future__ import annotations
@@ -185,3 +189,97 @@ def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
         g = torch.abs(det).pow(-1.0 / 3.0)
         X = 0.5 * (g[..., None, None] * X + cof / (g * det)[..., None, None])
     return X
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """log: (R, t) -> [..., 6] (rho, phi)."""
+    phi = so3_log(R)
+    rho = torch.einsum("...ij,...j->...i", so3_left_jacobian_inv(phi), t)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_mul(Ra, ta, Rb, tb):
+    """(Ra, ta) * (Rb, tb)."""
+    return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def se3_inv(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s) with action x -> s R x + t; tangent zeta = (rho, phi, sigma).
+# ---------------------------------------------------------------------------
+
+
+def _sim3_V(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The [..., 3, 3] matrix V with t = V rho in exp(rho, phi, sigma):
+    A I + B hat(phi) + C hat(phi)^2, the coefficients of integrating
+    exp(sigma u) exp(phi^ u) over u in [0, 1] (g2o's sim3.h closed form),
+    with the JAX package's Taylor branches at sigma ~ 0 and theta ~ 0."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small_t = theta2 < _EPS
+    one = torch.ones_like(theta2)
+    safe_t2 = torch.where(small_t, one, theta2)
+    theta = torch.sqrt(safe_t2)
+    small_s = torch.abs(sigma) < 1e-5
+    safe_sigma = torch.where(small_s, one, sigma)
+    sig2 = safe_sigma * safe_sigma
+    es = torch.exp(sigma)
+
+    A_big = torch.where(small_s, one, (es - 1.0) / safe_sigma)
+    A_taylor = 1.0 + sigma / 2.0 + sigma * sigma / 6.0
+    A = torch.where(small_s, A_taylor, A_big)
+
+    denom = sig2 + safe_t2
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    B_full = (es * sin_t * safe_sigma + (1.0 - es * cos_t) * theta) / (theta * denom)
+    B_sigma0 = (1.0 - cos_t) / safe_t2
+    B = torch.where(small_s, B_sigma0, B_full)
+    B_t0 = torch.where(small_s, 0.5 * one, (safe_sigma * es - es + 1.0) / sig2)
+    B = torch.where(small_t, B_t0, B)
+
+    C_full = (A - ((es * cos_t - 1.0) * safe_sigma + es * sin_t * theta) / denom) / safe_t2
+    C_sigma0 = (theta - sin_t) / (safe_t2 * theta)
+    C = torch.where(small_s, C_sigma0, C_full)
+    C_t0 = torch.where(
+        small_s, one / 6.0, ((0.5 * sig2 - safe_sigma + 1.0) * es - 1.0) / (sig2 * safe_sigma)
+    )
+    C = torch.where(small_t, C_t0, C)
+
+    W = hat(phi)
+    return A[..., None, None] * _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def sim3_exp(zeta: torch.Tensor):
+    """exp: [..., 7] (rho, phi, sigma) -> (R, t, s)."""
+    rho, phi, sigma = zeta[..., :3], zeta[..., 3:6], zeta[..., 6]
+    t = torch.einsum("...ij,...j->...i", _sim3_V(phi, sigma), rho)
+    return so3_exp(phi), t, torch.exp(sigma)
+
+
+def sim3_log(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """log: (R, t, s) -> [..., 7], the inverse of :func:`sim3_exp`: rho
+    solves V rho = t, by the closed-form 3x3 inverse (no solver call)."""
+    from .ba import inv3x3
+
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = torch.einsum("...ij,...j->...i", inv3x3(_sim3_V(phi, sigma)), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    """Composition of x -> sa Ra x + ta after x -> sb Rb x + tb."""
+    return Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta, sa * sb
+
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t), s_inv
+
+
+def sim3_apply(R, t, s, x):
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, x) + t

@@ -21,9 +21,10 @@ import torch
 from . import hamming
 
 # Kernel launches since import (or since a caller reset them), by call site
-# ("track": tracking's passes, "fuse": landmark fusion): lets a run show
-# that its main path went through the kernel.
-LAUNCHES = {"track": 0, "fuse": 0}
+# ("track": tracking's passes, "fuse": landmark fusion, "sim3": loop
+# closing's SearchBySim3): lets a run show that its main path went through
+# the kernel.
+LAUNCHES = {"track": 0, "fuse": 0, "sim3": 0}
 
 _IDX_BITS = 20  # index bits of the kernel's packed (dist, row) and (dist, column) words
 _IDX_MASK = (1 << _IDX_BITS) - 1

@@ -12,8 +12,10 @@ are ranked by the summed score of each keyframe's covisibility group.
 The default vocabulary is the JAX package's shipped file, copied into this
 package (``data/default_vocab.npz``); every function takes its vocabulary
 explicitly (the JAX package's fallback for none, the seeded anchors, is
-``ANCHORS``). Training a vocabulary (``train_vocabulary(_hier)``) waits
-for loop closing.
+``ANCHORS``). ``train_vocabulary`` / ``train_vocabulary_hier`` train one
+on a session's own descriptors (binary k-medians, numpy on the host: loop
+closing runs them on a background thread); they are the JAX package's
+numpy code and give its vocabulary to the bit.
 """
 
 from __future__ import annotations
@@ -45,6 +47,78 @@ def default_vocabulary() -> np.ndarray:
     reference's ORBvoc loaded at startup, System.cc:114). Read once;
     callers must not write into it."""
     return np.load(VOCAB_PATH)["vocab"].astype(np.int8)
+
+
+def train_vocabulary(
+    desc_sign: np.ndarray,
+    n_words: int = N_WORDS,
+    iters: int = 12,
+    seed: int = 11,
+) -> np.ndarray:
+    """Binary k-medians over observed +-1 descriptors -> [n_words, 256]
+    int8 vocabulary (the bitwise-median center update is DBoW2's
+    FORB::meanValue). Empty clusters re-seed to the worst-represented
+    samples."""
+    rng = np.random.default_rng(seed)
+    D = np.asarray(desc_sign, np.float32)
+    M = D.shape[0]
+    if M < n_words:
+        pad = _make_anchors(seed, n_words - M).astype(np.float32)
+        C = np.concatenate([D, pad])[:n_words].copy()
+    else:
+        C = D[rng.choice(M, n_words, replace=False)].copy()
+    for _ in range(iters):
+        corr = D @ C.T  # [M, A]
+        assign = np.argmax(corr, axis=1)
+        best = corr[np.arange(M), assign]
+        sums = np.zeros((n_words, 256), np.float32)
+        np.add.at(sums, assign, D)
+        counts = np.bincount(assign, minlength=n_words)
+        new_C = np.where(sums >= 0, 1.0, -1.0)  # bitwise median of +-1
+        empty = counts == 0
+        if empty.any():
+            # With fewer samples than empty slots the surplus slots keep
+            # their previous centers.
+            n_res = min(int(empty.sum()), M)
+            worst = np.argsort(best)[:n_res]
+            idx_empty = np.nonzero(empty)[0][:n_res]
+            new_C[empty] = C[empty]
+            new_C[idx_empty] = D[worst]
+        C = new_C
+    return C.astype(np.int8)
+
+
+MAX_WORDS = 8192  # two-level training budget (DBoW2 tree: k=10, L=6)
+
+
+def train_vocabulary_hier(
+    desc_sign: np.ndarray,
+    n_words: int = MAX_WORDS,
+    branching: int = 128,
+    iters: int = 8,
+    seed: int = 11,
+) -> np.ndarray:
+    """Two-level k-medians -> flat [n_words, 256] vocabulary: coarse cells,
+    then ``branching`` centers inside each (the DBoW2 tree as a training
+    decomposition only; lookup stays the flat argmax). Cells without
+    samples take seeded anchors; too few samples fall back to the flat
+    trainer."""
+    D = np.asarray(desc_sign, np.float32)
+    M = D.shape[0]
+    C = max(1, n_words // branching)
+    F = n_words // C
+    if M < 4 * C:
+        return train_vocabulary(desc_sign, n_words=min(n_words, max(32, M)), iters=iters, seed=seed)
+    coarse = train_vocabulary(D, n_words=C, iters=iters, seed=seed)
+    assign = np.argmax(D @ coarse.astype(np.float32).T, axis=1)
+    out = np.empty((C * F, 256), np.float32)
+    for c in range(C):
+        Dc = D[assign == c]
+        if Dc.shape[0] == 0:
+            out[c * F : (c + 1) * F] = _make_anchors(seed + c, F)
+            continue
+        out[c * F : (c + 1) * F] = train_vocabulary(Dc, n_words=F, iters=iters, seed=seed + c)
+    return out.astype(np.int8)
 
 
 def descriptor_words(desc_sign: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Synthetic dataset: a ray-traced textured room with exact ground-truth
 poses and depth — port of the pinhole part of
-``orb_slam3_ros_tpu.utils.synth``: the orbit sequence and the
-visual-inertial "wander" sequence with its exact IMU samples.
+``orb_slam3_ros_tpu.utils.synth``: the orbit, loop and multi-loop
+sequences and the visual-inertial "wander" and "loop" sequences with
+their exact IMU samples.
 
 The port carries its own renderer because the machine that runs it on the
 GPU has no JAX. Textures and trajectories are the same numpy code as the
@@ -11,6 +12,7 @@ Sequences are not cached on disk.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -156,6 +158,40 @@ def orbit_trajectory(n_frames: int, dt: float = 0.05):
     return np.asarray(Rs, np.float32), pos.astype(np.float32), t
 
 
+def loop_trajectory(n_frames: int, dt: float = 0.1, radius: float = 1.2):
+    """Closed circular trajectory: the camera orbits the room center
+    looking outward and returns to its start (the loop-closure case),
+    one revolution over ``n_frames - 6`` frames."""
+    t = np.arange(n_frames) * dt
+    th = 2 * np.pi * np.arange(n_frames) / (n_frames - 6)  # revisit at the end
+    pos = np.stack([radius * np.cos(th), radius * np.sin(th), 0.15 * np.sin(2 * th)], axis=-1)
+    return _outward_rotations(th), pos.astype(np.float32), t
+
+
+def multiloop_trajectory(n_frames: int, dt: float = 0.1, radius: float = 1.2, revs: int = 3):
+    """``revs`` orbits of the room looking outward, with a slow vertical and
+    radial modulation so that the revisits are close but not identical (a
+    loop closure can fire once a revolution)."""
+    t = np.arange(n_frames) * dt
+    th = 2 * np.pi * revs * np.arange(n_frames) / (n_frames - 6)
+    r = radius * (1.0 + 0.04 * np.sin(0.07 * t))
+    pz = 0.12 * np.sin(2 * th) + 0.05 * np.sin(0.11 * t)
+    pos = np.stack([r * np.cos(th), r * np.sin(th), pz], axis=-1)
+    return _outward_rotations(th), pos.astype(np.float32), t
+
+
+def _outward_rotations(th: np.ndarray) -> np.ndarray:
+    """[N, 3, 3] camera-to-world rotations looking outward along heading
+    ``th`` with the world z axis up."""
+    Rs = []
+    for a in th:
+        z = np.array([np.cos(a), np.sin(a), 0.0])
+        x = np.cross(z, np.array([0.0, 0.0, 1.0]))
+        x /= np.linalg.norm(x)
+        Rs.append(np.stack([x, np.cross(z, x), z], axis=-1))
+    return np.asarray(Rs, np.float32)
+
+
 class SynthSequence(NamedTuple):
     images: torch.Tensor  # [N, H, W] float32, on the rendering device
     R_wc: np.ndarray  # [N, 3, 3]
@@ -172,14 +208,22 @@ def make_sequence(
     dt: float = 0.1,
     seed: int = 0,
     with_depth: bool = False,
+    trajectory: str = "orbit",
     device=None,
 ) -> SynthSequence:
-    """Render a sequence along the orbit trajectory on ``device`` (None:
-    the CUDA device)."""
+    """Render a sequence on ``device`` (None: the CUDA device) along
+    ``trajectory``: "orbit", "loop" (one closed revolution) or
+    "multiloop" / "multiloopN" (3 or N revolutions)."""
     scene = make_room(seed=seed, device=device)
     f = 0.55 * width
     cam = np.asarray([f, f, (width - 1) / 2.0, (height - 1) / 2.0, 0, 0, 0, 0, 0], np.float32)
-    R_wc, t_wc, ts = orbit_trajectory(n_frames, dt=dt)
+    if trajectory == "loop":
+        R_wc, t_wc, ts = loop_trajectory(n_frames, dt=dt)
+    elif trajectory.startswith("multiloop"):
+        revs = int(trajectory[len("multiloop"):] or 3)
+        R_wc, t_wc, ts = multiloop_trajectory(n_frames, dt=dt, revs=revs)
+    else:
+        R_wc, t_wc, ts = orbit_trajectory(n_frames, dt=dt)
     imgs, deps = [], []
     for i in range(n_frames):
         img, dep = render(scene, R_wc[i], t_wc[i], cam, height=height, width=width)
@@ -222,6 +266,30 @@ def _vi_pose_fn(t: torch.Tensor):
     return torch.stack([x, y, z], dim=-1), p
 
 
+_VI_LOOP_T = 12.0  # seconds a revolution of the VI "loop" trajectory
+
+
+def _vi_pose_loop_fn(t: torch.Tensor):
+    """Smooth looping body pose: a circular sweep inside the room looking
+    outward, back at the start view after ``_VI_LOOP_T`` seconds (the
+    visual-inertial loop-closure sequence), with high-frequency excitation
+    for gravity and scale observability — the JAX package's "loop"."""
+    th = 2.0 * math.pi * t / _VI_LOOP_T
+    p = torch.stack([
+        torch.cos(th) + 0.10 * torch.sin(2.6 * t),
+        torch.sin(th) + 0.09 * torch.sin(3.1 * t + 0.4),
+        0.22 * torch.sin(0.9 * t) + 0.07 * torch.sin(2.2 * t + 1.1),
+    ])
+    look = torch.stack([3.5 * torch.cos(th), 3.5 * torch.sin(th), 0.5 * torch.sin(0.23 * t)])
+    z = look - p
+    z = z / torch.linalg.vector_norm(z)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype)
+    x = torch.linalg.cross(z, up)
+    x = x / torch.linalg.vector_norm(x)
+    y = torch.linalg.cross(z, x)
+    return torch.stack([x, y, z], dim=-1), p
+
+
 def make_vi_sequence(
     n_frames: int = 40,
     height: int = 240,
@@ -238,7 +306,7 @@ def make_vi_sequence(
     device=None,
 ):
     """Render frames on ``device`` (None: the CUDA device) and make the
-    exact IMU samples of the analytic trajectory.
+    exact IMU samples of the analytic ``trajectory`` ("wander" or "loop").
 
     Returns (SynthSequence, imu dict of numpy arrays) where imu has the
     per-frame sample blocks ``acc [N, M, 3], gyro [N, M, 3], dts [N, M]``
@@ -248,10 +316,7 @@ def make_vi_sequence(
     are forward-mode derivatives of the pose function in float64 on the
     host; the noise stream (``default_rng(seed + 100)``, gyro then
     accelerometer per sample) is the JAX package's."""
-    if trajectory != "wander":
-        raise NotImplementedError(
-            f"trajectory {trajectory!r} is not ported (ROADMAP Queue 1 item 7)"
-        )
+    pose_fn = {"wander": _vi_pose_fn, "loop": _vi_pose_loop_fn}[trajectory]
     from torch.func import jacfwd, vmap
 
     g = np.array([0.0, 0.0, -9.81]) if gravity is None else np.asarray(gravity)
@@ -261,8 +326,8 @@ def make_vi_sequence(
     f64 = torch.float64
 
     ts = np.arange(n_frames) * frame_dt
-    pos = lambda t: _vi_pose_fn(t)[1]
-    R_all, p_all = vmap(_vi_pose_fn)(torch.as_tensor(ts, dtype=f64))
+    pos = lambda t: pose_fn(t)[1]
+    R_all, p_all = vmap(pose_fn)(torch.as_tensor(ts, dtype=f64))
     vel = vmap(jacfwd(pos))(torch.as_tensor(ts, dtype=f64)).numpy().astype(np.float32)
     R_wc = R_all.numpy().astype(np.float32)
     t_wc = p_all.numpy().astype(np.float32)
@@ -284,8 +349,8 @@ def make_vi_sequence(
         tk = torch.as_tensor(
             ts[:-1, None] + np.arange(imu_per_frame)[None, :] * dt_imu, dtype=f64
         ).reshape(-1)
-        R_k = vmap(lambda t: _vi_pose_fn(t)[0])(tk).numpy()
-        dR_k = vmap(jacfwd(lambda t: _vi_pose_fn(t)[0]))(tk).numpy()
+        R_k = vmap(lambda t: pose_fn(t)[0])(tk).numpy()
+        dR_k = vmap(jacfwd(lambda t: pose_fn(t)[0]))(tk).numpy()
         a_k = vmap(jacfwd(jacfwd(pos)))(tk).numpy()
         w_hat = np.einsum("nji,njk->nik", R_k, dR_k)
         omega = np.stack([w_hat[:, 2, 1], w_hat[:, 0, 2], w_hat[:, 1, 0]], axis=-1)

@@ -172,14 +172,21 @@ def test_imu_seeds_the_visual_tracker(runs):
 
 @pytest.mark.parametrize("call", ["process_frames", "_start_async_gba"])
 def test_unported_entry_points_raise(runs, call):
-    # The asynchronous full inertial BA waits for loop closing and raises.
+    # The name is kept from when both raised; both run now. The asynchronous
+    # full inertial BA (loop closing's) on the initialized map: two LM
+    # iterations a dispatch, folded in by flush, the host state finite.
     # ``process_frames`` without IMU samples is MonoSlam's, whose chunk gate
     # keeps an InertialSlam per frame: a blank frame 4.6 s after the last one
     # is a timestamp jump, goes LOST and finds nothing to relocalize on.
     slam = copy.deepcopy(runs[0])
     if call == "_start_async_gba":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            slam._start_async_gba([np.zeros((240, 376), np.float32)], [9.0])
+        assert slam.imu_initialized
+        slam._start_async_gba(4)
+        assert slam._gba["kind"] == "vi" and slam._gba["done"] == 2
+        slam.flush()
+        assert slam._gba is None and slam.gba_counts == {"started": 1, "finished": 1, "dispatches": 2}
+        assert np.isfinite(slam.t_cur).all() and np.isfinite(slam.v_cur).all()
+        assert np.isfinite(slam.map.kf_t.numpy()).all() and slam.bad_imu_resets == runs[0].bad_imu_resets
         return
     slam.process_frames([np.zeros((240, 376), np.float32)], [9.0])
     assert slam.frame_id == runs[0].frame_id + 1 and slam._mono_runner is None

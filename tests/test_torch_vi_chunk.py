@@ -297,10 +297,9 @@ def test_gate_with_a_list_of_images_runs_per_frame(runs):
     assert slam._vi_runner is None and slam.frame_id == runs["snap"].frame_id + 2
 
 
-def test_without_imu_the_mono_chunk_loop_raises(runs):
+def test_without_imu_an_inertial_slam_runs_per_frame(runs):
     # Without IMU samples, MonoSlam.process_frames: its chunk gate keeps an
     # InertialSlam (its own local BA) per frame, as in the JAX package.
-    # The name is kept from when this path raised; it checks that it runs.
     slam, i = copy.deepcopy(runs["snap"]), runs["i0"]
     assert not slam._chunkable()
     slam.process_frames((runs["stack"], i), runs["seq"].timestamps[i : i + 2])

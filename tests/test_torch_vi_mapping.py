@@ -213,20 +213,20 @@ def test_make_vi_sequence_matches_jax():
     # ~10 m/s^2: the JAX package differentiates the pose in float32). Same
     # noise stream and draw order, so noise does not widen this. Images
     # within 0.05 grey levels (measured 0.006).
+    # Both trajectories, "wander" and the loop-closure sequence's "loop".
     kw = dict(n_frames=5, height=60, width=94, frame_dt=0.1, imu_per_frame=10, seed=0,
               bg=np.array([0.01, -0.015, 0.02]), noise_g=1e-4, noise_a=1e-3)
-    want, wi = jsynth._make_vi_sequence_impl(**kw, gravity=None, ba=None, stereo_baseline=0.0,
-                                             with_depth=False)
-    got, gi = tsynth.make_vi_sequence(**kw, device="cpu")
-    np.testing.assert_allclose(got.R_wc, want.R_wc, atol=1e-6)
-    np.testing.assert_allclose(got.t_wc, want.t_wc, atol=1e-6)
-    np.testing.assert_allclose(got.timestamps, want.timestamps)
-    np.testing.assert_array_equal(got.cam_params, want.cam_params)
-    np.testing.assert_allclose(got.images.numpy(), want.images, atol=0.05)
-    assert sorted(gi) == sorted(wi)
-    for k in ("acc", "gyro", "dts", "vel"):
-        assert gi[k].dtype == wi[k].dtype and gi[k].shape == wi[k].shape
-        np.testing.assert_allclose(gi[k], wi[k], atol=5e-6, err_msg=k)
-    assert not gi["dts"][0].any() and np.allclose(gi["dts"][1:], 0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsynth.make_vi_sequence(n_frames=2, trajectory="loop", device="cpu")
+    for trajectory in ("wander", "loop"):
+        want, wi = jsynth._make_vi_sequence_impl(**kw, gravity=None, ba=None, stereo_baseline=0.0,
+                                                 with_depth=False, trajectory=trajectory)
+        got, gi = tsynth.make_vi_sequence(**kw, trajectory=trajectory, device="cpu")
+        np.testing.assert_allclose(got.R_wc, want.R_wc, atol=1e-6)
+        np.testing.assert_allclose(got.t_wc, want.t_wc, atol=1e-6)
+        np.testing.assert_allclose(got.timestamps, want.timestamps)
+        np.testing.assert_array_equal(got.cam_params, want.cam_params)
+        np.testing.assert_allclose(got.images.numpy(), want.images, atol=0.05)
+        assert sorted(gi) == sorted(wi)
+        for k in ("acc", "gyro", "dts", "vel"):
+            assert gi[k].dtype == wi[k].dtype and gi[k].shape == wi[k].shape
+            np.testing.assert_allclose(gi[k], wi[k], atol=5e-6, err_msg=k)
+        assert not gi["dts"][0].any() and np.allclose(gi["dts"][1:], 0.01)
