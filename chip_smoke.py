@@ -117,6 +117,25 @@ Phases (each raises on failure, so any failure exits non-zero):
      phases 8 and 9's limit (its ratio to phase 9's printed), every
      inertial global BA folded in, and K1's "sim3" launches equal to the
      closer's count.
+ 14. the Atlas (``tests/torch_atlas_scenarios.py``'s scenarios, whose JAX run on
+     the CPU gives the limits): (a) ``tests/test_atlas.py``'s blackout on
+     phase 7's sequence (``kf_every`` 3, ``lost_patience`` 3: frames 0..29
+     mapped, 8 blank frames inserted, back to the scene at frame 30; per
+     frame to the chunk gate, then chunks of 15 to frame 105): requires one
+     map archived at the blackout, the JAX runs' recovery route (a weld)
+     at its first attempt, 21 frames (within 2) after tracking again as in
+     the JAX runs (seeds 0..4), state OK with the archived map taken back,
+     a finite
+     trajectory, Sim(3) ATE after the return <= 0.02 m, and K1's "merge"
+     launches equal to the Atlas's cross-map searches; (b) the end of (a)
+     through ``save_atlas`` / ``load_atlas`` into a fresh system in state
+     LOST, frames 101..119: relocalizes in the loaded map, keeps mapping,
+     ATE <= 0.02 m, and a copy with one byte flipped raises; (c) the
+     inertial weld at phase 8's configuration: map 1 IMU-initialized and
+     archived, map 2 IMU-initialized, the weld rigid (scale 1) with its seam
+     a chain break, poses and velocities finite, the welded map's metric
+     keyframe ATE within 2x the JAX run's, state OK over 10 more frames;
+     then the "merge" searches against the plain version (exact), timed.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -125,8 +144,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -163,6 +185,26 @@ GRAPH_TOL = 1e-4  # graph replay vs eager step, float fields (abs, and rel to ma
 # (b) bench_variants.py's lc protocol (frames, timed from); phase 13 its vi+lc.
 LOOP_FRAMES, LOOP_ATE_LIMIT, LOOP_MAX_POINTS = 90, 0.25, 6144
 LC_FRAMES, VI_LC_FRAMES = (195, 105), (255, 150)
+# Phase 14, tests/torch_atlas_scenarios.py's protocol: (a) frames mapped before
+# the blackout, blank frames, the last frame of (a), the first of (b); (c)
+# map 1's frames, the frames after the weld, the last frame map 2 may take
+# to initialize its IMU. The JAX package's runs of it (CPU, 752x480): (a)
+# with the systems' seeds 0..4 the archived map came back by a weld at a
+# chunk boundary at frames 80, 59, 72, 72, 84, each 21 frames after the
+# new map's initialization (frames 59, 38, 51, 51, 63: which RANSAC draw
+# initializes is luck), at the first weld attempt, Sim(3) ATE after the
+# return 0.00327-0.00734 m; seed 0: (b) relocalized at frame 101, ATE
+# 0.00261 m; (c) the welded map's metric keyframe ATE 0.01601 m. The card
+# is held to the route and to the weld at the first attempt, 21 frames
+# (within 2) after tracking again. Whether an attempt holds is a RANSAC
+# draw on a young map: on the port's session saved on the card just
+# before its first attempt, the weld held for 20 of 20 RANSAC keys in the
+# JAX package and 20 of 20 seeds in the port (torch_atlas_scenarios.py
+# --device cuda --save-attempts, then --weld-trials on the CPU).
+ATLAS_MAP, ATLAS_BLANK, ATLAS_END, ATLAS_B_START = 30, 8, 105, 101
+ATLAS_C_SPLIT, ATLAS_C_AFTER, ATLAS_C_INIT_BY = 45, 10, 140
+ATLAS_JAX = dict(route="weld", back_at=(80, 59, 72, 72, 84), weld_after=21, reloc_at=101,
+                 c_ate_m=0.016012884390779178)
 
 
 def check(cond, msg: str) -> None:
@@ -548,7 +590,7 @@ def phase_mapping(torch, project_match) -> dict:
           "after initialization")
     check(n_kf_made >= MAP_MIN_KF, f"only {n_kf_made} keyframes")
     check(rmse <= MAP_ATE_LIMIT, f"mapping ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
-    check(launches == {"track": passes, "fuse": 2 * n_fusing, "sim3": 0},
+    check(launches == {"track": passes, "fuse": 2 * n_fusing, "sim3": 0, "merge": 0},
           f"matcher launches {launches}, expected {passes} from tracking and "
           f"{2 * n_fusing} from fusion")
     return dict(init_frame=init_at, init_ms=init_ms, keyframes=n_kf_made, ate_sim3_m=rmse,
@@ -754,7 +796,7 @@ def phase_vi(torch, project_match) -> tuple:
     check(abs(scale - 1.0) <= VI_SCALE_TOL, f"Umeyama scale {scale:.5f} not within {VI_SCALE_TOL:.0%} of 1")
     check(R_align[2, 2] > VI_MIN_R22, f"gravity misaligned: alignment R[2,2] {R_align[2, 2]:.5f}")
     check(bg_err <= VI_BG_TOL, f"gyro bias off by {bg_err:.5f}")
-    check(launches == {"track": passes, "fuse": 2 * n_fusing, "sim3": 0},
+    check(launches == {"track": passes, "fuse": 2 * n_fusing, "sim3": 0, "merge": 0},
           f"matcher launches {launches}, expected {passes} from tracking and "
           f"{2 * n_fusing} from fusion")
     return dict(
@@ -1041,7 +1083,7 @@ def phase_vi_chunk(torch, project_match, vi8: dict, start) -> dict:
           f"{len(eager_steps)} eager steps on the card, expected one warm-up for each of "
           f"{n_step_graphs} step graphs")
     check(launches == {"track": passes * timed + warm["track"], "fuse": 2 * fusing + warm["fuse"],
-                      "sim3": 0},
+                      "sim3": 0, "merge": 0},
           f"matcher launches {launches}, expected {passes} x {timed} from tracking and 2 x {fusing} "
           f"from fusion (plus warm-ups {warm})")
     check(slam.bad_imu_resets == 0, f"{slam.bad_imu_resets} bad-IMU resets")
@@ -1213,7 +1255,7 @@ def phase_mono_chunk(torch, project_match, mp: dict, seq) -> tuple:
           f"{len(eager_steps)} eager steps on the card, expected one warm-up for each of "
           f"{n_step_graphs} step graphs")
     check(launches == {"track": passes * timed + warm["track"], "fuse": 2 * fusing + warm["fuse"],
-                      "sim3": 0},
+                      "sim3": 0, "merge": 0},
           f"matcher launches {launches}, expected {passes} x {timed} from tracking and 2 x {fusing} "
           f"from fusion (plus warm-ups {warm})")
     check(slam.state == system.OK, f"state {slam.state} after the chunks")
@@ -1306,7 +1348,7 @@ def phase_reloc(torch, project_match, snap, seq, stack) -> dict:
             out = reloc(feats, ts)
             ms = (time.perf_counter() - t0) * 1e3
             launches = dict(project_match.LAUNCHES)
-            want = {"track": n_passes * (len(attempts) - n0), "fuse": 0, "sim3": 0}
+            want = {"track": n_passes * (len(attempts) - n0), "fuse": 0, "sim3": 0, "merge": 0}
             check(launches == want, f"reloc {name}: K1 launches {launches} in a relocalization "
                   f"call, expected {want}")
             calls.append(dict(frame=frame_of(ts), ok=out is not None, ms=ms,
@@ -1684,6 +1726,268 @@ def phase_loop_vi(torch, project_match, vc: dict) -> dict:
                 sim3_searches=lc.sim3_searches, **acc)
 
 
+def atlas_steps(torch, seq):
+    """Phase 14 (a)'s timeline: (timestamps, the sequence frame of each step
+    or None for a blank frame, the steps' float32 images on the card, which
+    the per-frame path takes as the JAX runs of the scenario do, and their
+    uint8 stack, which the chunks take)."""
+    n = len(seq.timestamps)
+    frames = list(range(ATLAS_MAP)) + [None] * ATLAS_BLANK + list(range(ATLAS_MAP, n))
+    tss = float(seq.timestamps[0]) + 0.1 * np.arange(len(frames))
+    imgs = seq.images.to(torch.float32)
+    blank = torch.zeros((ATLAS_BLANK,) + tuple(imgs.shape[1:]), dtype=imgs.dtype, device=imgs.device)
+    steps = torch.cat([imgs[:ATLAS_MAP], blank, imgs[ATLAS_MAP:]])
+    return tss, frames, steps, torch.clamp(steps, 0, 255).to(torch.uint8)
+
+
+def atlas_ate(slam, seq, tss, frames, ts0: float):
+    """Sim(3) ATE of the frames logged from ``ts0`` on, against the ground
+    truth of the frames the steps showed."""
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
+
+    shown = [s for s, f in enumerate(frames) if f is not None]
+    traj = [(t, T) for t, T in slam.get_trajectory() if t >= ts0 - 1e-6]
+    rmse, n, _ = ate_rmse(np.asarray([t for t, _ in traj]), np.stack([T[:3, 3] for _, T in traj]),
+                          tss[shown], seq.t_wc[[frames[s] for s in shown]], with_scale=True)
+    return rmse, n
+
+
+def count_atlas(slam, events: dict) -> None:
+    """Count the switches and welds of ``slam``'s Atlas in ``events``, and
+    list each weld attempt there as (``events["frame"]`` when it was made,
+    whether it held)."""
+    atlas = slam.atlas
+    reloc, merge = atlas.try_relocalize_in_archived, atlas.merge_current_into
+
+    def switch(*a, **k):
+        ok = reloc(*a, **k)
+        events["switch"] += bool(ok)
+        return ok
+
+    def weld(*a, **k):
+        ok = merge(*a, **k)
+        events["weld"] += bool(ok)
+        events["attempts"].append((events["frame"], bool(ok)))
+        return ok
+
+    atlas.try_relocalize_in_archived, atlas.merge_current_into = switch, weld
+
+
+def phase_atlas(torch, project_match, seq) -> dict:
+    """Phase 14: the Atlas on the card (see the module docstring). ``seq``:
+    phase 7's sequence."""
+    from orb_slam3_ros_tpu_torch.models import system
+    from orb_slam3_ros_tpu_torch.utils import checkpoint
+
+    tss, frames, images, stack = atlas_steps(torch, seq)
+    kw = dict(kf_every=3, enable_atlas=True, lost_patience=3, transfer_uint8=True)
+    slam = make_slam(seq, "cuda", **kw)
+    ev = {"switch": 0, "weld": 0, "attempts": [], "frame": None}
+    count_atlas(slam, ev)
+    t0 = time.perf_counter()
+    reset_launches(project_match)
+    with SearchRecorder(project_match, "merge") as rec:
+        for s in range(ATLAS_MAP + ATLAS_BLANK):
+            slam.process_frame(images[s], float(tss[s]))
+            if s == ATLAS_MAP - 1:
+                kf_before = slam.n_kf
+        archived = len(slam.atlas.maps)
+        s, end, back, path, tracked_at = ATLAS_MAP + ATLAS_BLANK, ATLAS_END + ATLAS_BLANK, None, None, None
+        while s < end:
+            chunked = slam.state == system.OK and slam._chunkable() and s + CHUNK <= end
+            maps0 = len(slam.atlas.maps)
+            ev["frame"] = frames[s + CHUNK - 1] if chunked else frames[s]
+            if chunked:
+                slam.process_frames((stack, s), tss[s : s + CHUNK])
+                s += CHUNK
+            else:
+                if slam.process_frame(images[s], float(tss[s])) is not None and tracked_at is None:
+                    tracked_at = frames[s]
+                s += 1
+            if maps0 and not slam.atlas.maps and back is None:
+                back, path = frames[s - 1], "chunk boundary" if chunked else "per keyframe"
+                back_ts = float(tss[s])
+        slam.flush()
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    launches = dict(project_match.LAUNCHES)
+    route = "switch" if ev["switch"] else "weld" if ev["weld"] else None
+    traj = slam.get_trajectory()
+    finite = all(np.isfinite(T).all() for _, T in traj)
+    rmse, n_ate = atlas_ate(slam, seq, tss, frames, back_ts) if back is not None else (np.inf, 0)
+    print(f"atlas (a): {kf_before} keyframes before the blackout, {archived} map(s) archived at it; "
+          f"tracking again at frame {tracked_at}; the archived map back at frame {back} by "
+          f"{route} ({path}; the JAX runs: {ATLAS_JAX['route']} at frames {ATLAS_JAX['back_at']}); "
+          f"weld attempts (frame, held) {ev['attempts']}; "
+          f"state {slam.state}, {len(slam.atlas.maps)} maps left, {slam.n_kf} keyframes; Sim(3) "
+          f"ATE after the return {rmse:.5f} m over {n_ate} poses; K1 launches {launches}, "
+          f"{slam.atlas.grow_searches} cross-map searches; {a_s:.1f} s")
+    check(kf_before >= 8 and archived == 1,
+          f"atlas (a): {kf_before} keyframes before the blackout, {archived} maps archived")
+    att = ev["attempts"]
+    gap = back - tracked_at if back is not None and tracked_at is not None else None
+    check(route == ATLAS_JAX["route"] and gap is not None and abs(gap - ATLAS_JAX["weld_after"]) <= 2,
+          f"atlas (a): the archived map back at frame {back} by {route}, {gap} frames after "
+          f"tracking again at frame {tracked_at} (weld attempts {att}); the JAX runs: "
+          f"{ATLAS_JAX['route']}, {ATLAS_JAX['weld_after']} frames after")
+    check(slam.state == system.OK and not slam.atlas.maps and finite,
+          f"atlas (a): state {slam.state}, {len(slam.atlas.maps)} maps left, finite {finite}")
+    check(rmse <= MAP_ATE_LIMIT, f"atlas (a): Sim(3) ATE after the return {rmse:.5f} m")
+    check(launches["merge"] == slam.atlas.grow_searches >= 1,
+          f"atlas (a): {launches['merge']} merge launches, {slam.atlas.grow_searches} searches")
+    a = dict(kf_before=kf_before, archived=archived, tracked_at=tracked_at, back_at=back, route=route,
+             weld_path=path, weld_attempts=att, ate_sim3_m=rmse, ate_poses=n_ate, keyframes=slam.n_kf,
+             grow_searches=slam.atlas.grow_searches, launches=launches, run_s=a_s)
+
+    # (b) a second session from the checkpoint of (a)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_atlas_")
+    try:
+        path_ck = os.path.join(tmp, "session")
+        digest = checkpoint.save_atlas(path_ck, slam)
+        s2 = make_slam(seq, "cuda", **kw)
+        checkpoint.load_atlas(path_ck, s2)
+        n_kf0 = s2.n_kf
+        s2.state = system.LOST
+        reset_launches(project_match)
+        reloc_at = None
+        for i in range(ATLAS_B_START, len(seq.timestamps)):
+            st = i + ATLAS_BLANK
+            if s2.process_frame(images[st], float(tss[st])) is not None and reloc_at is None:
+                reloc_at = i
+        s2.flush()
+        torch.cuda.synchronize()
+        b_launches = dict(project_match.LAUNCHES)
+        rmse_b, n_b = atlas_ate(s2, seq, tss, frames, float(tss[ATLAS_B_START + ATLAS_BLANK]))
+        raw = bytearray(open(path_ck + ".npz", "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        bad = os.path.join(tmp, "corrupt")
+        open(bad + ".npz", "wb").write(bytes(raw))
+        shutil.copy(path_ck + ".json", bad + ".json")
+        try:
+            checkpoint.load_atlas(bad, make_slam(seq, "cuda", **kw))
+            raised = False
+        except ValueError:
+            raised = True
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b_s = time.perf_counter() - t0
+    print(f"atlas (b): session saved (md5 {digest}) and loaded, {n_kf0} keyframes; relocalized at "
+          f"frame {reloc_at} (the JAX run: {ATLAS_JAX['reloc_at']}), {s2.n_kf} keyframes at the end, "
+          f"state {s2.state}; Sim(3) ATE {rmse_b:.5f} m over {n_b} poses; K1 launches "
+          f"{b_launches}; a corrupted copy raised: {raised}; {b_s:.1f} s")
+    check(reloc_at is not None and reloc_at <= ATLAS_B_START + 2,
+          f"atlas (b): relocalized at {reloc_at}")
+    check(s2.state == system.OK and s2.n_kf > n_kf0, f"atlas (b): state {s2.state}, keyframes "
+          f"{n_kf0} -> {s2.n_kf}")
+    check(rmse_b <= MAP_ATE_LIMIT, f"atlas (b): Sim(3) ATE {rmse_b:.5f} m")
+    check(raised, "atlas (b): a corrupted checkpoint loaded")
+    b = dict(reloc_at=reloc_at, n_kf_loaded=n_kf0, n_kf_end=s2.n_kf, ate_sim3_m=rmse_b, ate_poses=n_b,
+             launches=b_launches, run_s=b_s)
+    c = phase_atlas_vi(torch, project_match)
+
+    # the merge site's searches against the plain version, and their times
+    check(rec.args is not None, "atlas: no cross-map search input was recorded")
+    err, n_match = kernel_vs_plain(torch, project_match, rec.args, rec.kw, "the merge site")
+    args = search_inputs(12, N_SLOTS, N_SLOTS, 10.0)
+    merge_kw = dict(max_dist=100, ratio=1.0)
+    err2, n_match2 = kernel_vs_plain(torch, project_match, args, merge_kw, "a merge-shaped case")
+    check(n_match2 > 50, "the merge-shaped case matched too little to mean anything")
+    kernel = lambda: project_match.project_match(*rec.args, **rec.kw)  # noqa: E731
+    k_ms = cuda_ms(kernel, 100)
+    plain_ms = cuda_ms(lambda: project_match.project_match_reference(*rec.args, **rec.kw), 100)
+    dev_us = device_us(kernel)
+    bound = search_bound(torch, project_match, rec.args, rec.kw)
+    print(f"atlas merge site: kernel vs plain at P={rec.args[0].shape[0]} N={rec.args[5].shape[0]} "
+          f"{rec.kw}: max |diff| {err}, {n_match} matches; merge-shaped case P=N={N_SLOTS}: max "
+          f"|diff| {err2}, {n_match2} matches; call {k_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
+          f"us, device {dev_us:.2f} us, bound {bound['bound_us']:.3f} us by {bound['bound_by']}")
+    launches = {k: a["launches"][k] + b["launches"][k] + c["launches"][k] for k in a["launches"]}
+    return dict(a=a, b=b, c=c, launches=launches, merge_max_abs_err=max(err, err2),
+                merge_matches=n_match, merge_ms=k_ms, merge_plain_ms=plain_ms,
+                merge_device_us=dev_us, merge_bound_us=bound["bound_us"],
+                merge_bound_by=bound["bound_by"])
+
+
+def phase_atlas_vi(torch, project_match) -> dict:
+    """Phase 14 (c): ``tests/test_atlas.py``'s inertial weld at phase 8's
+    configuration."""
+    from orb_slam3_ros_tpu_torch.models import atlas as atlas_mod
+    from orb_slam3_ros_tpu_torch.models import inertial_system, system
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
+
+    seq, im = synth.make_vi_sequence(**VI_SEQ_KW)
+    slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
+                                        enable_atlas=True, **VI_SLAM_KW)
+
+    def run(i):
+        slam.process_frame(seq.images[i], float(seq.timestamps[i]), acc=im["acc"][i],
+                           gyro=im["gyro"][i], dts=im["dts"][i])
+
+    t0 = time.perf_counter()
+    reset_launches(project_match)
+    for i in range(ATLAS_C_SPLIT):
+        run(i)
+    init1, kf1 = slam.imu_initialized, slam.n_kf
+    slam._freeze_rel_traj()
+    archived = slam.atlas.archive_current(slam)
+    held, slam.atlas.maps = slam.atlas.maps, []  # no weld before map 2's IMU is initialized
+    i = ATLAS_C_SPLIT
+    while i < ATLAS_C_INIT_BY and not (slam.imu_initialized and slam.state == system.OK):
+        run(i)
+        i += 1
+    init2_at, kf2 = i - 1, slam.n_kf
+    slam.atlas.maps = held
+    scales = []
+    transform = atlas_mod._transform_map
+
+    def kept(m, Rw, tw, sw):
+        scales.append(float(sw))
+        return transform(m, Rw, tw, sw)
+
+    atlas_mod._transform_map = kept
+    try:
+        slam._freeze_rel_traj()
+        welded = slam.atlas.merge_current_into(slam, 0)
+    finally:
+        atlas_mod._transform_map = transform
+    m = slam.map
+    kv = m.kf_valid.cpu().numpy()
+    R, t, kts, v = (x.cpu().numpy()[kv] for x in (m.kf_R, m.kf_t, m.kf_ts, m.kf_v))
+    finite = bool(np.isfinite(R).all() and np.isfinite(t).all() and np.isfinite(v).all())
+    pos = -np.einsum("kji,kj->ki", R, t)
+    ate_kf, n_kf_ate, _ = ate_rmse(kts.astype(np.float64), pos, seq.timestamps.astype(np.float64),
+                                   seq.t_wc, with_scale=False)
+    breaks = sorted(slam.chain_breaks)
+    states = []
+    for j in range(i, i + ATLAS_C_AFTER):
+        run(j)
+        states.append(slam.state)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    launches = dict(project_match.LAUNCHES)
+    print(f"atlas (c): map 1 {kf1} keyframes, IMU initialized {init1}, archived {archived}; map 2 "
+          f"IMU-initialized at frame {init2_at} with {kf2} keyframes; weld {welded} at scale "
+          f"{scales[-1] if scales else None}, chain breaks {breaks}, {slam.n_kf} keyframes; metric "
+          f"keyframe ATE {ate_kf:.5f} m over {n_kf_ate} (the JAX run {ATLAS_JAX['c_ate_m']:.5f} m); "
+          f"states after {states}; K1 launches {launches}, {slam.atlas.grow_searches} cross-map "
+          f"searches; {c_s:.1f} s")
+    check(init1 and archived and slam.imu_initialized, "atlas (c): a map was not IMU-initialized")
+    check(welded and scales == [1.0], f"atlas (c): weld {welded} at scales {scales}")
+    check(kf1 in slam.chain_breaks, f"atlas (c): the seam {kf1} is not a chain break: {breaks}")
+    check(finite, "atlas (c): the welded map holds non-finite poses or velocities")
+    check(ate_kf <= 2 * ATLAS_JAX["c_ate_m"],
+          f"atlas (c): metric keyframe ATE {ate_kf:.5f} m above 2x the JAX run's")
+    check(states == [system.OK] * ATLAS_C_AFTER, f"atlas (c): states after the weld {states}")
+    check(launches["merge"] == slam.atlas.grow_searches >= 1,
+          f"atlas (c): {launches['merge']} merge launches, {slam.atlas.grow_searches} searches")
+    return dict(map1_kf=kf1, map2_init_at=init2_at, map2_kf=kf2, scale=scales[-1],
+                chain_breaks=breaks, keyframes=slam.n_kf, ate_metric_kf_m=ate_kf,
+                ate_keyframes=n_kf_ate, states_after=states, launches=launches, run_s=c_s)
+
+
 def main() -> int:
     import torch
 
@@ -1735,9 +2039,11 @@ def main() -> int:
     lp = phase_loop_mono(torch, project_match)
     lv = phase_loop_vi(torch, project_match, vc)
     la = lp["closed_loop"]
+    at = phase_atlas(torch, project_match, map_seq)
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
-                      "reloc": rl, "loop_mono": lp, "loop_vi": lv, "card": smi[0]}, default=str))
+                      "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "card": smi[0]},
+                     default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
@@ -1745,11 +2051,11 @@ def main() -> int:
         "replaces": "orb_slam3_ros_tpu/ops/pallas_match.py:37",
         # the main paths: mapping (phase 7), mono-inertial (phase 8), its
         # chunk loop (phase 9), the mono chunk loop (phase 10),
-        # relocalization (phase 11), mono loop closing (phase 12 (a), (b))
-        # and VI loop closing (phase 13), the counts set to 0 before each and
-        # read after it
+        # relocalization (phase 11), mono loop closing (phase 12 (a), (b)),
+        # VI loop closing (phase 13) and the Atlas (phase 14 (a), (b), (c)),
+        # the counts set to 0 before each and read after it
         "launches": sum(sum(x["launches"].values())
-                        for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv)),
+                        for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"])),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
@@ -1766,12 +2072,19 @@ def main() -> int:
         "launches_loop_sim3": la["launches"]["sim3"],
         "launches_lc_sim3": lp["lc"]["launches"]["sim3"],
         "launches_vi_lc_sim3": lv["launches"]["sim3"],
+        "launches_merge": at["launches"]["merge"],
+        "launches_atlas_track": at["launches"]["track"],
+        "launches_atlas_fuse": at["launches"]["fuse"],
+        "merge_ms": at["merge_ms"],
+        "merge_plain_ms": at["merge_plain_ms"],
+        "merge_device_us": at["merge_device_us"],
+        "merge_bound_us": at["merge_bound_us"],
         "sim3_ms": la["sim3_ms"],
         "sim3_plain_ms": la["sim3_plain_ms"],
         "sim3_device_us": la["sim3_device_us"],
         "sim3_bound_us": la["sim3_bound_us"],
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"],
-                           la["sim3_max_abs_err"]),
+                           la["sim3_max_abs_err"], at["merge_max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_us"] / 1e3,

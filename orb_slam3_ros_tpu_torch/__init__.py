@@ -16,9 +16,12 @@ stored map); and monocular-inertial SLAM
 ``ops/imu.py``, the three-stage IMU initialization, the per-frame 15-dof
 refinement and the temporal-window visual-inertial BA of ``ops/viba.py``);
 the chunk loops of both as CUDA graphs (``models/chunk_runner.py``),
-relocalization, and loop closing with its asynchronous global BA
+relocalization, loop closing with its asynchronous global BA
 (``models/loop_closing.py``, ``ops/sim3solver.py``, ``ops/pgo.py``,
-``ops/ba_pcg.py``).
+``ops/ba_pcg.py``), the Atlas of archived maps with its cross-map weld
+(``models/atlas.py``), whole-session checkpoints in the JAX package's file
+format (``utils/checkpoint.py``) and the ``run_synth`` / ``evaluate``
+CLIs.
 
 Entry points run on the CUDA device unless the caller passes ``device``:
 ``device=None`` resolves through :func:`default_device`, which raises where

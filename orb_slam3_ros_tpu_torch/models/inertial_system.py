@@ -43,6 +43,13 @@ moves keyframe poses and velocities, so the chunk's inertial state is
 rebuilt from the host at the next chunk, and the end-of-chunk pose rides
 the correction of the newest keyframe.
 
+With ``enable_atlas`` (``MonoSlam``'s Atlas) an archived map keeps its IMU
+blocks, flags and chain breaks; a switch into it breaks the chain at its
+next keyframe, and a weld re-indexes the blocks, makes the seam a chain
+break and, with both maps initialized, is rigid and followed by a welding
+VI-BA. At a chunk boundary a weld rebuilds the chunk's inertial state and
+takes the newest keyframe's state.
+
 Not ported (each raises, naming its ROADMAP item): stereo / RGB-D
 inertial, the ``on_frame`` hook.
 """
@@ -445,6 +452,7 @@ class InertialSlam(MonoSlam):
             return None
         if self.state == RECENTLY_LOST:
             self.state = OK
+            self.lost_count = 0
         self._lost_since_ts = None
         self.R_cur, self.t_cur = R_new, t_new
         self.v_cur = buf[13:16].copy()
@@ -930,7 +938,8 @@ class InertialSlam(MonoSlam):
         if self._check_bad_imu():
             return
         self._vi_dev_valid = True  # unless a closure or the dead tail below moves things
-        if self.loop_closer is not None and self._close_at_boundary(self._new_kf_slots(out)):
+        if (self.loop_closer is not None or self.atlas is not None) and self._close_at_boundary(
+                self._new_kf_slots(out)):
             return
         n_run = rows.shape[0]
         if sc[3] < 0.5:
@@ -948,18 +957,27 @@ class InertialSlam(MonoSlam):
                 self.process_frame(frames[i], float(tss_np[i]), acc=acc[i], gyro=gyro[i], dts=dts[i])
 
     def _close_at_boundary(self, new_kfs) -> bool:
-        """The loop-closure check of a chunk's new keyframes at its
-        boundary. A closure moves the map: the chunk's inertial state is
-        rebuilt at the next chunk, and the end-of-chunk pose (frames past
-        the newest keyframe) is carried through that keyframe's correction,
-        T_cur' = (T_cur T_kf_old^-1) T_kf_new, its velocity rotated alike
-        (CorrectLoop's velocity update). Returns True on a bad-IMU reset."""
+        """The loop-closure check and the Atlas's weld of a chunk's new
+        keyframes at its boundary. Either moves the map: the chunk's
+        inertial state is rebuilt at the next chunk. After a closure the
+        end-of-chunk pose (frames past the newest keyframe) is carried
+        through that keyframe's correction, T_cur' = (T_cur T_kf_old^-1)
+        T_kf_new, its velocity rotated alike (CorrectLoop's velocity
+        update); after a weld, which remaps the slots, the tracker takes the
+        newest keyframe's state. Returns True on a bad-IMU reset."""
         if not new_kfs:
             return False
         last = self.n_kf - 1
         R_cur, t_cur, v_cur = self.R_cur, self.t_cur, self.v_cur
-        R_old, t_old = read_host(self.map.kf_R[last], self.map.kf_t[last])
-        if not self.loop_closer.try_close_batch(self, new_kfs):
+        moved, R_old = False, None
+        if self.loop_closer is not None:
+            R_old, t_old = read_host(self.map.kf_R[last], self.map.kf_t[last])
+            moved = self.loop_closer.try_close_batch(self, new_kfs)
+        if self.atlas is not None and self.atlas.maps and any(k % 4 == 0 for k in new_kfs):
+            self._freeze_rel_traj()
+            if self.atlas.merge_current_into(self, 0):
+                moved, R_old = True, None
+        if not moved:
             return False
         self._vi_dev_valid = False
         self._vi_anchor = None
@@ -967,7 +985,7 @@ class InertialSlam(MonoSlam):
         buf = _pack_kf_state(self.map, self.n_kf - 1).cpu().numpy()
         self.bg_cur, self.ba_cur = buf[3:6].copy(), buf[6:9].copy()
         R_new, t_new = buf[9:18].reshape(3, 3), buf[18:21]
-        if self.n_kf - 1 == last:
+        if R_old is not None and self.n_kf - 1 == last:
             # the pose the chunk ended at, read before the closure moved it
             R_rel = R_cur @ R_old.T
             t_rel = t_cur - R_rel @ t_old

@@ -62,51 +62,52 @@ def _in_cam(m: MapState, kf: int, X: torch.Tensor) -> torch.Tensor:
     return X @ m.kf_R[kf].T + m.kf_t[kf]
 
 
-def _pairs(m: MapState, kf1: int, kf2: int, idx, src_ok, X1) -> Sim3Pairs:
-    """kf1's feature slots paired with kf2's features ``idx`` (-1: none)."""
-    P, N = m.P, m.N
-    fidx2 = torch.clamp(idx, 0, N - 1).long()
-    pt1 = m.kf_obs[kf1]
-    pt2 = m.kf_obs[kf2][fidx2]
-    p2c = torch.clamp(pt2, 0, P - 1).long()
-    ok = src_ok & (idx >= 0) & (pt2 >= 0) & m.pt_valid[p2c]
-    sig1 = 1.2 ** (2.0 * m.kf_level[kf1].to(X1.dtype))
-    sig2 = 1.2 ** (2.0 * m.kf_level[kf2][fidx2].to(X1.dtype))
-    return Sim3Pairs(X1, _in_cam(m, kf2, m.pt_X[p2c]), ok, pt1, pt2, sig1, sig2)
+def _pairs(m1: MapState, kf1: int, m2: MapState, kf2: int, idx, src_ok, X1) -> Sim3Pairs:
+    """Map 1 keyframe kf1's feature slots paired with map 2 keyframe kf2's
+    features ``idx`` (-1: none)."""
+    fidx2 = torch.clamp(idx, 0, m2.N - 1).long()
+    pt1 = m1.kf_obs[kf1]
+    pt2 = m2.kf_obs[kf2][fidx2]
+    p2c = torch.clamp(pt2, 0, m2.P - 1).long()
+    ok = src_ok & (idx >= 0) & (pt2 >= 0) & m2.pt_valid[p2c]
+    sig1 = 1.2 ** (2.0 * m1.kf_level[kf1].to(X1.dtype))
+    sig2 = 1.2 ** (2.0 * m2.kf_level[kf2][fidx2].to(X1.dtype))
+    return Sim3Pairs(X1, _in_cam(m2, kf2, m2.pt_X[p2c]), ok, pt1, pt2, sig1, sig2)
 
 
-def _match_points_between(m: MapState, kf1: int, kf2: int) -> Sim3Pairs:
-    """kf1's features matched to kf2's by descriptor (the reference's
-    SearchByBoW before Sim3Solver, LoopClosing.cc:1650-1720), their bound
-    landmarks paired in each camera frame."""
-    idx, _ = matching.search_frame_frame(kf_features(m, kf1), kf_features(m, kf2),
+def match_points_across(m1: MapState, kf1: int, m2: MapState, kf2: int) -> Sim3Pairs:
+    """Keyframe kf1 of map 1 matched to keyframe kf2 of map 2 by descriptor
+    (the reference's SearchByBoW before Sim3Solver, LoopClosing.cc:1650-1720),
+    their bound landmarks paired in each camera frame."""
+    idx, _ = matching.search_frame_frame(kf_features(m1, kf1), kf_features(m2, kf2),
                                          max_dist=64, ratio=0.85)
-    pt1 = m.kf_obs[kf1]
-    p1c = torch.clamp(pt1, 0, m.P - 1).long()
-    src_ok = (pt1 >= 0) & m.pt_valid[p1c]
-    return _pairs(m, kf1, kf2, idx, src_ok, _in_cam(m, kf1, m.pt_X[p1c]))
+    pt1 = m1.kf_obs[kf1]
+    p1c = torch.clamp(pt1, 0, m1.P - 1).long()
+    src_ok = (pt1 >= 0) & m1.pt_valid[p1c]
+    return _pairs(m1, kf1, m2, kf2, idx, src_ok, _in_cam(m1, kf1, m1.pt_X[p1c]))
 
 
-def _grow_matches_by_sim3(m: MapState, kf1: int, kf2: int, s21, R21, t21, cam_params,
-                          width: int, height: int, radius: float = SIM3_RADIUS) -> Sim3Pairs:
+def search_by_sim3(m1: MapState, kf1: int, m2: MapState, kf2: int, s21, R21, t21, cam_params,
+                   width: int, height: int, radius: float, site: str) -> Sim3Pairs:
     """Widen the pairs under a Sim(3) hypothesis (``ORBmatcher::SearchBySim3``,
-    ORBmatcher.cc:1457): kf1's landmarks projected through S21 into kf2's
-    image and matched against kf2's landmark-bound features within
-    ``radius`` * 1.2^level, TH_HIGH, no ratio test. One K1 search, P = N."""
-    pt1 = m.kf_obs[kf1]
-    p1c = torch.clamp(pt1, 0, m.P - 1).long()
-    X1 = _in_cam(m, kf1, m.pt_X[p1c])
+    ORBmatcher.cc:1457): map 1 keyframe kf1's landmarks projected through
+    S21 into map 2 keyframe kf2's image and matched against its
+    landmark-bound features within ``radius`` * 1.2^level, TH_HIGH, no
+    ratio test. One K1 search at launch site ``site``, P = N."""
+    pt1 = m1.kf_obs[kf1]
+    p1c = torch.clamp(pt1, 0, m1.P - 1).long()
+    X1 = _in_cam(m1, kf1, m1.pt_X[p1c])
     X1in2 = s21 * (X1 @ R21.T) + t21
     uv2 = cameras.pinhole_project_nodist(cam_params, X1in2)
-    src_ok = ((pt1 >= 0) & m.kf_feat_valid[kf1] & m.pt_valid[p1c] & (X1in2[:, 2] > 0.05)
+    src_ok = ((pt1 >= 0) & m1.kf_feat_valid[kf1] & m1.pt_valid[p1c] & (X1in2[:, 2] > 0.05)
               & cameras.in_image(uv2, width, height, 2.0))
-    f2 = kf_features(m, kf2)
-    f2 = f2._replace(valid=f2.valid & (m.kf_obs[kf2] >= 0))
+    f2 = kf_features(m2, kf2)
+    f2 = f2._replace(valid=f2.valid & (m2.kf_obs[kf2] >= 0))
     idx, _ = matching.search_by_projection(
-        uv2, src_ok, m.pt_level[p1c], m.pt_desc_sign[p1c], f2, radius=radius,
-        max_dist=hamming.TH_HIGH, ratio=1.0, site="sim3",
+        uv2, src_ok, m1.pt_level[p1c], m1.pt_desc_sign[p1c], f2, radius=radius,
+        max_dist=hamming.TH_HIGH, ratio=1.0, site=site,
     )
-    return _pairs(m, kf1, kf2, idx, src_ok, X1)
+    return _pairs(m1, kf1, m2, kf2, idx, src_ok, X1)
 
 
 def _write_back(m: MapState, valid, R, t, s, kf_R0, kf_t0) -> MapState:
@@ -326,7 +327,8 @@ def _verify_pending_fused(m: MapState, new_kf: int, cand: int, S_cw, cam_params,
     re-propagated S_cw, the pairs)."""
     one = torch.ones((), dtype=m.kf_t.dtype, device=m.kf_t.device)
     Rcj, tcj, scj = lie.sim3_mul(*S_cw, *lie.sim3_inv(m.kf_R[new_kf], m.kf_t[new_kf], one))
-    pr = _grow_matches_by_sim3(m, new_kf, cand, scj, Rcj, tcj, cam_params, width, height)
+    pr = search_by_sim3(m, new_kf, m, cand, scj, Rcj, tcj, cam_params, width, height, SIM3_RADIUS,
+                        "sim3")
     res = sim3solver.refine_sim3(pr.X1, pr.X2, pr.ok, cam_params, scj, Rcj, tcj,
                                  min_inliers=min_inliers, sigma2_1=pr.sig1, sigma2_2=pr.sig2,
                                  fix_scale=fix_scale)
@@ -514,7 +516,8 @@ class LoopCloser:
     # ---- detection and verification -----------------------------------
     def _grow(self, m, kf1, kf2, s, R, t, slam) -> Sim3Pairs:
         self.sim3_searches += 1
-        return _grow_matches_by_sim3(m, kf1, kf2, s, R, t, slam.cam_params, slam.width, slam.height)
+        return search_by_sim3(m, kf1, m, kf2, s, R, t, slam.cam_params, slam.width, slam.height,
+                              SIM3_RADIUS, "sim3")
 
     def try_close(self, slam, new_kf: int, generator: torch.Generator | None = None) -> bool:
         """Attempt a closure on keyframe ``new_kf`` (NewDetectCommonRegions'
@@ -549,7 +552,7 @@ class LoopCloser:
             if c < 0 or c in tried:
                 continue
             tried.add(c)
-            pr = _match_points_between(m, new_kf, c)
+            pr = match_points_across(m, new_kf, m, c)
             if int(pr.ok.sum()) < 20:
                 continue
             res = sim3solver.solve_sim3(pr.X1, pr.X2, pr.ok, slam.cam_params, gen,

@@ -37,10 +37,18 @@ dispatch; the result folds in with the keyframes and points made during
 the solve carried along (``apply_global_ba_partial``). ``flush`` folds in
 a solve still in flight.
 
+With ``enable_atlas`` an ``atlas.Atlas`` keeps the maps tracking lost: after
+``lost_patience`` frames without a relocalization, or at a timestamp jump,
+the map is archived (or discarded below 8 keyframes) and a fresh one
+initialized; a lost frame also tries the archived maps and switches into
+one it tracks against; every 4th keyframe slot (per keyframe, or among a
+chunk's new keyframes at its boundary) tries to weld the active map into
+the oldest archived one.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-the Atlas, the two-device split, cameras other than pinhole, the
-``on_frame`` / ``points_every`` observation hooks; the pipelined
-one-frame-lag mode is not ported by design.
+the two-device split, cameras other than pinhole, the ``on_frame`` /
+``points_every`` observation hooks; the pipelined one-frame-lag mode is not
+ported by design.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 from .. import resolve_device
 from ..ops import ba_pcg, matching, orb, pnp, ransac, retrieval
 from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
+from .atlas import Atlas
 from .chunk_runner import read_host, read_rows
 from .loop_closing import LoopCloser
 
@@ -134,10 +143,10 @@ def _reloc_attempt(m: map_state.MapState, cand: int, feats: orb.Features, cam_pa
 class MonoSlam:
     """Monocular pipeline (the reference's ``System(..., MONOCULAR)``).
 
-    Takes the JAX package's constructor arguments with its defaults, but
-    for the Atlas's ``lost_patience``, plus ``device`` (None: the CUDA
-    device, an error where there is none; the CPU only when asked for); the
-    options whose paths are not ported raise when set.
+    Takes the JAX package's constructor arguments with its defaults, plus
+    ``device`` (None: the CUDA device, an error where there is none; the CPU
+    only when asked for); the options whose paths are not ported raise when
+    set.
     ``transfer_uint8`` sets the frame format of the chunk loop's stack."""
 
     def __init__(
@@ -156,6 +165,7 @@ class MonoSlam:
         local_ba_iters: int = 6,
         enable_loop_closing: bool = False,
         enable_atlas: bool = False,
+        lost_patience: int = 10,
         track_window: Optional[int] = None,
         pipelined: bool = False,
         fuse_neighbors: int = 1,
@@ -179,8 +189,6 @@ class MonoSlam:
             raise NotImplementedError(
                 "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
             )
-        if enable_atlas:
-            raise _not_ported("the Atlas", "5")
         if devices is not None:
             raise _not_ported("the two-device tracking/mapping split", "8")
         if cam_model != "pinhole":
@@ -238,6 +246,10 @@ class MonoSlam:
         # of the solves started and folded in and of the dispatches made.
         self._gba = None
         self.gba_counts = {"started": 0, "finished": 0, "dispatches": 0}
+        # The archived maps, and the lost frames since tracking last held.
+        self.atlas = Atlas() if enable_atlas else None
+        self.lost_count = 0
+        self.lost_patience = lost_patience
         # The retrieval vocabulary ([A, 256] +-1 int8 on ``device``); the
         # shipped one is installed here (the reference loads its ORBvoc at
         # startup, System.cc:114).
@@ -255,7 +267,7 @@ class MonoSlam:
         # reference keyframe, so the final trajectory carries all later
         # keyframe corrections (the reference's mlRelativeFramePoses).
         self.rel_traj = []
-        self.frozen_traj = []  # absolute poses of frames whose ref keyframe went
+        self.frozen_traj = []  # absolute poses of frames whose ref keyframe or map went
 
     # ------------------------------------------------------------------
     def set_map(self, m: map_state.MapState, n_kf: int, n_pts: int, R_cw, t_cw) -> None:
@@ -302,12 +314,32 @@ class MonoSlam:
     def set_vocabulary(self, vocab) -> None:
         """Install a retrieval vocabulary ([A, 256] +-1, numpy or a tensor),
         used by relocalization from the next lost frame on and by loop
-        closing from its next check on."""
+        closing from its next check on. Call it before mapping starts: the
+        signatures of archived maps are not recomputed."""
         if isinstance(vocab, torch.Tensor):
             vocab = vocab.cpu().numpy()
         self.vocab = torch.from_numpy(np.asarray(vocab, np.int8)).to(self.device)
         if self.loop_closer is not None:
             self.loop_closer.vocab = self.vocab
+        if self.atlas is not None:
+            self.atlas.vocab = self.vocab
+
+    def train_vocabulary_from_map(self, n_words: int | None = None, iters: int = 12) -> np.ndarray:
+        """Train a vocabulary on the descriptors the map's keyframes hold
+        (one host read) and install it. The default size grows with the
+        samples, one word for 16 of them, between 32 and ``MAX_WORDS``;
+        from 1024 words the training is hierarchical."""
+        desc, valid = read_host(self.map.kf_desc_sign[: self.n_kf],
+                                self.map.kf_feat_valid[: self.n_kf])
+        train = desc.reshape(-1, 256)[valid.reshape(-1) > 0.5].astype(np.int8)
+        if n_words is None:
+            n_words = int(np.clip(len(train) // 16, 32, retrieval.MAX_WORDS))
+        if n_words >= 1024:
+            vocab = retrieval.train_vocabulary_hier(train, n_words=n_words, iters=iters)
+        else:
+            vocab = retrieval.train_vocabulary(train, n_words=n_words, iters=iters)
+        self.set_vocabulary(vocab)
+        return vocab
 
     # ------------------------------------------------------------------
     def _set_ref_cache(self, ref_id, R_ref, t_ref):
@@ -366,22 +398,27 @@ class MonoSlam:
 
     # ------------------------------------------------------------------
     def _current_schedule(self) -> tuple:
-        """Dense passes while the map is young, lean passes on a mature map.
-        (The JAX package also stays dense while its Atlas counts failed
-        relocalizations; the Atlas is not ported.)"""
-        if self.n_kf < self.lean_after_kf:
+        """Dense passes while the map is young or the Atlas counts failed
+        relocalizations, lean passes on a mature map."""
+        if self.n_kf < self.lean_after_kf or self.lost_count > 0:
             return self._sched_dense
         return self._sched_lean
 
     def _check_ts_jump(self, ts: float) -> None:
         """An input gap longer than ``ts_jump_threshold`` breaks the motion
-        model: tracking drops to LOST and relocalizes (there is no Atlas)."""
+        model (Tracking.cc:1856-1891): with an Atlas the map is archived and
+        a fresh one started, without one tracking drops to LOST and
+        relocalizes."""
         last = self._last_frame_ts
         self._last_frame_ts = ts
         if (last is not None and self.state in (OK, RECENTLY_LOST)
                 and ts - last > self.ts_jump_threshold):
             self.flush()
-            self.state = LOST
+            if self.atlas is not None:
+                self._freeze_rel_traj()
+                self.atlas.archive_current(self)  # state -> NOT_INITIALIZED
+            else:
+                self.state = LOST
 
     def process_frame(self, img, ts: float):
         """Process one grayscale frame ([H, W], numpy or a tensor, values in
@@ -600,10 +637,16 @@ class MonoSlam:
         out = read_rows(rows)
         self._absorb_chunk(out, pose, sc, tss_np)
         self.frame_id = fid0 + C
+        new_kfs = self._new_kf_slots(out)
         if self.loop_closer is not None:
             # the chunk's new keyframes, at its boundary (the reference's loop
             # thread consuming its keyframe queue, LoopClosing.cc:1108)
-            self.loop_closer.try_close_batch(self, self._new_kf_slots(out))
+            self.loop_closer.try_close_batch(self, new_kfs)
+        if self.atlas is not None and self.atlas.maps and any(k % 4 == 0 for k in new_kfs):
+            # a weld of the chunk's map into the oldest archived one; the next
+            # chunk loads the welded map into the runner's buffers
+            self._freeze_rel_traj()
+            self.atlas.merge_current_into(self, 0)
         if sc[3] < 0.5:
             # Tracking failed at frame k: LOST, and frames k.. replayed one
             # at a time, through relocalization.
@@ -656,9 +699,10 @@ class MonoSlam:
         Tracking.cc:3648): up to 3 retrieval candidates (one host read), each
         tried as descriptor matches -> PnP RANSAC -> tracking against the map
         (one 13-float read an attempt); the first with >= 30 tracking
-        inliers wins, with the motion model reset. Returns Twc, or None while
-        lost (without an Atlas the map is kept and the next frame tries
-        again)."""
+        inliers wins, with the motion model reset. With an Atlas a frame that
+        fails tries the archived maps next (a switch), and after
+        ``lost_patience`` such frames the map is archived and a fresh one
+        started (Tracking.cc:2050-2068). Returns Twc, or None while lost."""
         if self.n_kf < 2:
             return None
         cand_ids = _reloc_detect(self.map, feats.desc_sign, feats.valid, self.vocab).cpu().numpy()
@@ -674,8 +718,19 @@ class MonoSlam:
                 self.vel_R = np.eye(3, dtype=np.float32)
                 self.vel_t = np.zeros(3, np.float32)
                 self.state = OK
+                self.lost_count = 0
                 self._log_pose(ts)
                 return self._pose_mat()
+        if self.atlas is not None:
+            self._freeze_rel_traj()
+            if self.atlas.try_relocalize_in_archived(self, feats):
+                self.lost_count = 0
+                self._log_pose(ts)
+                return self._pose_mat()
+            self.lost_count += 1
+            if self.lost_count >= self.lost_patience:
+                self.atlas.archive_current(self)
+                self.lost_count = 0
         return None
 
     # ------------------------------------------------------------------
@@ -888,7 +943,11 @@ class MonoSlam:
         self.t_cur = buf[10:13].copy()
         if self.loop_closer is not None:
             self.loop_closer.try_close(self, kf_id)
-        # the (possibly loop-corrected) pose of the newest keyframe
+        if self.atlas is not None and self.atlas.maps and kf_id % 4 == 0:
+            # try to weld this map into the oldest archived one (MergeLocal)
+            self._freeze_rel_traj()
+            self.atlas.merge_current_into(self, 0)
+        # the (possibly loop-corrected or welded) pose of the newest keyframe
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
 
     def _temporal_window(self, n_kf: int):

@@ -73,7 +73,7 @@ def search_by_projection(
       feats: target frame features.
       radius: base search radius in level-0 pixels.
       site: which launch count of ``project_match.LAUNCHES`` a kernel
-        launch adds to ("track", "fuse" or "sim3").
+        launch adds to ("track", "fuse", "sim3" or "merge").
 
     Returns (match_idx [P] int32 into feats, -1 if none; match_dist [P])."""
     r = radius * scale ** proj_level.to(torch.float32)  # [P]

@@ -22,9 +22,9 @@ from . import hamming
 
 # Kernel launches since import (or since a caller reset them), by call site
 # ("track": tracking's passes, "fuse": landmark fusion, "sim3": loop
-# closing's SearchBySim3): lets a run show that its main path went through
-# the kernel.
-LAUNCHES = {"track": 0, "fuse": 0, "sim3": 0}
+# closing's SearchBySim3, "merge": the Atlas's SearchBySim3 across maps):
+# lets a run show that its main path went through the kernel.
+LAUNCHES = {"track": 0, "fuse": 0, "sim3": 0, "merge": 0}
 
 _IDX_BITS = 20  # index bits of the kernel's packed (dist, row) and (dist, column) words
 _IDX_MASK = (1 << _IDX_BITS) - 1

@@ -170,7 +170,7 @@ def _check_pairs(jout, tout, atol=1e-5):
 def test_match_points_between_matches_jax(revisit, kf1, kf2):
     m, tm, _ = revisit
     jout = jlc._match_points_between(m, jnp.asarray(kf1), jnp.asarray(kf2))
-    tout = tlc._match_points_between(tm, kf1, kf2)
+    tout = tlc.match_points_across(tm, kf1, tm, kf2)
     _check_pairs(jout, tout)
     assert int(tout.ok.sum()) == (N_PLACE if kf1 in REVISIT else 0)
 
@@ -192,7 +192,8 @@ def test_grow_matches_by_sim3_matches_jax(revisit, kf1):
     res = _drift_sim3(m, REVISIT[0])
     jout = jlc._grow_matches_by_sim3(m, jnp.asarray(kf1), jnp.asarray(CAND), res.s, res.R, res.t,
                                      jnp.asarray(CAM), W, H)
-    tout = tlc._grow_matches_by_sim3(tm, kf1, CAND, T(res.s), T(res.R), T(res.t), T(CAM), W, H)
+    tout = tlc.search_by_sim3(tm, kf1, tm, CAND, T(res.s), T(res.R), T(res.t), T(CAM), W, H,
+                              tlc.SIM3_RADIUS, "sim3")
     _check_pairs(jout, tout)
     if kf1 == REVISIT[0]:
         assert int(tout.ok.sum()) == N_PLACE

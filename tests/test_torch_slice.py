@@ -80,9 +80,11 @@ def test_unported_states_raise():
     # against, and the frame stays LOST.
     slam.state = tsys.LOST
     assert slam.process_frame(img, 0.1) is None and slam.state == tsys.LOST
-    for kw in ({"pipelined": True}, {"enable_atlas": True}, {"cam_model": "kb8"}):
+    for kw in ({"pipelined": True}, {"points_every": 1}, {"cam_model": "kb8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, **kw})
+    # the Atlas is ported (tests/test_torch_atlas.py)
+    assert tsys.MonoSlam(cam_params=cam, device="cpu", enable_atlas=True, **SLAM_KW).atlas.maps == []
     other = tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, "max_points": 128})
     with pytest.raises(ValueError):
         slam.set_map(other.map, 0, 0, np.eye(3), np.zeros(3))
