@@ -136,6 +136,30 @@ Phases (each raises on failure, so any failure exits non-zero):
      a chain break, poses and velocities finite, the welded map's metric
      keyframe ATE within 2x the JAX run's, state OK over 10 more frames;
      then the "merge" searches against the plain version (exact), timed.
+ 15. stereo and RGB-D (``tests/torch_stereo_scenarios.py``'s protocols, whose
+     JAX run on the CPU gives the limits): (a) ``scripts/bench_variants.py``'s
+     ``run_stereo`` (the KITTI shape: 1242x376 pairs, 2000 features in 2040
+     slots, a 0.54 m baseline, ``transfer_uint8``, bench.py's lean
+     schedule): per frame until ``_chunkable()``, chunks of 15 of a
+     [N, 2, H, W] uint8 stack to frame 45, then the timed chunks to 120;
+     requires initialization at frame 0, a pose for every frame, every
+     timed frame a step-graph replay, K1 launches as predicted, graph =
+     eager on one step, no synchronizing call in a region, the metric ATE
+     within 2x the JAX run's and the Sim(3) scale within 2%; prints
+     frames/s, the graphs' ms and nodes, the busy share and syncs; (b) K1 at
+     P = 768, N = 2040 at both radii, exact with ties on its split
+     boundaries, timed, and ``match_stereo`` on the first pair: its depth
+     against the rendered depth (median error <= 5%, >= 80% within 15%),
+     no synchronizing call, its call and device time and bound; (c)
+     ``StereoInertialSlam`` at phase 8's configuration with a 0.11 m rig
+     and 16384 point slots, per frame until ``_vi_chunkable()``, then
+     chunks of 15: initialized at frame 0, IMU stage 3 with the scale
+     fixed, 0 resets, a pose for every frame, metric ATE (first 12 poses
+     skipped) within 2x the JAX run's and phase 9's 0.015 m, scale within
+     1%; (d) ``RgbdSlam`` (60 frames) and
+     ``RgbdInertialSlam`` (45 frames, phase 8's IMU) at 640x480 per frame:
+     initialized at frame 0, a pose for every frame, metric ATE within 2x
+     the JAX run's, scale within 2%. Prints its time.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -205,6 +229,31 @@ ATLAS_MAP, ATLAS_BLANK, ATLAS_END, ATLAS_B_START = 30, 8, 105, 101
 ATLAS_C_SPLIT, ATLAS_C_AFTER, ATLAS_C_INIT_BY = 45, 10, 140
 ATLAS_JAX = dict(route="weld", back_at=(80, 59, 72, 72, 84), weld_after=21, reloc_at=101,
                  c_ate_m=0.016012884390779178)
+# Phase 15, tests/torch_stereo_scenarios.py's protocols: (a)
+# scripts/bench_variants.py::run_stereo (config/Stereo/KITTI00-02.yaml:
+# 1241x376 rectified pairs at 10 Hz, 2000 features, a 0.54 m baseline):
+# the shape, the sequence's frames, the frames before the timed chunks and
+# StereoSlam's settings beside the shape's; (c) phase 8's configuration
+# with EuRoC's 0.11 m stereo rig and a stereo map's point capacity (the
+# point table only grows: keyframes that add their close points from depth
+# fill phase 8's 4096 slots by frame ~60, and tracking then starves in
+# both packages; 16384 last the run); (d) the TUM RGB-D shape
+# (config/RGB-D/TUM1.yaml: 640x480, 1000 features) per frame, alone and
+# with phase 8's IMU, and their frames.
+ST_H, ST_W, ST_BASE, ST_FRAMES, ST_WARM = 376, 1242, 0.54, 120, 45
+ST_SLAM_KW = dict(n_features=2000, max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3,
+                  stats_every=3, cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
+                  transfer_uint8=True)
+SVI_BASE, SVI_MAX_POINTS = 0.11, 16384
+RGBD_H, RGBD_W, RGBD_FRAMES, RGBD_VI_FRAMES = 480, 640, 60, 45
+RGBD_SLAM_KW = dict(n_features=1000, max_keyframes=64, max_points=4096, track_cap=P_TRACK)
+ST_SLOTS = 2040  # feature slots of 2000 features over 8 levels
+ST_SCALE_TOL = 0.02
+# The JAX package's runs of these protocols on the CPU
+# (tests/torch_stereo_scenarios.py --package jax): the metric ATE (m) of
+# (a), (c) (first 12 poses skipped) and (d); the card is held to 2x each.
+ST_JAX = dict(a_ate_m=0.05826476169258746, c_ate_m=0.01750881383327182,
+              d_rgbd_ate_m=0.0025017769415136655, d_rgbd_vi_ate_m=0.002850680836549069)
 
 
 def check(cond, msg: str) -> None:
@@ -277,18 +326,20 @@ def kernel_launches(lib, fn) -> int:
     return queued
 
 
-def search_inputs(seed: int, P: int, N: int, radius_px: float, all_invalid: bool = False):
+def search_inputs(seed: int, P: int, N: int, radius_px: float, all_invalid: bool = False,
+                  width: int = W, height: int = H):
     """The tests' projection-search case (``synth.make_search_case``: +-1
     descriptors, octaves 0..7, planted ties, also across every boundary of
-    the kernel's column splits at this shape) with radii of ``radius_px`` *
-    1.2^level px, as the matcher's nine input tensors on the card."""
+    the kernel's column splits at this shape) in a ``width`` x ``height``
+    image with radii of ``radius_px`` * 1.2^level px, as the matcher's nine
+    input tensors on the card."""
     import torch
 
     from orb_slam3_ros_tpu_torch.ops import project_match
     from orb_slam3_ros_tpu_torch.utils.synth import make_search_case
 
     cols = project_match.build().project_match_split_cols(P, N)
-    d = make_search_case(seed, P, N, W=W, H=H, tie_columns=tuple(range(cols, N, cols)))
+    d = make_search_case(seed, P, N, W=width, H=height, tie_columns=tuple(range(cols, N, cols)))
     if all_invalid:
         d["proj_valid"][:] = False
     radius = (radius_px * 1.2 ** d["proj_level"].astype(np.float32)).astype(np.float32)
@@ -324,14 +375,16 @@ def search_bound(torch, project_match, args, kw) -> dict:
                 "operations", bytes=n_bytes, candidate_pairs=pairs)
 
 
-def phase_kernel(torch, project_match, P: int, radius_px: float, min_match: int, **kw) -> dict:
+def phase_kernel(torch, project_match, P: int, radius_px: float, min_match: int,
+                 n: int = N_SLOTS, width: int = W, height: int = H, **kw) -> dict:
     """The kernel against its plain version on three seeded cases of P
-    rows x 1032 features (launches outside the counted runs), then both
-    timed on the last case. ``kw``: the search settings (max_dist, ratio)."""
+    rows x ``n`` features in a ``width`` x ``height`` image (launches
+    outside the counted runs), then both timed on the last case. ``kw``:
+    the search settings (max_dist, ratio)."""
     max_err = 0
     for seed in range(3):
-        args = search_inputs(seed, P, N_SLOTS, radius_px)
-        err, n_match = kernel_vs_plain(torch, project_match, args, kw, f"P={P}, seed {seed}")
+        args = search_inputs(seed, P, n, radius_px, width=width, height=height)
+        err, n_match = kernel_vs_plain(torch, project_match, args, kw, f"P={P}, N={n}, seed {seed}")
         print(f"kernel vs plain at P={P}, radius {radius_px}, seed {seed}: matches {n_match}, "
               f"max |diff| {err}")
         check(n_match > min_match, "the comparison case matched too little to mean anything")
@@ -343,7 +396,7 @@ def phase_kernel(torch, project_match, P: int, radius_px: float, min_match: int,
     queued = kernel_launches(project_match.build(), kernel)
     check(1 <= queued <= 2, f"a search queued {queued} kernels, expected 1 or 2")
     bound = search_bound(torch, project_match, args, kw)
-    print(f"project_match at P={P} N={N_SLOTS} radius {radius_px} {kw}: call with wrapper "
+    print(f"project_match at P={P} N={n} radius {radius_px} {kw}: call with wrapper "
           f"{ms * 1e3:.1f} us, plain torch {plain_ms * 1e3:.1f} us (median of 100, CUDA events "
           f"around each); kernel device time {dev_us:.2f} us (100 queued launches); host enqueue "
           f"{enqueue_us:.1f} us a call; bound {bound['bound_us']:.3f} us by {bound['bound_by']} "
@@ -1988,6 +2041,374 @@ def phase_atlas_vi(torch, project_match) -> dict:
                 ate_keyframes=n_kf_ate, states_after=states, launches=launches, run_s=c_s)
 
 
+def stereo_accuracy(slam, seq, skip: int = 0) -> dict:
+    """Poses, the metric ATE (no scale alignment) over the poses after the
+    first ``skip`` and the scale of a Sim(3) fit."""
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
+
+    traj = slam.get_trajectory()
+    ts = np.asarray([t for t, _ in traj])[skip:]
+    est = np.stack([T[:3, 3] for _, T in traj])[skip:]
+    gt_ts = seq.timestamps.astype(np.float64)
+    metric, n, _ = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=False)
+    _, _, scale = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=True)
+    return dict(poses=len(traj), scored=int(n), ate_metric_m=float(metric), scale=float(scale))
+
+
+def check_stereo_accuracy(acc: dict, jax_ate: float, frames: int, what: str,
+                          scale_tol: float) -> None:
+    check(acc["poses"] == frames, f"{what}: {acc['poses']} poses for {frames} frames")
+    check(acc["ate_metric_m"] <= 2 * jax_ate,
+          f"{what}: metric ATE {acc['ate_metric_m']:.5f} m above 2x the JAX run's {jax_ate:.5f} m")
+    check(abs(acc["scale"] - 1.0) <= scale_tol, f"{what}: Sim(3) scale {acc['scale']:.5f}")
+
+
+def per_frame_run(step, frames, first: list, lost: list) -> None:
+    """Frames ``frames`` through ``step(i)`` (a system's process_frame);
+    records the first frame with a pose and every later one without."""
+    for i in frames:
+        out = step(i)
+        if out is not None and not first:
+            first.append(i)
+        elif out is None and first:
+            lost.append(i)
+
+
+def phase_stereo_chunk(torch, project_match) -> tuple:
+    """Phase 15 (a): ``scripts/bench_variants.py::run_stereo``'s protocol on
+    the card through ``StereoSlam.process_frames``, the step and keyframe
+    segments as CUDA graphs. Returns (result, the sequence)."""
+    from orb_slam3_ros_tpu_torch.models import device_loop, system
+    from orb_slam3_ros_tpu_torch.models.stereo_system import StereoSlam
+    from orb_slam3_ros_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    seq = synth.make_sequence(n_frames=ST_FRAMES, height=ST_H, width=ST_W, dt=0.1, seed=3,
+                              stereo_baseline=ST_BASE, with_depth=True)
+    slam = StereoSlam(height=ST_H, width=ST_W, cam_params=seq.cam_params, baseline=ST_BASE,
+                      **ST_SLAM_KW)
+    check(slam.device.type == "cuda", "StereoSlam without a device argument is not on the card")
+    slam._sched_lean = BENCH_LEAN
+    pairs = torch.clamp(torch.stack([seq.images, seq.images_right], 1), 0, 255).to(torch.uint8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eager_steps, calls, first, lost = [], [], [], []
+    step_fn, per_frame = device_loop.frame_step, slam.process_frame
+
+    def counted_step(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            eager_steps.append(1)
+        return step_fn(*args, **kw)
+
+    def counted_frame(*args, **kw):
+        calls.append(1)
+        return per_frame(*args, **kw)
+
+    def frame(i):
+        return slam.process_frame(seq.images[i], seq.images_right[i], float(seq.timestamps[i]))
+
+    def chunk(i):
+        slam.process_frames((pairs, i), seq.timestamps[i : i + CHUNK])
+
+    device_loop.frame_step = counted_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(project_match)
+    try:
+        t0 = time.perf_counter()
+        i = 0
+        while (slam.state != system.OK or not slam._chunkable()) and i < ST_WARM - CHUNK:
+            per_frame_run(frame, [i], first, lost)
+            i += 1
+        i_steady = i
+        while i + CHUNK <= ST_WARM:
+            chunk(i)
+            i += CHUNK
+        per_frame_run(frame, range(i, ST_WARM), first, lost)
+        i = ST_WARM
+        warm_s = time.perf_counter() - t0
+        runner = slam._mono_runner
+        check(runner is not None and runner.graphs, "the stereo chunks did not run on graphs")
+        check(runner.stereo, "the stereo system's chunks did not take the stereo branch")
+        slam.process_frame = counted_frame
+        runner.timing = True
+        runner.spans, runner.gaps_s = [], []
+        launches_warm = dict(project_match.LAUNCHES)
+        reset_launches(project_match)
+        runs0, warm0 = dict(runner.runs), dict(runner.warmup_launches)
+        chunk_ms = []
+
+        def timed_chunks():
+            nonlocal i
+            while i + CHUNK <= ST_FRAMES:
+                t1 = time.perf_counter()
+                chunk(i)  # ends in the chunk's host read
+                chunk_ms.append((time.perf_counter() - t1) * 1e3)
+                i += CHUNK
+
+        n_sync = sync_calls(torch, timed_chunks)
+        torch.cuda.synchronize()
+        runner.timing = False
+        launches = dict(project_match.LAUNCHES)
+    finally:
+        device_loop.frame_step = step_fn
+        slam.process_frame = per_frame
+    peak = torch.cuda.max_memory_allocated()
+    timed = i - ST_WARM
+    runs = {k: runner.runs[k] - runs0.get(k, 0) for k in runner.runs}
+    warm = {k: runner.warmup_launches[k] - warm0[k] for k in warm0}
+    step_runs = sum(v for k, v in runs.items() if isinstance(k, tuple))
+    fusing, n_kf_timed = runs.get("kf_fuse", 0), runs.get("kf_insert", 0)
+    passes = len(slam._sched_lean)
+    predicted = {"track": passes * timed + warm["track"], "fuse": 2 * fusing + warm["fuse"],
+                 "sim3": 0, "merge": 0}
+    check(first and first[0] == 0, f"stereo initialized at frame {first[:1]}, not frame 0")
+    check(not lost, f"frames without a pose: {lost}")
+    check(not calls, f"{len(calls)} frames went through process_frame during the timed chunks")
+    check(step_runs == timed, f"{step_runs} step-graph replays for {timed} timed frames")
+    n_step_graphs = sum(isinstance(k, tuple) for k in runner._graph)
+    check(len(eager_steps) == n_step_graphs,
+          f"{len(eager_steps)} eager steps on the card, expected one warm-up for each of "
+          f"{n_step_graphs} step graphs")
+    check(launches == predicted, f"matcher launches {launches}, predicted {predicted} ({passes} x "
+          f"{timed} from tracking, 2 x {fusing} from fusion, plus warm-ups {warm})")
+    check(slam.state == system.OK, f"state {slam.state} after the chunks")
+    acc = stereo_accuracy(slam, seq)
+    check_stereo_accuracy(acc, ST_JAX["a_ate_m"], ST_FRAMES, "stereo chunks", ST_SCALE_TOL)
+    spans, kf_graph_ms, busy, step_ms, gap_us, nodes = replay_stats(runner, chunk_ms, n_kf_timed)
+    fps = timed / (sum(chunk_ms) / 1e3)
+    worst = graph_vs_eager(torch, runner, slam._sched_lean)
+    audit = region_syncs(torch, runner, slam._sched_lean)
+    check(not any(audit.values()), f"synchronizing calls in the eager regions: {audit}")
+    print(f"stereo chunk (a): {ST_W}x{ST_H} pairs, {slam.N} feature slots, rendered in "
+          f"{setup_s:.1f} s; initialized at frame {first[0]}, chunkable at frame {i_steady}; "
+          f"{runner.n_graphs} graphs captured in {runner.capture_s:.2f} s (nodes {nodes}), up to "
+          f"frame {ST_WARM} in {warm_s:.2f} s; timed frames {ST_WARM}..{i - 1}: {fps:.2f} frames/s, "
+          f"chunk latency median {np.median(chunk_ms):.2f} ms over {len(chunk_ms)} chunks of "
+          f"{CHUNK}; step graph {step_ms:.2f} ms median over {len(spans['step'])} replays; "
+          f"keyframe graphs {kf_graph_ms:.2f} ms a keyframe over {n_kf_timed} "
+          f"({ {k: round(float(np.median(v)), 3) for k, v in spans.items()} } ms medians); busy "
+          f"{busy:.1%}; host gap {gap_us:.1f} us mean, "
+          f"{float(np.median(runner.gaps_s)) * 1e6:.1f} us median (a segment's first capture "
+          f"falls in the gap); K1 launches {launches} = predicted "
+          f"(passes {passes}, fusing keyframes {fusing}, warm-ups {warm}), before the timed "
+          f"chunks {launches_warm}; metric ATE {acc['ate_metric_m']:.5f} m (JAX package, CPU: "
+          f"{ST_JAX['a_ate_m']:.5f} m), Sim(3) scale {acc['scale']:.5f}; {slam.n_kf} keyframes, "
+          f"{slam.n_pts} points; graph vs eager step max diff {worst:.3g}; synchronizing calls "
+          f"{n_sync} over the {timed} timed frames, {audit} in each region run eagerly; peak "
+          f"device memory {peak / 2**20:.1f} MiB")
+    total = {k: launches[k] + launches_warm[k] for k in launches}
+    return dict(init_frame=first[0], chunkable_frame=i_steady, graphs=runner.n_graphs,
+                graph_nodes=nodes, capture_s=runner.capture_s, timed_frames=timed,
+                frames_per_s=fps, frame_ms=float(np.median(chunk_ms)) / CHUNK, step_ms=step_ms,
+                kf_graph_ms=kf_graph_ms,
+                segment_ms={k: float(np.median(v)) for k, v in spans.items()}, busy=busy,
+                gap_us=gap_us, launches=total, timed_launches=launches,
+                predicted_launches=predicted, fusing_keyframes=fusing, keyframes=slam.n_kf,
+                graph_vs_eager=worst, syncs_per_frame=n_sync / timed, region_syncs=audit,
+                peak_mem_mib=peak / 2**20, **acc), seq
+
+
+def stereo_bound_us(fl, fr, il, ir) -> dict:
+    """The least time the card could take for ``match_stereo``: every input
+    read once and every output (u_r and depth f32, valid bool) written once
+    at the HBM rate, against the int8 operations of the dense Hamming
+    product (NL x NR x 256 multiply-adds) at the tensor-core rate."""
+    ins = (fl.xy, fl.level, fl.valid, fl.desc_sign, fr.xy, fr.level, fr.valid, fr.desc_sign,
+           il, ir)
+    n_bytes = sum(t.numel() * t.element_size() for t in ins) + fl.xy.shape[0] * 9
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e6
+    by_ops = fl.xy.shape[0] * fr.xy.shape[0] * 256 * 2 / INT8_OPS_PER_S * 1e6
+    return dict(bound_us=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations", bytes=n_bytes)
+
+
+def phase_stereo_kernels(torch, project_match, seq) -> dict:
+    """Phase 15 (b): K1 at the KITTI shape (768 rows x the 2040 feature
+    slots of 2000 features, both radii of the lean schedule, ties planted
+    on its split boundaries) against its plain version, exact, then timed;
+    ``match_stereo`` on the sequence's first pair, its matches' depth held
+    to the rendered depth, timed."""
+    from orb_slam3_ros_tpu_torch.ops import orb, stereo
+
+    cfg = orb.default_config(ST_H, ST_W, n_features=ST_SLAM_KW["n_features"])
+    n = cfg.total_cap
+    check(n == ST_SLOTS, f"{n} feature slots at the KITTI shape, expected {ST_SLOTS}")
+    k = phase_kernel(torch, project_match, P_TRACK, 60.0, 50, n=n, width=ST_W, height=ST_H)
+    k4 = phase_kernel(torch, project_match, P_TRACK, 4.0, 50, n=n, width=ST_W, height=ST_H)
+    il, ir = seq.images[0], seq.images_right[0]
+    fl, fr = orb.extract(il, cfg), orb.extract(ir, cfg)
+    fx = float(seq.cam_params[0])
+
+    def fn():
+        return stereo.match_stereo(fl, fr, il, ir, fx=fx, baseline=ST_BASE)
+
+    sm = fn()
+    valid = sm.valid.cpu().numpy()
+    xy = fl.xy.cpu().numpy()[valid]
+    d_est = sm.depth.cpu().numpy()[valid]
+    dep = seq.depths[0].cpu().numpy()
+    d_gt = dep[np.clip(xy[:, 1].astype(int), 0, ST_H - 1), np.clip(xy[:, 0].astype(int), 0, ST_W - 1)]
+    rel = np.abs(d_est - d_gt) / d_gt
+    med, within = float(np.median(rel)), float((rel < 0.15).mean())
+    check(valid.sum() > 100, f"only {valid.sum()} stereo matches")
+    check(med <= 0.05 and within >= 0.8,
+          f"stereo depth: median relative error {med:.4f}, {within:.1%} within 15%")
+    n_sync = sync_calls(torch, fn)
+    check(n_sync == 0, f"match_stereo made {n_sync} synchronizing calls")
+    ms = cuda_ms(fn, 50)
+    dev_us = device_us(fn, 20)
+    bound = stereo_bound_us(fl, fr, il, ir)
+    print(f"match_stereo at {n}x{n} features ({ST_W}x{ST_H}): {int(valid.sum())} matches, depth "
+          f"median relative error {med:.4f}, {within:.1%} within 15% of the rendered depth; call "
+          f"{ms * 1e3:.1f} us (median of 50, CUDA events), device {dev_us:.1f} us (20 queued calls);"
+          f" bound {bound['bound_us']:.3f} us by {bound['bound_by']} ({bound['bytes']} B); "
+          f"synchronizing calls 0")
+    return dict(k1=k, k1_r4=k4, stereo_matches=int(valid.sum()), stereo_depth_median_rel=med,
+                stereo_depth_within_15=within, stereo_ms=ms, stereo_device_us=dev_us,
+                stereo_bound_us=bound["bound_us"], stereo_bound_by=bound["bound_by"])
+
+
+def phase_stereo_vi(torch, project_match) -> dict:
+    """Phase 15 (c): ``StereoInertialSlam`` at phase 8's configuration with
+    a 0.11 m stereo rig, per frame until ``_vi_chunkable()``, then chunks of
+    15 of a uint8 stack of pairs."""
+    from orb_slam3_ros_tpu_torch.models import system
+    from orb_slam3_ros_tpu_torch.models.stereo_system import StereoInertialSlam
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
+
+    n_frames = VI_SEQ_KW["n_frames"]
+    seq, im = synth.make_vi_sequence(**VI_SEQ_KW, stereo_baseline=SVI_BASE)
+    slam = StereoInertialSlam(cam_params=seq.cam_params, calib=vi_calib(), baseline=SVI_BASE,
+                              **{**VI_SLAM_KW, "max_points": SVI_MAX_POINTS})
+    pairs = torch.clamp(torch.stack([seq.images, seq.images_right], 1), 0, 255).to(torch.uint8)
+    first, lost = [], []
+
+    def frame(i):
+        return slam.process_frame(seq.images[i], seq.images_right[i], float(seq.timestamps[i]),
+                                  acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i])
+
+    reset_launches(project_match)
+    t0 = time.perf_counter()
+    i = 0
+    while i < n_frames and not slam._vi_chunkable():
+        per_frame_run(frame, [i], first, lost)
+        i += 1
+    per_frame_s, i_steady = time.perf_counter() - t0, i
+    check(i_steady <= n_frames - 2 * CHUNK, f"the stereo VI chunk gate held only at frame {i}")
+    chunk_ms = []
+    while i + CHUNK <= n_frames:
+        s = slice(i, i + CHUNK)
+        t1 = time.perf_counter()
+        slam.process_frames((pairs, i), seq.timestamps[s], acc=im["acc"][s], gyro=im["gyro"][s],
+                            dts=im["dts"][s])
+        chunk_ms.append((time.perf_counter() - t1) * 1e3)
+        if len(chunk_ms) == 1:
+            runner = slam._vi_runner
+            check(runner is not None and runner.graphs and runner.stereo,
+                  "the stereo-inertial chunks did not run on graphs of the stereo branch")
+            runner.timing = True
+        i += CHUNK
+    per_frame_run(frame, range(i, n_frames), first, lost)
+    torch.cuda.synchronize()
+    runner.timing = False
+    launches = dict(project_match.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    steps = [a.elapsed_time(b) for name, a, b in runner.spans if isinstance(name, tuple)]
+    nodes = {("step" if isinstance(k, tuple) else k): graph_nodes(g)
+             for k, (g, _) in runner._graph.items()}
+    fps = (len(chunk_ms) - 1) * CHUNK / (sum(chunk_ms[1:]) / 1e3) if len(chunk_ms) > 1 else None
+    acc = vi_accuracy(slam, seq, im, n_frames)
+    check(first and first[0] == 0, f"stereo-inertial initialized at frame {first[:1]}")
+    check(not lost, f"frames without a pose: {lost}")
+    check(slam.imu_initialized and slam.imu_fix_scale and slam.imu_stage == 3,
+          f"IMU initialized {slam.imu_initialized}, fix_scale {slam.imu_fix_scale}, stage "
+          f"{slam.imu_stage}")
+    check(slam.bad_imu_resets == 0, f"{slam.bad_imu_resets} bad-IMU resets")
+    check(slam.state == system.OK, f"state {slam.state} at the end")
+    check(acc["poses"] == n_frames, f"{acc['poses']} poses for {n_frames} frames")
+    limit = min(2 * ST_JAX["c_ate_m"], VI_ATE_LIMIT)
+    check(acc["ate_metric_m"] <= limit,
+          f"stereo-inertial metric ATE {acc['ate_metric_m']:.5f} m above {limit:.5f} m")
+    check(abs(acc["scale"] - 1.0) <= VI_SCALE_TOL, f"stereo-inertial scale {acc['scale']:.5f}")
+    check(launches["track"] > 0, "the stereo-inertial run launched no tracking search")
+    print(f"stereo-inertial (c): initialized at frame {first[0]}, IMU stage {slam.imu_stage} "
+          f"(scale fixed), chunkable at frame {i_steady} after {per_frame_s:.1f} s per frame; "
+          f"{len(chunk_ms)} chunks of {CHUNK}, the first {chunk_ms[0]:.0f} ms (graphs captured in "
+          f"{runner.capture_s:.2f} s), then {fps:.2f} frames/s; step graph "
+          f"{np.median(steps):.2f} ms median over {len(steps)} replays (nodes {nodes}); metric ATE "
+          f"{acc['ate_metric_m']:.5f} m (JAX package, CPU: {ST_JAX['c_ate_m']:.5f} m), scale "
+          f"{acc['scale']:.5f}, R[2,2] {acc['r22']:.5f}, bg err {acc['bg_err']:.2e}; "
+          f"{slam.n_kf} keyframes, {slam.n_pts} of {slam.P_cap} point slots; K1 launches "
+          f"{launches}; {run_s:.1f} s")
+    return dict(init_frame=first[0], chunkable_frame=i_steady, frames_per_s=fps,
+                step_ms=float(np.median(steps)), graph_nodes=nodes, launches=launches,
+                imu_stage=slam.imu_stage, resets=slam.bad_imu_resets, seconds=run_s, **acc)
+
+
+def phase_rgbd(torch, project_match) -> dict:
+    """Phase 15 (d): ``RgbdSlam`` at the TUM RGB-D shape and
+    ``RgbdInertialSlam`` at that shape with phase 8's IMU, per frame."""
+    from orb_slam3_ros_tpu_torch.models.stereo_system import RgbdInertialSlam, RgbdSlam
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
+
+    out = {}
+    shape = dict(height=RGBD_H, width=RGBD_W)
+    for name in ("rgbd", "rgbd_vi"):
+        reset_launches(project_match)
+        t0 = time.perf_counter()
+        first, lost = [], []
+        if name == "rgbd":
+            n = RGBD_FRAMES
+            seq = synth.make_sequence(n_frames=n, dt=0.1, seed=3, with_depth=True, **shape)
+            slam = RgbdSlam(cam_params=seq.cam_params, **shape, **RGBD_SLAM_KW)
+            per_frame_run(lambda i: slam.process_frame(seq.images[i], seq.depths[i],
+                                                       float(seq.timestamps[i])),
+                          range(n), first, lost)
+            acc = stereo_accuracy(slam, seq)
+        else:
+            n = RGBD_VI_FRAMES
+            seq, im = synth.make_vi_sequence(**{**VI_SEQ_KW, "n_frames": n, **shape},
+                                             with_depth=True)
+            slam = RgbdInertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
+                                    **{**VI_SLAM_KW, **shape})
+            per_frame_run(lambda i: slam.process_frame(
+                seq.images[i], seq.depths[i], float(seq.timestamps[i]), acc=im["acc"][i],
+                gyro=im["gyro"][i], dts=im["dts"][i]), range(n), first, lost)
+            acc = stereo_accuracy(slam, seq, skip=VI_SKIP)
+            check(slam.imu_initialized, "RGB-D-inertial: the IMU was not initialized")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(project_match.LAUNCHES)
+        check(first and first[0] == 0, f"{name} initialized at frame {first[:1]}, not frame 0")
+        check(not lost, f"{name}: frames without a pose: {lost}")
+        check_stereo_accuracy(acc, ST_JAX[f"d_{name}_ate_m"], n, name, ST_SCALE_TOL)
+        check(launches["track"] > 0, f"{name} launched no tracking search")
+        print(f"{name} (d): {RGBD_W}x{RGBD_H}, {n} frames per frame in {secs:.1f} s "
+              f"({n / secs:.2f} frames/s); initialized at frame {first[0]}; metric ATE "
+              f"{acc['ate_metric_m']:.5f} m (JAX package, CPU: {ST_JAX[f'd_{name}_ate_m']:.5f} m), "
+              f"Sim(3) scale {acc['scale']:.5f}; {slam.n_kf} keyframes; K1 launches {launches}")
+        out[name] = dict(init_frame=first[0], frames_per_s=n / secs, launches=launches,
+                         keyframes=slam.n_kf, **acc)
+    return out
+
+
+def phase_stereo(torch, project_match) -> dict:
+    """Phase 15: stereo and RGB-D, (a) to (d)."""
+    t0 = time.perf_counter()
+    a, seq = phase_stereo_chunk(torch, project_match)
+    b = phase_stereo_kernels(torch, project_match, seq)
+    del seq
+    c = phase_stereo_vi(torch, project_match)
+    d = phase_rgbd(torch, project_match)
+    secs = time.perf_counter() - t0
+    launches = {k: sum(x["launches"][k] for x in (a, c, d["rgbd"], d["rgbd_vi"]))
+                for k in a["launches"]}
+    print(f"phase 15: {secs:.1f} s; K1 launches on its main paths {launches}")
+    return dict(a=a, b=b, c=c, d=d, seconds=secs, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -2040,10 +2461,12 @@ def main() -> int:
     lv = phase_loop_vi(torch, project_match, vc)
     la = lp["closed_loop"]
     at = phase_atlas(torch, project_match, map_seq)
+    st = phase_stereo(torch, project_match)
+    kb = st["b"]
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
-                      "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "card": smi[0]},
-                     default=str))
+                      "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "stereo": st,
+                      "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
@@ -2052,10 +2475,12 @@ def main() -> int:
         # the main paths: mapping (phase 7), mono-inertial (phase 8), its
         # chunk loop (phase 9), the mono chunk loop (phase 10),
         # relocalization (phase 11), mono loop closing (phase 12 (a), (b)),
-        # VI loop closing (phase 13) and the Atlas (phase 14 (a), (b), (c)),
-        # the counts set to 0 before each and read after it
+        # VI loop closing (phase 13), the Atlas (phase 14 (a), (b), (c)) and
+        # stereo and RGB-D (phase 15 (a), (c), (d)), the counts set to 0
+        # before each and read after it
         "launches": sum(sum(x["launches"].values())
-                        for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"])),
+                        for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"],
+                                  st)),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
@@ -2075,6 +2500,12 @@ def main() -> int:
         "launches_merge": at["launches"]["merge"],
         "launches_atlas_track": at["launches"]["track"],
         "launches_atlas_fuse": at["launches"]["fuse"],
+        "launches_stereo_track": st["launches"]["track"],
+        "launches_stereo_fuse": st["launches"]["fuse"],
+        "launches_stereo_chunk_track": st["a"]["launches"]["track"],
+        "launches_stereo_chunk_fuse": st["a"]["launches"]["fuse"],
+        "launches_stereo_vi_track": st["c"]["launches"]["track"],
+        "launches_rgbd_track": st["d"]["rgbd"]["launches"]["track"] + st["d"]["rgbd_vi"]["launches"]["track"],
         "merge_ms": at["merge_ms"],
         "merge_plain_ms": at["merge_plain_ms"],
         "merge_device_us": at["merge_device_us"],
@@ -2084,7 +2515,8 @@ def main() -> int:
         "sim3_device_us": la["sim3_device_us"],
         "sim3_bound_us": la["sim3_bound_us"],
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"],
-                           la["sim3_max_abs_err"], at["merge_max_abs_err"]),
+                           la["sim3_max_abs_err"], at["merge_max_abs_err"],
+                           kb["k1"]["max_abs_err"], kb["k1_r4"]["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_us"] / 1e3,
@@ -2107,6 +2539,13 @@ def main() -> int:
         "kernel_launches_per_call": k["kernel_launches"],
         "r4_kernel_launches_per_call": k4["kernel_launches"],
         "fuse_kernel_launches_per_call": kf["kernel_launches"],
+        # the KITTI shape (P = 768, N = 2040), phase 15 (b)
+        "kitti_ms": kb["k1"]["ms"],
+        "kitti_plain_ms": kb["k1"]["plain_ms"],
+        "kitti_device_us": kb["k1"]["device_us"],
+        "kitti_bound_us": kb["k1"]["bound_us"],
+        "kitti_r4_ms": kb["k1_r4"]["ms"],
+        "kitti_r4_device_us": kb["k1_r4"]["device_us"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -21,7 +21,11 @@ relocalization, loop closing with its asynchronous global BA
 ``ops/ba_pcg.py``), the Atlas of archived maps with its cross-map weld
 (``models/atlas.py``), whole-session checkpoints in the JAX package's file
 format (``utils/checkpoint.py``) and the ``run_synth`` / ``evaluate``
-CLIs.
+CLIs; stereo and RGB-D, alone and with an IMU
+(``models/stereo_system.py``: ``StereoSlam``, ``RgbdSlam``,
+``StereoInertialSlam``, ``RgbdInertialSlam``, with ``ops/stereo.py``'s
+stereo matching and the stereo branch of both chunk loops). The fisheye
+(KB8) camera and its stereo rig are not ported yet.
 
 Entry points run on the CUDA device unless the caller passes ``device``:
 ``device=None`` resolves through :func:`default_device`, which raises where

@@ -1,7 +1,8 @@
 """What the monocular and the visual-inertial chunk loops share
 (``device_loop.MonoChunkRunner``, ``vi_device_loop.VIChunkRunner``): the
 static buffers, one CUDA graph per region, the replay loop with its two-word
-host read a frame, and the frame's output row.
+host read a frame, the frame's output row, and the stereo branch's frame
+preparation and keyframe point creation.
 
 Where the JAX package compiles a chunk into one XLA program (``lax.scan``
 over the frames, the keyframe work under ``lax.cond``), a runner captures
@@ -21,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import project_match
+from ..ops import orb, project_match, stereo
+from . import map_updates, tracking
 from .map_state import MapState, kf_index
 
 
@@ -43,9 +45,11 @@ ROW_LEN = 28
 # The carry's scalars, the same in both loops, with their buffers' dtypes.
 CARRY_SCALARS = {"n_kf": torch.int32, "n_pts": torch.int32, "last_kf_fid": torch.int32,
                  "alive": torch.bool, "ref_inl": torch.int32}
-# What a keyframe's segments read of the frame that made it.
+# What a keyframe's segments read of the frame that made it; a stereo
+# chunk's also read each feature's right-image x and depth (-1 where none).
 FRAME_KEYS = ("f_xy", "f_level", "f_angle", "f_desc", "f_valid", "f_pt",
               "kf_R", "kf_t", "kf_ts", "kf_id", "n_vis")
+STEREO_KEYS = ("f_ur", "f_depth")
 
 
 def frame_row(m: MapState, ref, R_cur, t_cur, n_inliers, is_kf, alive) -> torch.Tensor:
@@ -81,6 +85,40 @@ def read_host(*tensors) -> list:
         out.append(flat[o : o + t.numel()].reshape(t.shape))
         o += t.numel()
     return out
+
+
+def prep_frame(img, cfg):
+    """A frame's features, and with ``cfg.stereo`` each feature's
+    right-image x and depth (-1 where unmatched) from the [2, H, W] pair:
+    the JAX chunks' ``_prep_stereo`` / ``_prep_one``. Returns (feats, ur,
+    depth), the last two None for a monocular frame."""
+    if not cfg.stereo:
+        return orb.extract(img.to(torch.float32), cfg.config), None, None
+    il, ir = img[0].to(torch.float32), img[1].to(torch.float32)
+    fl = orb.extract(il, cfg.config)
+    fr = orb.extract(ir, cfg.config)
+    sm = stereo.match_stereo(fl, fr, il, ir, fx=cfg.fx, baseline=cfg.baseline)
+    return (fl, torch.where(sm.valid, sm.u_right, -1.0),
+            torch.where(sm.valid, sm.depth, -1.0))
+
+
+def admit_keyframe_points(m, kf_id, R, t, xy, valid, depth, n_pts, room, cam_params,
+                          max_depth: float = 0.0):
+    """A new keyframe's landmarks into the point slots from ``n_pts`` on,
+    at most ``room`` of them: with a ``depth`` per feature (stereo, RGB-D;
+    -1 where none) first the close points (under ``max_depth``) from
+    depth, metric, at the keyframe's pose (R, t); then triangulation
+    against the previous keyframe binds what is still unbound (far points,
+    every monocular one). Returns (map, points admitted as a 0-d tensor)."""
+    base, n_new = n_pts, 0
+    if depth is not None:
+        cand = (depth > 0) & (depth < max_depth) & valid
+        X_c = stereo.backproject(cam_params, xy, depth)
+        m, n_new = map_updates.admit_depth_points(m, kf_id, (X_c - t) @ R, cand, base, room)
+        base = base + n_new
+    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params)
+    m, n_tri = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, base, room - n_new)
+    return m, n_new + n_tri
 
 
 def kf_segments(cfg, kf_id: int) -> tuple:
@@ -145,12 +183,20 @@ class ChunkRunner:
 
     @staticmethod
     def step(c, img, x_in, cfg, schedule):
-        """One frame: returns (carry, fr), ``fr`` holding ``FRAME_KEYS``,
+        """One frame: returns (carry, fr), ``fr`` holding ``frame_keys()``,
         the frame's ``row`` and its ``flags`` (need_kf, alive)."""
         raise NotImplementedError
 
     def x_len(self) -> int:
         raise NotImplementedError
+
+    @property
+    def stereo(self) -> bool:
+        """Whether a frame is a [2, H, W] stereo pair (the config's flag)."""
+        return bool(self.cfg.stereo)
+
+    def frame_keys(self) -> tuple:
+        return FRAME_KEYS + (STEREO_KEYS if self.stereo else ())
 
     # ---- state -------------------------------------------------------
     def carry(self, buf=None):
@@ -196,8 +242,9 @@ class ChunkRunner:
                 b[k] = torch.zeros((), dtype=CARRY_SCALARS[k], device=dev)
             else:
                 b[k] = torch.empty_like(v, device=dev)
+        img_shape = (2, cfg.height, cfg.width) if self.stereo else (cfg.height, cfg.width)
         b.update(
-            img=torch.zeros((cfg.height, cfg.width), **f32),
+            img=torch.zeros(img_shape, **f32),
             x_in=torch.zeros((self.x_len(),), **f32),
             f_xy=torch.zeros((N, 2), **f32), f_level=torch.zeros((N,), **i32),
             f_angle=torch.zeros((N,), **f32),
@@ -208,6 +255,8 @@ class ChunkRunner:
             kf_id=torch.zeros((), **i32), n_vis=torch.zeros((), **i32),
             row=torch.zeros((ROW_LEN,), **f32), flags=torch.zeros((2,), **i32),
         )
+        if self.stereo:
+            b.update(f_ur=torch.zeros((N,), **f32), f_depth=torch.zeros((N,), **f32))
         self.buf = b
 
     def _commit(self, buf: dict, c, fr: dict | None = None) -> None:
@@ -239,7 +288,7 @@ class ChunkRunner:
         seg = self.SEGMENTS[name]
 
         def kf(buf):
-            out = seg(self.carry(buf), {k: buf[k] for k in FRAME_KEYS}, cfg)
+            out = seg(self.carry(buf), {k: buf[k] for k in self.frame_keys()}, cfg)
             c, fr2 = (out, None) if isinstance(out, self.CARRY) else out
             self._commit(buf, c, None if fr2 is None else {"row": fr2["row"]})
 

@@ -24,9 +24,18 @@ state as it was, and the host replays it and the frames after it one at a
 time (the JAX scan runs on past it with the state frozen; the frames the
 host replays are the same).
 
+The stereo branch (``ChunkConfig.stereo``, the stereo system's chunks):
+a frame is a [2, H, W] rectified pair; the step extracts both views, runs
+``stereo.match_stereo`` and, after tracking, refines the pose over mixed
+(u, v, u_r) edges (``pose_optimization_stereo``); the keyframe body inserts
+with each feature's u_r, creates the close landmarks from stereo depth
+(Tracking::CreateNewKeyFrame, Tracking.cc:3255) before triangulating, and
+its local BA builds (u, v, u_r) rows with ``bf``. The same seven graphs,
+the same two-word read a frame.
+
 Not ported (ROADMAP "Do not port"): the tunnel's packing
 (``pack_chunk_result`` / ``unpack_chunk_result``), ``_prep_xs`` and the
-``ORB_BATCH_EXTRACT`` knob; the stereo branch waits for ROADMAP item 6.
+``ORB_BATCH_EXTRACT`` knob.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 
 from ..ops import ba, orb
 from . import local_mapping, map_updates, tracking
-from .chunk_runner import ChunkRunner, frame_row
+from .chunk_runner import ChunkRunner, admit_keyframe_points, frame_row, prep_frame
 from .map_state import MapState, kf_index
 from .vi_device_loop import need_keyframe
 
@@ -78,21 +87,29 @@ class ChunkConfig(NamedTuple):
     K_cap: int
     track_cap: int | None
     track_window: int | None
+    # The stereo branch: fx * baseline of the u_r rows (0: none), the rig's
+    # baseline and fx, the depth below which a keyframe creates landmarks
+    # from stereo depth, and whether a frame is a [2, H, W] pair.
+    bf: float = 0.0
+    baseline: float = 0.0
+    max_depth: float = 0.0
+    stereo: bool = False
+    fx: float = 0.0
 
 
 def frame_step(c: LoopCarry, img, x_in, cfg: ChunkConfig, schedule: tuple):
     """One frame: the JAX chunk's scan body up to its keyframe branch
-    (``device_loop.py:216-281``). ``img`` [H, W] (any real dtype, values in
-    [0, 255]); ``x_in`` [2] f32: the frame's timestamp and id. Returns
-    (carry, fr): ``fr`` holds what a keyframe at this frame needs (``f_*``
-    features, the tracked pose, ``kf_id``) and the frame's ``row`` and
-    ``flags`` (need_kf, alive). The carry already counts the keyframe the
-    flags call for."""
+    (``device_loop.py:216-281``). ``img`` [H, W], or [2, H, W] with
+    ``cfg.stereo`` (any real dtype, values in [0, 255]); ``x_in`` [2] f32:
+    the frame's timestamp and id. Returns (carry, fr): ``fr`` holds what a
+    keyframe at this frame needs (``f_*`` features, the tracked pose,
+    ``kf_id``) and the frame's ``row`` and ``flags`` (need_kf, alive). The
+    carry already counts the keyframe the flags call for."""
     ts = x_in[0]
     fid = x_in[1].to(torch.int32)
     R_pred = c.vel_R @ c.R
     t_pred = c.vel_R @ c.t + c.vel_t
-    feats = orb.extract(img.to(torch.float32), cfg.config)
+    feats, ur, depth = prep_frame(img, cfg)
     pt_mask = None
     if cfg.track_window is not None:
         pt_mask = c.m.pt_first_kf >= (c.n_kf - cfg.track_window)
@@ -100,6 +117,11 @@ def frame_step(c: LoopCarry, img, x_in, cfg: ChunkConfig, schedule: tuple):
         c.m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
         pt_mask=pt_mask, schedule=schedule, track_cap=cfg.track_cap,
     )
+    if cfg.stereo:
+        from .stereo_system import _stereo_refine
+
+        r2 = _stereo_refine(c.m, feats, res.feat_pt, ur, res.R, res.t, cfg.cam_params, cfg.bf)
+        res = res._replace(R=r2.R, t=r2.t, n_inliers=r2.n_inliers)
     n_inl = res.n_inliers
     ok = c.alive & (n_inl >= 15)
     R_new = torch.where(ok, res.R, c.R)
@@ -123,6 +145,8 @@ def frame_step(c: LoopCarry, img, x_in, cfg: ChunkConfig, schedule: tuple):
                       torch.where(c.alive, n_inl, torch.zeros_like(n_inl)), need_kf, ok),
         flags=torch.stack([need_kf, ok]).to(torch.int32),
     )
+    if cfg.stereo:
+        fr.update(f_ur=ur, f_depth=depth)
     c2 = LoopCarry(
         m=m, R=R_new, t=t_new, vel_R=vel_R, vel_t=vel_t,
         n_kf=c.n_kf + need_kf.to(torch.int32), n_pts=c.n_pts,
@@ -140,15 +164,20 @@ def _kf_feats(fr: dict) -> orb.Features:
 
 
 def kf_insert(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
-    """Keyframe segment 1: insert the keyframe at its tracked pose,
-    triangulate against the previous keyframe and admit the new points."""
+    """Keyframe segment 1: insert the keyframe at its tracked pose (with
+    its features' u_r in a stereo chunk) and admit its new points
+    (``admit_keyframe_points``)."""
     m, kf_id = c.m, fr["kf_id"]
     m = map_updates.insert_keyframe(
-        m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"]
+        m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"],
+        ur=fr["f_ur"] if cfg.stereo else None,
     )
-    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cfg.cam_params)
-    m, n_tri = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, c.n_pts, m.P - c.n_pts)
-    return c._replace(m=m, n_pts=c.n_pts + n_tri)
+    m, n_new = admit_keyframe_points(
+        m, kf_id, fr["kf_R"], fr["kf_t"], fr["f_xy"], fr["f_valid"],
+        fr["f_depth"] if cfg.stereo else None, c.n_pts, m.P - c.n_pts, cfg.cam_params,
+        cfg.max_depth,
+    )
+    return c._replace(m=m, n_pts=c.n_pts + n_new)
 
 
 def kf_fuse(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
@@ -168,7 +197,7 @@ def kf_ba(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
         m, kf_id, cfg.ba_window, cfg.ba_fixed
     )
     prob, sel = local_mapping.build_local_ba(
-        m, window_ids, fixed, cfg.cam_params, entry_valid=entry_valid
+        m, window_ids, fixed, cfg.cam_params, bf=cfg.bf, entry_valid=entry_valid
     )
     res = ba.bundle_adjust(prob, n_iters=cfg.local_ba_iters, rel_tol=1e-3, on_device=True)
     m = local_mapping.apply_local_ba(m, window_ids, sel, res, entry_valid)

@@ -50,8 +50,14 @@ break and, with both maps initialized, is rigid and followed by a welding
 VI-BA. At a chunk boundary a weld rebuilds the chunk's inertial state and
 takes the newest keyframe's state.
 
-Not ported (each raises, naming its ROADMAP item): stereo / RGB-D
-inertial, the ``on_frame`` hook.
+The stereo- and RGB-D-inertial systems (``stereo_system``) build on this
+class: their keyframes carry u_r and create close landmarks from depth
+(``_vi_kf_work``), every VI-BA builds (u, v, u_r) rows with ``bf``, their
+frames reach the 15-dof refinement through ``_track_post`` (monocular once
+the IMU is initialized, the stereo refinement before), and the
+stereo-inertial chunks take [2, H, W] pairs.
+
+Not ported (it raises, naming its ROADMAP item): the ``on_frame`` hook.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ import torch
 from ..ops import imu as imu_ops
 from ..ops import orb, viba
 from . import local_mapping, map_state, map_updates, tracking, vi_device_loop
-from .chunk_runner import read_host, read_rows
+from .chunk_runner import admit_keyframe_points, read_host, read_rows
 from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
 
 
@@ -72,25 +78,30 @@ def _vi_kf_work(
     m, kf_id, R, t, ts, feats, feat_pt, n_pts, free_cap, vb_new,
     window_ids, fixed, imu_blocks, edge_ok, calib, cam_params,
     *, width, height, fuse_neighbors, do_fuse, do_stats, do_cull, n_iters, n_levels,
+    bf=0.0, ur=None, depth=None, max_depth=0.0,
 ):
     """One VI keyframe's mapping work (LocalMapping::Run with
     LocalInertialBA): insert -> record body state -> triangulate -> admit
     -> fuse -> temporal-window VI-BA -> culls. ``vb_new`` [9]: the new
     keyframe's (v, bg, ba); ``imu_blocks`` [W-1, S, 7]: per-edge IMU blocks
-    (acc | gyro | dt). Returns (map, n_new_points as a 0-d tensor)."""
-    m = map_updates.insert_keyframe(m, kf_id, R, t, ts, feats, feat_pt)
+    (acc | gyro | dt). A stereo or RGB-D keyframe passes its features'
+    ``ur`` and ``depth`` (-1 where none): it creates the close landmarks
+    (depth under ``max_depth``) from depth before triangulating far ones
+    (Tracking.cc:3255), and its VI-BA builds (u, v, u_r) rows with ``bf``.
+    Returns (map, n_new_points as a 0-d tensor)."""
+    m = map_updates.insert_keyframe(m, kf_id, R, t, ts, feats, feat_pt, ur=ur)
     m.kf_v[kf_id] = vb_new[0:3]
     m.kf_bg[kf_id] = vb_new[3:6]
     m.kf_ba[kf_id] = vb_new[6:9]
-    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params)
-    m, n_new = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, n_pts, free_cap)
+    m, n_new = admit_keyframe_points(m, kf_id, R, t, feats.xy, feats.valid, depth, n_pts,
+                                     free_cap, cam_params, max_depth)
     if do_fuse:
         m, _ = map_updates.fuse_in_neighbors(
             m, kf_id, cam_params, width, height, n_neighbors=fuse_neighbors
         )
     prob = local_mapping.build_vi_ba(
         m, window_ids, fixed, imu_blocks[..., 0:3], imu_blocks[..., 3:6], imu_blocks[..., 6],
-        edge_ok, calib, cam_params,
+        edge_ok, calib, cam_params, bf=bf,
     )
     res = viba.vi_bundle_adjust(prob, n_iters=n_iters)
     m = local_mapping.apply_vi_ba(m, window_ids, res, calib)
@@ -150,6 +161,7 @@ class InertialSlam(MonoSlam):
         self.time_recently_lost = time_recently_lost
         self._lost_since_ts = None
         self._vi_anchor = None  # (R_wb, p_wb, v, bg, ba) on the device
+        self._host_anchor = None  # the host's state a frame's IMU prediction started from
         self._vi_prior = None  # [15,15] anchor posterior cov on the device
         self.calib = imu_ops.ImuCalib(*(
             torch.as_tensor(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32))
@@ -311,8 +323,24 @@ class InertialSlam(MonoSlam):
         previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
         if self.on_frame is not None:
             raise _not_ported("the on_frame observation hook", "7")
-        # Per-frame processing changes host state the chunk's inertial state
-        # does not see: the next chunk rebuilds it.
+        has_imu = self._record_frame_imu(ts, acc, gyro, dts)
+        if self.imu_initialized and self.vi_tracking and has_imu and self.state in (OK, RECENTLY_LOST):
+            self._check_ts_jump(ts)
+            if self.state in (OK, RECENTLY_LOST):
+                return self._process_frame_vi(img, ts)
+        return super().process_frame(img, ts)
+
+    def _fallback_frame_imu(self, img, ts, acc, gyro, dts):
+        """One frame of a chunk that runs per frame, with its IMU block:
+        ``process_frame``; the stereo-inertial system splits its [2, H, W]
+        pair here."""
+        return self.process_frame(img, ts, acc=acc, gyro=gyro, dts=dts)
+
+    def _record_frame_imu(self, ts, acc, gyro, dts) -> bool:
+        """Append a frame's IMU block to the history and make it the
+        frame's; per-frame processing changes host state the chunk's
+        inertial state does not see, so the next chunk rebuilds it.
+        Returns whether the frame has samples."""
         self._vi_dev_valid = False
         has_imu = acc is not None and len(acc) > 0
         if has_imu:
@@ -323,11 +351,7 @@ class InertialSlam(MonoSlam):
             if len(self._imu_history) > 200:
                 self._imu_history.pop(0)
         self._frame_imu = (acc, gyro, dts) if has_imu else (None, None, None)
-        if self.imu_initialized and self.vi_tracking and has_imu and self.state in (OK, RECENTLY_LOST):
-            self._check_ts_jump(ts)
-            if self.state in (OK, RECENTLY_LOST):
-                return self._process_frame_vi(img, ts)
-        return super().process_frame(img, ts)
+        return has_imu
 
     def _collect_block(self, t0: float, t1: float):
         """Concatenate the IMU samples of frames with ts in (t0, t1] into a
@@ -365,10 +389,15 @@ class InertialSlam(MonoSlam):
     def _predict_motion(self, ts):
         """Seed the motion model with the IMU prediction (PredictStateIMU
         replaces constant velocity) on frames that go through the visual
-        tracker: ``vi_tracking=False``."""
+        tracker (``vi_tracking=False``; the stereo-inertial frames). The
+        body state the prediction starts from is kept as the frame's anchor
+        for ``_track_post``: ``v_cur`` becomes the predicted velocity here,
+        and an anchor rebuilt from the host after this call would pair the
+        previous pose with the current velocity (the JAX package does,
+        ROADMAP "Known faults in the reference")."""
         if not self.imu_initialized or self._frame_imu[0] is None:
             return
-        R_wb, p_wb, v, bg, ba = self._body_state_from_host()
+        R_wb, p_wb, v, bg, ba = self._host_anchor = self._body_state_from_host()
         b = torch.cat([bg, ba])
         pre = self._preint_block(self._frame_block(), b)
         R2, p2, v2 = imu_ops.predict_state(R_wb, p_wb, v, b, pre)
@@ -422,6 +451,34 @@ class InertialSlam(MonoSlam):
         out = self._vi_post(feats, res, vires, ts, buf)
         self.frame_id += 1
         return out
+
+    def _track_post(self, feats, res, ts):
+        """The 15-dof refinement of a visually tracked frame once the IMU is
+        initialized (the JAX package's ``InertialSlam._track_post``): the
+        path of frames whose features a subclass extracted (stereo, RGB-D),
+        seeded by the IMU-predicted motion model and velocity, anchored at
+        the state that prediction started from. Otherwise the parent's (the
+        stereo refinement of a stereo system)."""
+        if not (self.imu_initialized and self.vi_tracking) or self._frame_imu[0] is None:
+            return super()._track_post(feats, res, ts)
+        dev = self.device
+        anchor, self._host_anchor = self._vi_anchor or self._host_anchor, None
+        R_anc, p_anc, v_anc, bg_anc, ba_anc = anchor or self._body_state_from_host()
+        anc_Sigma = self._vi_prior
+        if anc_Sigma is None:
+            anc_Sigma = torch.zeros((15, 15), dtype=torch.float32, device=dev)
+        pre = self._preint_block(self._frame_block(), torch.cat([bg_anc, ba_anc]))
+        vires, R_cw, t_cw = _vi_refine(
+            self.map, feats, res.feat_pt, res.R, res.t,
+            torch.as_tensor(self.v_cur, dtype=torch.float32, device=dev), bg_anc, ba_anc,
+            R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self.cam_params,
+            self.calib.R_bc, self.calib.t_bc,
+        )
+        buf = torch.cat([
+            vires.n_inliers.reshape(1).to(torch.float32), R_cw.reshape(9), t_cw,
+            vires.v_w, vires.bg, vires.ba,
+        ]).cpu().numpy()
+        return self._vi_post(feats, res, vires, ts, buf)
 
     def _vi_post(self, feats, res, vires, ts, buf):
         """The state ladder after a VI frame. ``buf`` [22]: the host copy of
@@ -568,6 +625,11 @@ class InertialSlam(MonoSlam):
         vb = torch.from_numpy(
             np.concatenate([self.v_cur, self.bg_cur, self.ba_cur]).astype(np.float32)
         ).to(dev)
+        sm = getattr(self, "_last_depth", None)
+        depth_kw = {}
+        if sm is not None and self.bf > 0:
+            depth_kw = dict(ur=torch.where(sm.valid, sm.u_right, -1.0),
+                            depth=torch.where(sm.valid, sm.depth, -1.0), max_depth=self.max_depth)
         self.map, n_new = _vi_kf_work(
             self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
             torch.as_tensor(self.t_cur, device=dev), ts, feats, track_res.feat_pt,
@@ -577,7 +639,7 @@ class InertialSlam(MonoSlam):
             do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
             do_stats=kf_id % self.stats_every == 0,
             do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
-            n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
+            n_iters=self.local_ba_iters, n_levels=self.config.n_levels, bf=self.bf, **depth_kw,
         )
         self.n_kf += 1
         self.last_kf_frame = self.frame_id
@@ -718,7 +780,7 @@ class InertialSlam(MonoSlam):
         )
         prob = local_mapping.build_vi_ba(
             self.map, window_ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
-            edge_ok, self.calib, self.cam_params,
+            edge_ok, self.calib, self.cam_params, bf=self.bf,
         )
         return prob, window_ids
 
@@ -775,7 +837,7 @@ class InertialSlam(MonoSlam):
         window_ids, fixed_d, blocks, edge_ok = self._window(lo, last, fixed, max(self.W, len(ids)))
         prob = local_mapping.build_vi_ba(
             self.map, window_ids, fixed_d, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
-            edge_ok, self.calib, self.cam_params,
+            edge_ok, self.calib, self.cam_params, bf=self.bf,
         )
         return prob, window_ids
 
@@ -810,6 +872,9 @@ class InertialSlam(MonoSlam):
             and self.imu_stage >= 3  # all three initialization stages done
             and self.state == OK
             and self.track_window is None
+            # a monocular keyframe body builds no u_r rows: a system with
+            # bf > 0 chunks only through the stereo branch
+            and (self.bf == 0.0 or self._chunk_stereo())
             # the chunk's temporal window assumes it is full
             and self.n_kf > self.W
         )
@@ -823,7 +888,10 @@ class InertialSlam(MonoSlam):
             fuse_neighbors=self.fuse_neighbors, fuse_every=self.fuse_every,
             stats_every=self.stats_every, cull_every=self.cull_every,
             kf_culling=self.kf_culling, K_cap=self.K_cap, imu_cap_frame=self.imu_cap_frame,
-            imu_cap_kf=self.imu_cap_kf, track_cap=self.track_cap,
+            imu_cap_kf=self.imu_cap_kf, track_cap=self.track_cap, bf=float(self.bf),
+            baseline=float(getattr(self, "baseline", 0.0)),
+            max_depth=float(getattr(self, "max_depth", 0.0)), stereo=self._chunk_stereo(),
+            fx=float(getattr(self, "fx", 0.0)),
         )
 
     def _fresh_vi_dev_state(self) -> vi_device_loop.VIDevState:
@@ -881,7 +949,7 @@ class InertialSlam(MonoSlam):
             self._make_room()
         if not ok_chunk:
             for i in range(C):
-                self.process_frame(frames[i], float(tss_np[i]), acc=acc[i], gyro=gyro[i], dts=dts[i])
+                self._fallback_frame_imu(frames[i], float(tss_np[i]), acc[i], gyro[i], dts[i])
             return
         self._run_vi_chunk(imgs[0], int(imgs[1]), frames, tss_np, acc, gyro, dts)
 
@@ -954,7 +1022,7 @@ class InertialSlam(MonoSlam):
             self._imu_history = [e for e in self._imu_history if e[0] < cut]
             self.frame_id = fid0 + k
             for i in range(k, C):
-                self.process_frame(frames[i], float(tss_np[i]), acc=acc[i], gyro=gyro[i], dts=dts[i])
+                self._fallback_frame_imu(frames[i], float(tss_np[i]), acc[i], gyro[i], dts[i])
 
     def _close_at_boundary(self, new_kfs) -> bool:
         """The loop-closure check and the Atlas's weld of a chunk's new

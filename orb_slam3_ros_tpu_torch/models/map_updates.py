@@ -62,11 +62,13 @@ def insert_keyframe(
     ts,
     feats: Features,
     feat_pt: torch.Tensor,
+    ur: torch.Tensor | None = None,
 ) -> MapState:
     """Write keyframe slot ``kf_id`` (an int or a 0-d tensor) in place
-    (KeyFrame ctor + observation binding) as a monocular keyframe: no stereo
-    right-image coordinates (``kf_ur`` = -1; the JAX package's ``ur``
-    argument serves stereo). ``ts``: a float or a 0-d tensor."""
+    (KeyFrame ctor + observation binding). ``ur`` [N]: the stereo
+    right-image x-coordinate of each feature, -1 on a monocular one; None
+    writes a monocular keyframe (all -1). ``ts``: a float or a 0-d
+    tensor."""
     k = kf_index(kf_id, m.kf_R.device)
 
     def put(table, row):
@@ -82,37 +84,53 @@ def insert_keyframe(
     put(m.kf_feat_valid, feats.valid)
     put(m.kf_obs, feat_pt)
     put(m.kf_ts, ts if isinstance(ts, torch.Tensor) else torch.full((), ts, device=m.kf_ts.device))
-    m.kf_ur.index_fill_(0, k, -1.0)
+    if ur is None:
+        m.kf_ur.index_fill_(0, k, -1.0)
+    else:
+        put(m.kf_ur, ur)
     return m
 
 
 def admit_depth_points(
     m: MapState,
-    kf_id: int,
+    kf_id,
     X_w: torch.Tensor,  # [N,3] backprojected candidates (world)
     cand: torch.Tensor,  # [N] candidate mask (valid depth)
-    base_id: int,
-    room: int,
+    base_id,
+    room,
 ) -> tuple[MapState, torch.Tensor]:
     """Create landmarks from per-feature depth into point slots
     [base_id, base_id + n) in feature order, at most ``room`` of them, and
     bind them in keyframe ``kf_id`` (the stereo/RGB-D point creation of
     ``Tracking::StereoInitialization`` / ``CreateNewKeyFrame``). In place;
-    returns (map, n_admitted as a 0-d int32 tensor). The taken rows own
-    distinct slots, so plain indexed writes replace the JAX package's
-    scatter-adds of masked deltas."""
+    the three scalars are ints or 0-d int32 tensors. Returns (map,
+    n_admitted as a 0-d int32 tensor). The writes are ``admit_new_points``'
+    scatter-adds of masked deltas: no data-dependent shape, so a CUDA graph
+    can hold them."""
     P = m.P
-    ok = cand & m.kf_feat_valid[kf_id] & (m.kf_obs[kf_id] < 0)
-    rank = torch.cumsum(ok.to(torch.int32), dim=0) - 1
+    dev = m.pt_X.device
+    k = kf_index(kf_id, dev)
+    obs = m.kf_obs.index_select(0, k)[0]
+    ok = cand & m.kf_feat_valid.index_select(0, k)[0] & (obs < 0)
+    rank = torch.cumsum(ok.to(torch.int32), dim=0, dtype=torch.int32) - 1
     take = ok & (rank < room)
-    slot = torch.clamp(base_id + rank, 0, P - 1).long()
-    sl = slot[take]
-    m.pt_valid[sl] = True
-    m.pt_X[sl] = X_w[take].to(m.pt_X.dtype)
-    m.pt_desc_sign[sl] = m.kf_desc_sign[kf_id][take]
-    m.pt_level[sl] = m.kf_level[kf_id][take]
-    m.pt_first_kf[sl] = kf_id
-    m.kf_obs[kf_id] = torch.where(take, slot.to(torch.int32), m.kf_obs[kf_id])
+    slot = torch.clamp(base_id + rank, 0, P - 1)
+    sl = slot.long()
+    ti = take.to(torch.int32)
+    desc = m.kf_desc_sign.index_select(0, k)[0]
+    lvl = m.kf_level.index_select(0, k)[0]
+    d_valid = torch.zeros((P,), dtype=torch.int32, device=dev).index_add_(0, sl, ti)
+    d_X = take.to(m.pt_X.dtype)[:, None] * (X_w.to(m.pt_X.dtype) - m.pt_X[sl])
+    d_desc = (take[:, None] * (desc.to(torch.int32) - m.pt_desc_sign[sl].to(torch.int32))).to(torch.int8)
+    d_level = ti * (lvl - m.pt_level[sl])
+    d_first = ti * (kf_id - m.pt_first_kf[sl])
+    new_obs = torch.where(take, slot, obs)
+    m.pt_valid.logical_or_(d_valid > 0)
+    m.pt_X.index_add_(0, sl, d_X)
+    m.pt_desc_sign.index_add_(0, sl, d_desc)
+    m.pt_level.index_add_(0, sl, d_level)
+    m.pt_first_kf.index_add_(0, sl, d_first)
+    m.kf_obs.index_copy_(0, k, new_obs.to(m.kf_obs.dtype)[None])
     return m, torch.sum(take, dtype=torch.int32)
 
 

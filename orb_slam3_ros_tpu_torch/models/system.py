@@ -45,8 +45,14 @@ one it tracks against; every 4th keyframe slot (per keyframe, or among a
 chunk's new keyframes at its boundary) tries to weld the active map into
 the oldest archived one.
 
+Stereo and RGB-D (``stereo_system``) subclass this class: they extract
+their own frames and go through ``_track``; ``bf`` (fx * baseline, 0 here)
+gives every BA the (u, v, u_r) rows of their keyframes, and
+``_chunk_stereo`` lets the chunk loop take [2, H, W] stereo pairs.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-the two-device split, cameras other than pinhole, the ``on_frame`` /
+the two-device split, cameras other than pinhole (the KB8 fisheye and its
+stereo rig wait for ROADMAP Queue 1 item 6), the ``on_frame`` /
 ``points_every`` observation hooks; the pipelined one-frame-lag mode is not
 ported by design.
 """
@@ -223,6 +229,8 @@ class MonoSlam:
         self._sched_lean = track_schedule or tracking.SCHEDULE_LEAN
         self.lean_after_kf = lean_after_kf
         self.localization_only = False
+        # fx * baseline of the stereo / RGB-D residuals (0: monocular, no u_r rows)
+        self.bf = 0.0
         # Hypothesis draws of two-view initialization, on ``device``.
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -435,20 +443,33 @@ class MonoSlam:
             out = self._try_relocalize(feats, ts)
         else:
             self._predict_motion(ts)
-            R_pred = self.vel_R @ self.R_cur
-            t_pred = self.vel_R @ self.t_cur + self.vel_t
-            pt_mask = None
-            if self.track_window is not None:
-                pt_mask = self.map.pt_first_kf >= (self.n_kf - self.track_window)
-            res = tracking.track_against_map(
-                self.map, feats, torch.as_tensor(R_pred, device=dev),
-                torch.as_tensor(t_pred, device=dev), self.cam_params,
-                self.width, self.height, pt_mask=pt_mask,
-                schedule=self._current_schedule(), track_cap=self.track_cap,
-            )
-            out = self._track_post(feats, res, ts)
+            out = self._track(feats, ts)
         self.frame_id += 1
         return out
+
+    def _track(self, feats: orb.Features, ts: float):
+        """Track ``feats`` against the map from the motion model's
+        prediction, then ``_track_post`` (the stereo and RGB-D systems call
+        it with the features they extracted themselves)."""
+        dev = self.device
+        R_pred = self.vel_R @ self.R_cur
+        t_pred = self.vel_R @ self.t_cur + self.vel_t
+        pt_mask = None
+        if self.track_window is not None:
+            pt_mask = self.map.pt_first_kf >= (self.n_kf - self.track_window)
+        res = tracking.track_against_map(
+            self.map, feats, torch.as_tensor(R_pred, device=dev),
+            torch.as_tensor(t_pred, device=dev), self.cam_params,
+            self.width, self.height, pt_mask=pt_mask,
+            schedule=self._current_schedule(), track_cap=self.track_cap,
+        )
+        return self._track_post(feats, res, ts)
+
+    def _fallback_frame(self, img, ts: float):
+        """One frame of a chunk that runs per frame (a gate that does not
+        hold, a dead tail): ``process_frame``; the stereo system splits its
+        [2, H, W] pair here."""
+        return self.process_frame(img, ts)
 
     # ------------------------------------------------------------------
     # The chunk loop (device_loop.py): the steady state on the device, one
@@ -472,7 +493,7 @@ class MonoSlam:
         during the solve) may alias them."""
         if self._gba is not None:
             self._poll_gba(force=True)  # fold in the previous solve first
-        prob = local_mapping.build_global_ba(self.map, self.n_kf, self.cam_params)
+        prob = local_mapping.build_global_ba(self.map, self.n_kf, self.cam_params, bf=self.bf)
         prob = prob._replace(**{f: getattr(prob, f).clone()
                                 for f in ("R", "t", "X", "uv", "pt_valid", "ur")})
         self._gba = dict(prob=prob, done=0, target=n_iters, chunk=chunk, n_cg=n_cg,
@@ -534,12 +555,21 @@ class MonoSlam:
         self._ref_cache = None
         self.gba_counts["finished"] += 1
 
+    def _chunk_stereo(self) -> bool:
+        """Whether the chunk loop takes [2, H, W] stereo pairs (the stereo
+        system's; RGB-D runs per frame: its float depth maps do not ride
+        the frame stack)."""
+        return False
+
     def _chunkable(self) -> bool:
-        """The chunk loop's gate (the JAX package's, without its conditions
-        for what is not ported: the two-device split, stereo)."""
+        """The chunk loop's gate (the JAX package's, without its condition
+        for what is not ported: the two-device split)."""
         return (
             self.state == OK
             and self.covis_ba
+            # a monocular keyframe body builds no u_r rows: a system with
+            # bf > 0 chunks only through the stereo branch
+            and (self.bf == 0.0 or self._chunk_stereo())
             # a subclass with its own local BA (the inertial one) runs per frame
             and type(self)._run_local_ba is MonoSlam._run_local_ba
             # the per-frame path's dense warm-up on a young map first
@@ -554,12 +584,16 @@ class MonoSlam:
             local_ba_iters=self.local_ba_iters, fuse_neighbors=self.fuse_neighbors,
             fuse_every=self.fuse_every, stats_every=self.stats_every,
             cull_every=self.cull_every, kf_culling=self.kf_culling, K_cap=self.K_cap,
-            track_cap=self.track_cap, track_window=self.track_window,
+            track_cap=self.track_cap, track_window=self.track_window, bf=float(self.bf),
+            baseline=float(getattr(self, "baseline", 0.0)),
+            max_depth=float(getattr(self, "max_depth", 0.0)), stereo=self._chunk_stereo(),
+            fx=float(getattr(self, "fx", 0.0)),
         )
 
     def _frame_stack(self, imgs) -> torch.Tensor:
-        """A chunk's frames on the device as one [C, H, W] stack: uint8 with
-        ``transfer_uint8``, float32 otherwise."""
+        """A chunk's frames on the device as one [C, H, W] stack ([C, 2, H,
+        W] of stereo pairs): uint8 with ``transfer_uint8``, float32
+        otherwise."""
         if isinstance(imgs, torch.Tensor):
             return imgs.to(self.device)
         if all(isinstance(im, torch.Tensor) for im in imgs):
@@ -587,7 +621,7 @@ class MonoSlam:
         frames = _ChunkReplayView(imgs[0], int(imgs[1])) if isinstance(imgs, tuple) else imgs
         if not self._chunkable():
             for i in range(C):
-                self.process_frame(frames[i], float(tss_np[i]))
+                self._fallback_frame(frames[i], float(tss_np[i]))
             return
         # The weak-tracking rule can make a keyframe every 2 frames: reserve
         # for that, so that the chunk's capacity guard never drops one.
@@ -597,7 +631,7 @@ class MonoSlam:
         gaps = np.diff(np.concatenate([[tss_np[0] if last is None else last], tss_np]))
         if np.any(gaps > self.ts_jump_threshold):
             for i in range(C):
-                self.process_frame(frames[i], float(tss_np[i]))
+                self._fallback_frame(frames[i], float(tss_np[i]))
             return
         self._last_frame_ts = float(tss_np[-1])
         if isinstance(imgs, tuple):
@@ -654,7 +688,7 @@ class MonoSlam:
             self.state = LOST
             self.frame_id = fid0 + k
             for i in range(k, C):
-                self.process_frame(frames[i], float(tss_np[i]))
+                self._fallback_frame(frames[i], float(tss_np[i]))
             self.frame_id = max(fid0 + C, self.frame_id)
 
     def _absorb_chunk(self, out, pose, sc, tss_np) -> None:
@@ -921,7 +955,7 @@ class MonoSlam:
         self.map, n_new, iters = kf_work.keyframe_work(
             self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
             torch.as_tensor(self.t_cur, device=dev), ts, feats, track_res.feat_pt,
-            self.n_pts, self.P_cap - self.n_pts, self.cam_params,
+            self.n_pts, self.P_cap - self.n_pts, self.cam_params, self.bf,
             w_free=self.ba_window, w_fixed=self.ba_fixed,
             n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
             fuse_neighbors=self.fuse_neighbors,
@@ -983,5 +1017,6 @@ class MonoSlam:
             )
         else:
             window = self._temporal_window(self.n_kf)
-        self.map, iters = local_mapping.local_ba(self.map, window, self.cam_params, n_iters)
+        self.map, iters = local_mapping.local_ba(self.map, window, self.cam_params, n_iters,
+                                                 self.bf)
         self.ba_iters.append(iters)

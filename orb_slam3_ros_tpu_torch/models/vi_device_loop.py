@@ -21,9 +21,17 @@ A frame whose refinement keeps fewer than 15 inliers ends the chunk: its
 step leaves the body state as it was, and the host replays it and the
 frames after it one at a time, from the state of the last tracked frame.
 
+The stereo branch (``VIChunkConfig.stereo``, the stereo-inertial
+system's chunks): a frame is a [2, H, W] rectified pair whose step extracts
+both views and runs ``stereo.match_stereo`` (``chunk_runner.prep_frame``);
+the keyframe body inserts with each feature's u_r, creates the close
+landmarks from stereo depth before triangulating, and its VI-BA builds
+(u, v, u_r) rows with ``bf``. The 15-dof refinement stays monocular, as on
+the per-frame path once the IMU gives metric scale.
+
 Not ported (ROADMAP "Do not port"): the tunnel's packing
 (``unpack_vi_dev_state``, ``pack_vi_chunk_result``) and the
-``ORB_BATCH_EXTRACT`` branch; the stereo branch waits for ROADMAP item 6.
+``ORB_BATCH_EXTRACT`` branch.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 from ..ops import imu as imu_ops
 from ..ops import orb, viba
 from . import local_mapping, map_updates, tracking
-from .chunk_runner import ChunkRunner, frame_row
+from .chunk_runner import ChunkRunner, admit_keyframe_points, frame_row, prep_frame
 from .map_state import MapState, kf_index
 
 
@@ -90,6 +98,12 @@ class VIChunkConfig(NamedTuple):
     imu_cap_frame: int
     imu_cap_kf: int
     track_cap: int | None
+    # The stereo branch (``device_loop.ChunkConfig``'s fields of that name).
+    bf: float = 0.0
+    baseline: float = 0.0
+    max_depth: float = 0.0
+    stereo: bool = False
+    fx: float = 0.0
 
 
 def need_keyframe(ok, n_vis, since, ref_inl, n_kf, *, K_cap, kf_every, kf_min_inliers,
@@ -113,7 +127,8 @@ def need_keyframe(ok, n_vis, since, ref_inl, n_kf, *, K_cap, kf_every, kf_min_in
 
 def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
     """One frame: the JAX chunk's scan body up to its keyframe branch.
-    ``img`` [H, W] (any real dtype, values in [0, 255]); ``x_in``
+    ``img`` [H, W], or [2, H, W] with ``cfg.stereo`` (any real dtype,
+    values in [0, 255]); ``x_in``
     [M*7 + 2] f32: the frame's IMU block (acc | gyro | dt rows, zero rows
     as padding), its timestamp and its frame id. Returns (carry, fr):
     ``fr`` holds what a keyframe at this frame needs (``f_*`` features,
@@ -144,7 +159,7 @@ def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
     pre = imu_ops.preintegrate(a, g, d, b, calib)
     R2, p2, _ = imu_ops.predict_state(st.R_wb, st.p_wb, st.v, b, pre)
     R_pred, t_pred = viba.cam_from_body(R2, p2, calib.R_bc, calib.t_bc)
-    feats = orb.extract(img.to(torch.float32), cfg.config)
+    feats, ur, depth = prep_frame(img, cfg)
     res = tracking.track_against_map(
         c.m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
         schedule=schedule, track_cap=cfg.track_cap,
@@ -186,6 +201,8 @@ def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
         row=frame_row(m, c.n_kf - 1, R_cw, t_cw, n_inl, need_kf, ok),
         flags=torch.stack([need_kf, ok]).to(torch.int32),
     )
+    if cfg.stereo:
+        fr.update(f_ur=ur, f_depth=depth)
     c2 = VICarry(
         m=m, st=st2, n_kf=c.n_kf + need_kf.to(torch.int32), n_pts=c.n_pts,
         last_kf_fid=torch.where(need_kf, fid, c.last_kf_fid), alive=ok,
@@ -203,8 +220,9 @@ def _kf_feats(fr: dict) -> orb.Features:
 
 def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     """Keyframe segment 1: snapshot the since-last-keyframe IMU block into
-    ``kf_blk[kf_id]``, insert the keyframe with its body state (v, bg, ba),
-    triangulate against the previous keyframe and admit the new points."""
+    ``kf_blk[kf_id]``, insert the keyframe with its body state (v, bg, ba)
+    (and its features' u_r in a stereo chunk) and admit its new points
+    (``chunk_runner.admit_keyframe_points``)."""
     m, st, kf_id = c.m, c.st, fr["kf_id"]
     S = cfg.imu_cap_kf
     k = kf_index(kf_id, st.blk.device)
@@ -212,14 +230,18 @@ def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     st.kf_blk.index_copy_(0, k, torch.where(filled[:, None], st.blk, 0.0)[None])
     st.kf_edge_ok.index_copy_(0, k, st.blk_ok.reshape(1))
     m = map_updates.insert_keyframe(
-        m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"]
+        m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"],
+        ur=fr["f_ur"] if cfg.stereo else None,
     )
     m.kf_v.index_copy_(0, k, st.v[None])
     m.kf_bg.index_copy_(0, k, st.bg[None])
     m.kf_ba.index_copy_(0, k, st.ba[None])
-    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cfg.cam_params)
-    m, n_tri = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, c.n_pts, m.P - c.n_pts)
-    return c._replace(m=m, n_pts=c.n_pts + n_tri)
+    m, n_new = admit_keyframe_points(
+        m, kf_id, fr["kf_R"], fr["kf_t"], fr["f_xy"], fr["f_valid"],
+        fr["f_depth"] if cfg.stereo else None, c.n_pts, m.P - c.n_pts, cfg.cam_params,
+        cfg.max_depth,
+    )
+    return c._replace(m=m, n_pts=c.n_pts + n_new)
 
 
 def kf_fuse(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
@@ -244,7 +266,7 @@ def kf_ba(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     blocks = st.kf_blk.index_select(0, edge)  # [W-1, S, 7]
     prob = local_mapping.build_vi_ba(
         m, ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
-        st.kf_edge_ok.index_select(0, edge), cfg.calib, cfg.cam_params,
+        st.kf_edge_ok.index_select(0, edge), cfg.calib, cfg.cam_params, bf=cfg.bf,
     )
     res = viba.vi_bundle_adjust(prob, n_iters=cfg.local_ba_iters)
     m = local_mapping.apply_vi_ba(m, ids, res, cfg.calib)

@@ -67,11 +67,24 @@ def pose_optimization(
     the next round and may re-enter later (the reference's outlier schedule,
     Optimizer.cc:990-1022)."""
     chi2_th = robust.CHI2_MONO
+
+    def residuals(R, t):
+        return _residual_jac(R, t, Xw, uv, cam_params)
+
+    return _lm(residuals, R0, t0, inv_sigma2, valid, chi2_th, rounds, iters_per_round)
+
+
+def _lm(residuals, R0, t0, inv_sigma2, valid, chi2_th, rounds: int, iters_per_round: int):
+    """The LM ladder of both solves: ``rounds`` x ``iters_per_round``
+    damped Gauss-Newton steps on the Huber-weighted edges, each kept only if
+    it lowers the cost, the edges above ``chi2_th`` (a float, or a per-edge
+    tensor) reclassified after each round. ``residuals(R, t)`` gives the
+    stacked residuals [N, D] and Jacobians [N, D, 6]."""
     dtype, dev = R0.dtype, R0.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
 
     def compute_quad(R, t, active):
-        r, J = _residual_jac(R, t, Xw, uv, cam_params)
+        r, J = residuals(R, t)
         chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
         w = inv_sigma2 * robust.huber_weight(chi2, chi2_th) * active.to(dtype)
         # H = sum_n J_n^T w_n J_n, g = -sum_n J_n^T w_n r_n as two matrix
@@ -109,3 +122,49 @@ def pose_optimization(
     return PoseOptResult(
         R=R, t=t, inlier=inlier, n_inliers=torch.sum(inlier, dtype=torch.int32), chi2=chi2
     )
+
+
+def _residual_jac_stereo(R, t, Xw, uv, ur, bf, cam_params):
+    """(u, v, u_r) residuals [N, 3] and Jacobians [N, 3, 6] — the
+    reference's EdgeStereoSE3ProjectXYZOnlyPose (G2oTypes.h:466); the u_r
+    row is zero on monocular edges (ur < 0)."""
+    Xc = Xw @ R.T + t
+    pred = cameras.pinhole_project_nodist(cam_params, Xc)
+    Jproj = cameras.pinhole_project_jac(cam_params, Xc)  # [N, 2, 3]
+    has_st = (ur >= 0).to(Xc.dtype)
+    z = Xc[:, 2]
+    z_safe = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    r = torch.cat([pred - uv, (has_st * (pred[:, 0] - bf / z_safe - ur))[:, None]], dim=-1)
+    # d(u - bf / z)/dXc: the u row with bf / z^2 added to its z entry
+    Jur = torch.cat([Jproj[:, 0, :2], (Jproj[:, 0, 2] + bf / z_safe**2)[:, None]], dim=-1)
+    Jproj3 = torch.cat([Jproj, (has_st[:, None] * Jur)[:, None]], dim=1)  # [N, 3, 3]
+    eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand(Xc.shape[0], 3, 3)
+    JX = torch.cat([eye, -lie.hat(Xc)], dim=-1)
+    return r, Jproj3 @ JX
+
+
+def pose_optimization_stereo(
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    Xw: torch.Tensor,
+    uv: torch.Tensor,
+    ur: torch.Tensor,
+    bf,
+    inv_sigma2: torch.Tensor,
+    valid: torch.Tensor,
+    cam_params: torch.Tensor,
+    rounds: int = 2,
+    iters_per_round: int = 6,
+) -> PoseOptResult:
+    """Motion-only pose optimization over mixed mono / stereo edges
+    (PoseOptimization's stereo branch, Optimizer.cc:816/:900): ``ur`` [N]
+    holds the right-image x of each edge, -1 on a monocular one; ``bf`` =
+    fx * baseline (a float or a 0-d tensor). A stereo edge adds the
+    disparity residual; the chi2 gates are per DoF (5.991 mono, 7.815
+    stereo)."""
+    delta2 = torch.where(ur >= 0, robust.CHI2_STEREO, robust.CHI2_MONO).to(R0.dtype)
+
+    def residuals(R, t):
+        return _residual_jac_stereo(R, t, Xw, uv, ur, bf, cam_params)
+
+    return _lm(residuals, R0, t0, inv_sigma2, valid, delta2, rounds, iters_per_round)

@@ -2,7 +2,8 @@
 poses and depth — port of the pinhole part of
 ``orb_slam3_ros_tpu.utils.synth``: the orbit, loop and multi-loop
 sequences and the visual-inertial "wander" and "loop" sequences with
-their exact IMU samples.
+their exact IMU samples, each with a rectified right view
+(``stereo_baseline``) and depth where asked.
 
 The port carries its own renderer because the machine that runs it on the
 GPU has no JAX. Textures and trajectories are the same numpy code as the
@@ -199,6 +200,14 @@ class SynthSequence(NamedTuple):
     timestamps: np.ndarray  # [N]
     cam_params: np.ndarray  # [9] pinhole
     depths: torch.Tensor | None  # [N, H, W] float32 camera z-depth
+    images_right: torch.Tensor | None = None  # [N, H, W] float32 rectified right view
+    baseline: float = 0.0
+
+
+def _right_origin(R_wc: np.ndarray, t_wc: np.ndarray, baseline: float) -> np.ndarray:
+    """The rectified right camera's centre: ``baseline`` metres along the
+    left camera's own x axis."""
+    return (t_wc + R_wc @ np.asarray([baseline, 0.0, 0.0], np.float32)).astype(np.float32)
 
 
 def make_sequence(
@@ -209,11 +218,14 @@ def make_sequence(
     seed: int = 0,
     with_depth: bool = False,
     trajectory: str = "orbit",
+    stereo_baseline: float = 0.0,
     device=None,
 ) -> SynthSequence:
     """Render a sequence on ``device`` (None: the CUDA device) along
     ``trajectory``: "orbit", "loop" (one closed revolution) or
-    "multiloop" / "multiloopN" (3 or N revolutions)."""
+    "multiloop" / "multiloopN" (3 or N revolutions). ``stereo_baseline``
+    > 0 also renders a rectified right view, from the camera moved by
+    +baseline along its own x axis."""
     scene = make_room(seed=seed, device=device)
     f = 0.55 * width
     cam = np.asarray([f, f, (width - 1) / 2.0, (height - 1) / 2.0, 0, 0, 0, 0, 0], np.float32)
@@ -224,12 +236,15 @@ def make_sequence(
         R_wc, t_wc, ts = multiloop_trajectory(n_frames, dt=dt, revs=revs)
     else:
         R_wc, t_wc, ts = orbit_trajectory(n_frames, dt=dt)
-    imgs, deps = [], []
+    imgs, deps, imgs_r = [], [], []
     for i in range(n_frames):
         img, dep = render(scene, R_wc[i], t_wc[i], cam, height=height, width=width)
         imgs.append(img)
         if with_depth:
             deps.append(dep)
+        if stereo_baseline > 0:
+            t_r = _right_origin(R_wc[i], t_wc[i], stereo_baseline)
+            imgs_r.append(render(scene, R_wc[i], t_r, cam, height=height, width=width)[0])
     return SynthSequence(
         images=torch.stack(imgs),
         R_wc=R_wc,
@@ -237,6 +252,8 @@ def make_sequence(
         timestamps=ts,
         cam_params=cam,
         depths=torch.stack(deps) if with_depth else None,
+        images_right=torch.stack(imgs_r) if stereo_baseline > 0 else None,
+        baseline=stereo_baseline,
     )
 
 
@@ -302,11 +319,16 @@ def make_vi_sequence(
     ba=None,
     noise_g: float = 0.0,
     noise_a: float = 0.0,
+    stereo_baseline: float = 0.0,
+    with_depth: bool = False,
     trajectory: str = "wander",
     device=None,
 ):
     """Render frames on ``device`` (None: the CUDA device) and make the
     exact IMU samples of the analytic ``trajectory`` ("wander" or "loop").
+    ``stereo_baseline`` > 0 also renders the rectified right view (the
+    camera moved by +baseline along its own x axis), ``with_depth`` the
+    left view's depth.
 
     Returns (SynthSequence, imu dict of numpy arrays) where imu has the
     per-frame sample blocks ``acc [N, M, 3], gyro [N, M, 3], dts [N, M]``
@@ -335,10 +357,15 @@ def make_vi_sequence(
     scene = make_room(seed=seed, device=device)
     fl = 0.55 * width
     cam = np.asarray([fl, fl, (width - 1) / 2.0, (height - 1) / 2.0, 0, 0, 0, 0, 0], np.float32)
-    imgs = [
-        render(scene, R_wc[i], t_wc[i], cam, height=height, width=width)[0]
-        for i in range(n_frames)
-    ]
+    imgs, deps, imgs_r = [], [], []
+    for i in range(n_frames):
+        img, dep = render(scene, R_wc[i], t_wc[i], cam, height=height, width=width)
+        imgs.append(img)
+        if with_depth:
+            deps.append(dep)
+        if stereo_baseline > 0:
+            t_r = _right_origin(R_wc[i], t_wc[i], stereo_baseline)
+            imgs_r.append(render(scene, R_wc[i], t_r, cam, height=height, width=width)[0])
 
     dt_imu = frame_dt / imu_per_frame
     acc = np.zeros((n_frames, imu_per_frame, 3), np.float32)
@@ -360,7 +387,10 @@ def make_vi_sequence(
         acc[1:] = (f_b + ba + noise[:, 1] * noise_a).reshape(n_frames - 1, imu_per_frame, 3)
         dts[1:] = dt_imu
     seq = SynthSequence(
-        images=torch.stack(imgs), R_wc=R_wc, t_wc=t_wc, timestamps=ts, cam_params=cam, depths=None
+        images=torch.stack(imgs), R_wc=R_wc, t_wc=t_wc, timestamps=ts, cam_params=cam,
+        depths=torch.stack(deps) if with_depth else None,
+        images_right=torch.stack(imgs_r) if stereo_baseline > 0 else None,
+        baseline=stereo_baseline,
     )
     return seq, dict(acc=acc, gyro=gyro, dts=dts, vel=vel, gravity=g, bg=bg, ba=ba)
 

@@ -147,6 +147,19 @@ def test_kernel_odd_shapes_and_split_ties_on_card(P, N, radius):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("radius", [60.0, 4.0])
+def test_kernel_at_the_kitti_shape_on_card(radius):
+    # The stereo chunk's tracking search: 768 rows x the 2040 feature slots
+    # of 2000 features in a 1242x376 image, both radii of the lean schedule,
+    # ties planted across every split boundary. Exact.
+    dev = require_cuda()
+    P, N = 768, 2040
+    cols = tpm.build().project_match_split_cols(P, N)
+    d = make_search_case(4, P=P, N=N, W=1242, H=376, tie_columns=tuple(range(cols, N, cols)))
+    _assert_exact(_kernel_args(d, dev, radius), min_matches=50)
+
+
+@pytest.mark.cuda
 def test_kernel_all_rows_invalid_on_card():
     dev = require_cuda()
     d = make_search_case(4, P=768, N=1032)
