@@ -160,6 +160,29 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``RgbdInertialSlam`` (45 frames, phase 8's IMU) at 640x480 per frame:
      initialized at frame 0, a pose for every frame, metric ATE within 2x
      the JAX run's, scale within 2%. Prints its time.
+ 16. the fisheye camera (``tests/torch_fisheye_scenarios.py``'s protocols,
+     whose JAX run on the CPU gives the limits) at the TUM-VI shape
+     (512x512 KB8, cam0 of Examples/Stereo-Inertial/TUM-VI.yaml, 1000
+     features): (a) ``MonoSlam(cam_model="kb8")`` on raw fisheye frames of
+     the orbit at 20 Hz with phase 10's protocol and settings: requires
+     initialization, no frame lost after it, every timed frame a step-graph
+     replay, K1 launches equal to 2 a timed frame plus 2 a fusing keyframe
+     (plus the warm-ups'), graph = eager on one step, no synchronizing call
+     in a region and the Sim(3) ATE within 2x the JAX run's; then K1 on the
+     first posed KB8 frame (768 of (a)'s points projected through KB8 into
+     its 1032 feature slots) against its plain version, exact, timed; (b)
+     ``FisheyeStereoSlam`` on the non-rectified rig (0.101 m, the right
+     camera yawed 2 degrees), 60 frames per frame: at most 8 frames without
+     a pose and the metric ATE within 2x the JAX run's; prints the
+     cross-camera depth error against the rendered depth and
+     ``triangulate_cross_camera``'s call and device time; (c)
+     ``FisheyeStereoInertialSlam(cam_model="pinhole")`` on phase 8's
+     sequence with a 0.11 m rig, 45 frames: the IMU initialized with the
+     scale fixed, the scale within 6%, the metric ATE within 2x the JAX
+     run's; (d) the rectified route (KB8 rendered at 768x768, one
+     ``kb8_rect_map``, ``remap_bilinear`` on the card each frame, the pinhole
+     ``MonoSlam``), 25 frames: the Sim(3) ATE within 2x the JAX run's;
+     prints the remap's time a frame.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -254,6 +277,36 @@ ST_SCALE_TOL = 0.02
 # (a), (c) (first 12 poses skipped) and (d); the card is held to 2x each.
 ST_JAX = dict(a_ate_m=0.05826476169258746, c_ate_m=0.01750881383327182,
               d_rgbd_ate_m=0.0025017769415136655, d_rgbd_vi_ate_m=0.002850680836549069)
+# Phase 16, tests/torch_fisheye_scenarios.py's protocols at the TUM-VI shape
+# (Examples/Stereo-Inertial/TUM-VI.yaml: 512x512 KB8 frames at 20 Hz, cam0's
+# intrinsics, 1000 features, a 0.101 m baseline): (a) the mono chunk loop on
+# raw KB8 frames with phase 10's settings; (b) the two-camera rig with the
+# right camera yawed 2 degrees (tests/test_fisheye_stereo.py's rig), its
+# orbit at 10 Hz as that test's, for the spatial extent a metric ATE needs;
+# (c) the JAX test's two-camera inertial run on phase 8's sequence, pinhole,
+# the rig phase 15 (c)'s; (d) the rectified route, tests/test_rectify.py's
+# scenario (KB8 rendered at 1.5x, remapped to a virtual pinhole).
+FE_H, FE_W = 512, 512
+FE_KB8 = np.asarray([190.978, 190.973, 254.932, 256.897, 0.0034824, 0.00071503, -0.0020532,
+                     0.00020294], np.float32)
+FE_FRAMES, FE_DT = 120, 0.05
+FE_SLAM_KW = dict(n_features=1000, max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3,
+                  stats_every=3, cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
+                  transfer_uint8=True)
+FE_BASE, FE_YAW = 0.101, 0.035
+FE_ST_FRAMES, FE_ST_DT, FE_ST_MAX_LOST = 60, 0.1, 8
+FE_ST_KW = dict(n_features=1000, max_keyframes=32, max_points=4096, kf_every=3,
+                track_cap=P_TRACK)
+FE_VI_FRAMES, FE_VI_SCALE_TOL = 45, 0.06
+FE_VI_KW = dict(n_features=1000, max_keyframes=32, max_points=4096, kf_every=3,
+                init_after_kf=6)
+FE_RECT_FRAMES, FE_RECT_UP = 25, 1.5
+FE_RECT_KW = dict(n_features=1000, max_keyframes=32, max_points=4096)
+# The JAX package's runs of these protocols on the CPU
+# (tests/torch_fisheye_scenarios.py --package jax): the Sim(3) ATE (m) of
+# (a) and (d), the metric ATE of (b) and (c); the card is held to 2x each.
+FE_JAX = dict(a_ate_m=0.09143445721133506, b_ate_m=0.005943132446196125,
+              c_ate_m=0.015430461873248041, d_ate_m=0.007757705106899272)
 
 
 def check(cond, msg: str) -> None:
@@ -2409,6 +2462,364 @@ def phase_stereo(torch, project_match) -> dict:
     return dict(a=a, b=b, c=c, d=d, seconds=secs, launches=launches)
 
 
+def traj_ate(slam, ts, t_wc, with_scale: bool) -> dict:
+    """Poses, the ATE (Sim(3) or metric) and the Sim(3) scale of a system's
+    trajectory against ground truth (``ts`` [N], ``t_wc`` [N, 3])."""
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
+
+    traj = slam.get_trajectory()
+    tss = np.asarray([t for t, _ in traj])
+    est = np.stack([np.asarray(T)[:3, 3] for _, T in traj])
+    gt_ts = np.asarray(ts, np.float64)
+    sim3, n, scale = ate_rmse(tss, est, gt_ts, np.asarray(t_wc), with_scale=True)
+    metric, _, _ = ate_rmse(tss, est, gt_ts, np.asarray(t_wc), with_scale=False)
+    return dict(poses=len(traj), scored=int(n), ate_m=float(sim3 if with_scale else metric),
+                ate_sim3_m=float(sim3), ate_metric_m=float(metric), scale=float(scale))
+
+
+def kb8_orbit(torch, n: int, dt: float, cam, h: int, w: int, rig=None):
+    """The room (seed 2) seen along the orbit through a KB8 camera, rendered
+    on the card: (left frames [n, h, w], right frames or None, R_wc, t_wc,
+    ts). ``rig`` (R_rl, t_rl) adds the right camera's frames."""
+    from orb_slam3_ros_tpu_torch.utils import synth
+
+    scene = synth.make_room(seed=2)
+    R_wc, t_wc, ts = synth.orbit_trajectory(n, dt=dt)
+    left = torch.stack([synth.render(scene, R_wc[i], t_wc[i], cam, height=h, width=w,
+                                     cam_model="kb8")[0] for i in range(n)])
+    right = None
+    if rig is not None:
+        R_rl, t_rl = rig
+        right = torch.stack([synth.render(scene, R_wc[i] @ R_rl.T, t_wc[i] + R_wc[i] @ (-R_rl.T @ t_rl),
+                                          cam, height=h, width=w, cam_model="kb8")[0]
+                             for i in range(n)])
+    return left, right, R_wc, t_wc, ts
+
+
+def fe_rig():
+    """(R_rl, t_rl) of phase 16's right camera: FE_BASE along the left's x,
+    yawed FE_YAW (X_r = R_rl X_l + t_rl)."""
+    c, s = np.cos(-FE_YAW), np.sin(-FE_YAW)
+    R_rl = np.asarray([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    return R_rl, (-R_rl @ np.asarray([FE_BASE, 0.0, 0.0], np.float32)).astype(np.float32)
+
+
+def phase_fisheye_chunk(torch, project_match) -> tuple:
+    """Phase 16 (a): ``MonoSlam(cam_model="kb8")`` on raw KB8 frames at the
+    TUM-VI shape through phase 10's protocol, the step and keyframe
+    segments as CUDA graphs. Returns (result, the system, the frames)."""
+    from orb_slam3_ros_tpu_torch.models import device_loop, system
+
+    t0 = time.perf_counter()
+    imgs, _, R_wc, t_wc, ts = kb8_orbit(torch, FE_FRAMES, FE_DT, FE_KB8, FE_H, FE_W)
+    slam = system.MonoSlam(height=FE_H, width=FE_W, cam_params=FE_KB8, cam_model="kb8",
+                           **FE_SLAM_KW)
+    check(slam.device.type == "cuda", "MonoSlam(cam_model='kb8') is not on the card")
+    slam._sched_lean = BENCH_LEAN
+    stack = torch.clamp(imgs, 0, 255).to(torch.uint8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eager_steps, calls, first, lost = [], [], [], []
+    step_fn, per_frame = device_loop.frame_step, slam.process_frame
+
+    def counted_step(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            eager_steps.append(1)
+        return step_fn(*args, **kw)
+
+    def counted_frame(*args, **kw):
+        calls.append(1)
+        return per_frame(*args, **kw)
+
+    def frame(i):
+        return slam.process_frame(imgs[i], float(ts[i]))
+
+    def chunk(i):
+        slam.process_frames((stack, i), ts[i : i + CHUNK])
+
+    device_loop.frame_step = counted_step
+    reset_launches(project_match)
+    try:
+        t0 = time.perf_counter()
+        i = 0
+        while (slam.state != system.OK or not slam._chunkable()) and i < MONO_WARM - CHUNK:
+            per_frame_run(frame, [i], first, lost)
+            i += 1
+        i_steady = i
+        while i + CHUNK <= MONO_WARM:
+            chunk(i)
+            i += CHUNK
+        per_frame_run(frame, range(i, MONO_WARM), first, lost)
+        i = MONO_WARM
+        warm_s = time.perf_counter() - t0
+        runner = slam._mono_runner
+        check(runner is not None and runner.graphs, "the KB8 chunks did not run on graphs")
+        check(runner.cfg.cam_model == "kb8", "the KB8 chunks did not take the KB8 camera")
+        slam.process_frame = counted_frame
+        runner.timing = True
+        runner.spans, runner.gaps_s = [], []
+        launches_warm = dict(project_match.LAUNCHES)
+        reset_launches(project_match)
+        runs0, warm0 = dict(runner.runs), dict(runner.warmup_launches)
+        chunk_ms = []
+        while i + CHUNK <= FE_FRAMES:
+            t1 = time.perf_counter()
+            chunk(i)  # ends in the chunk's host read
+            chunk_ms.append((time.perf_counter() - t1) * 1e3)
+            i += CHUNK
+        torch.cuda.synchronize()
+        runner.timing = False
+        launches = dict(project_match.LAUNCHES)
+    finally:
+        device_loop.frame_step = step_fn
+        slam.process_frame = per_frame
+    timed = i - MONO_WARM
+    runs = {k: runner.runs[k] - runs0.get(k, 0) for k in runner.runs}
+    warm = {k: runner.warmup_launches[k] - warm0[k] for k in warm0}
+    step_runs = sum(v for k, v in runs.items() if isinstance(k, tuple))
+    fusing, n_kf_timed = runs.get("kf_fuse", 0), runs.get("kf_insert", 0)
+    passes = len(slam._sched_lean)
+    predicted = {"track": passes * timed + warm["track"], "fuse": 2 * fusing + warm["fuse"],
+                 "sim3": 0, "merge": 0}
+    check(first, "the KB8 run never initialized")
+    check(not lost, f"KB8 frames without a pose after initialization: {lost}")
+    check(not calls, f"{len(calls)} frames went through process_frame during the timed chunks")
+    check(step_runs == timed, f"{step_runs} step-graph replays for {timed} timed frames")
+    n_step_graphs = sum(isinstance(k, tuple) for k in runner._graph)
+    check(len(eager_steps) == n_step_graphs,
+          f"{len(eager_steps)} eager steps on the card, expected one warm-up for each of "
+          f"{n_step_graphs} step graphs")
+    check(launches == predicted, f"matcher launches {launches}, predicted {predicted} ({passes} x "
+          f"{timed} from tracking, 2 x {fusing} from fusion, plus warm-ups {warm})")
+    check(slam.state == system.OK, f"state {slam.state} after the KB8 chunks")
+    acc = traj_ate(slam, ts, t_wc, with_scale=True)
+    check(acc["ate_m"] <= 2 * FE_JAX["a_ate_m"],
+          f"KB8 chunks: Sim(3) ATE {acc['ate_m']:.5f} m above 2x the JAX run's "
+          f"{FE_JAX['a_ate_m']:.5f} m")
+    spans, kf_graph_ms, busy, step_ms, gap_us, nodes = replay_stats(runner, chunk_ms, n_kf_timed)
+    fps = timed / (sum(chunk_ms) / 1e3)
+    worst = graph_vs_eager(torch, runner, slam._sched_lean)
+    audit = region_syncs(torch, runner, slam._sched_lean)
+    check(not any(audit.values()), f"synchronizing calls in the eager KB8 regions: {audit}")
+    print(f"fisheye (a): KB8 {FE_W}x{FE_H}, {slam.N} feature slots, rendered in {setup_s:.1f} s; "
+          f"initialized at frame {first[0]}, frames lost {lost}, chunkable at frame {i_steady}; "
+          f"{runner.n_graphs} graphs captured in {runner.capture_s:.2f} s (nodes {nodes}), up to "
+          f"frame {MONO_WARM} in {warm_s:.2f} s; timed frames {MONO_WARM}..{i - 1}: {fps:.2f} "
+          f"frames/s, chunk latency median {np.median(chunk_ms):.2f} ms over {len(chunk_ms)} chunks "
+          f"of {CHUNK}; step graph {step_ms:.2f} ms median over {len(spans['step'])} replays; "
+          f"keyframe graphs {kf_graph_ms:.2f} ms a keyframe over {n_kf_timed} "
+          f"({ {k: round(float(np.median(v)), 3) for k, v in spans.items()} } ms medians); busy "
+          f"{busy:.1%}; host gap {gap_us:.1f} us mean; K1 launches {launches} = predicted (passes "
+          f"{passes}, fusing keyframes {fusing}, warm-ups {warm}), before the timed chunks "
+          f"{launches_warm}; Sim(3) ATE {acc['ate_m']:.5f} m (JAX package, CPU: "
+          f"{FE_JAX['a_ate_m']:.5f} m); {slam.n_kf} keyframes, {slam.n_pts} points; graph vs eager "
+          f"step max diff {worst:.3g}; synchronizing calls {audit} in each region run eagerly")
+    total = {k: launches[k] + launches_warm[k] for k in launches}
+    return dict(init_frame=first[0], lost=lost, chunkable_frame=i_steady, graphs=runner.n_graphs,
+                graph_nodes=nodes, capture_s=runner.capture_s, timed_frames=timed,
+                frames_per_s=fps, frame_ms=float(np.median(chunk_ms)) / CHUNK, step_ms=step_ms,
+                kf_graph_ms=kf_graph_ms,
+                segment_ms={k: float(np.median(v)) for k, v in spans.items()}, busy=busy,
+                gap_us=gap_us, launches=total, timed_launches=launches,
+                predicted_launches=predicted, fusing_keyframes=fusing, keyframes=slam.n_kf,
+                graph_vs_eager=worst, region_syncs=audit, **acc), slam, imgs
+
+
+def phase_fisheye_kernel(torch, project_match, slam, imgs) -> dict:
+    """Phase 16, K1 on a KB8 frame: the first frame (a) posed, its features,
+    and P_TRACK of (a)'s map points projected into it through KB8 at that
+    pose (the tracking shape, N = 1032; the lean schedule's first radius,
+    40 px * 1.2^level), kernel against plain version (exact), then timed."""
+    from orb_slam3_ros_tpu_torch.ops import cameras, orb
+
+    cfg = slam.config
+    check(cfg.total_cap == N_SLOTS, f"{cfg.total_cap} feature slots at the TUM-VI shape")
+    ts0, T_wc = slam.get_trajectory()[0]
+    k = int(round(ts0 / FE_DT))
+    R = torch.as_tensor(T_wc[:3, :3].T, device=slam.device)
+    t = -R @ torch.as_tensor(T_wc[:3, 3], device=slam.device)
+    m = slam.map
+    idx = torch.nonzero(m.pt_valid)[:P_TRACK, 0]
+    check(idx.numel() == P_TRACK, f"(a)'s map holds only {idx.numel()} points")
+    Xc = m.pt_X[idx] @ R.T + t
+    uv = cameras.kb8_project(slam.cam_params, Xc)
+    level = m.pt_level[idx]
+    valid = (Xc[:, 2] > 0.05) & cameras.in_image(uv, FE_W, FE_H, 2.0)
+    f = orb.extract(imgs[k], cfg)
+    radius = BENCH_LEAN[0][0] * 1.2 ** level.to(torch.float32)
+    args = [uv.contiguous(), valid, level, m.pt_desc_sign[idx].contiguous(), radius, f.xy,
+            f.level, f.valid, f.desc_sign]
+    kw = dict(max_dist=100, ratio=0.9)
+    err, n_match = kernel_vs_plain(torch, project_match, args, kw, f"a KB8 frame (frame {k})")
+    check(n_match > 50, f"only {n_match} matches on the KB8 frame")
+    kernel = lambda: project_match.project_match(*args, **kw)  # noqa: E731
+    ms = cuda_ms(kernel, 100)
+    plain_ms = cuda_ms(lambda: project_match.project_match_reference(*args, **kw), 100)
+    dev_us = device_us(kernel)
+    bound = search_bound(torch, project_match, args, kw)
+    print(f"K1 on KB8 frame {k}: {int(valid.sum())} of {P_TRACK} points in the image, {n_match} "
+          f"matches, max |diff| {err}; call {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+          f"device {dev_us:.2f} us, bound {bound['bound_us']:.3f} us by {bound['bound_by']}")
+    return dict(frame=k, matches=n_match, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                device_us=dev_us, **bound)
+
+
+def phase_fisheye_stereo(torch, project_match) -> dict:
+    """Phase 16 (b): ``FisheyeStereoSlam`` on the non-rectified KB8 rig at
+    the TUM-VI shape, per frame; the cross-camera depth of the first pair
+    against the rendered depth, and ``triangulate_cross_camera`` timed."""
+    from orb_slam3_ros_tpu_torch.models.fisheye_stereo import FisheyeStereoSlam
+    from orb_slam3_ros_tpu_torch.ops import orb, twocam
+    from orb_slam3_ros_tpu_torch.utils import synth
+
+    R_rl, t_rl = fe_rig()
+    left, right, R_wc, t_wc, ts = kb8_orbit(torch, FE_ST_FRAMES, FE_ST_DT, FE_KB8, FE_H, FE_W,
+                                            rig=(R_rl, t_rl))
+    slam = FisheyeStereoSlam(height=FE_H, width=FE_W, cam_params=FE_KB8, R_rl=R_rl, t_rl=t_rl,
+                             **FE_ST_KW)
+    check(slam.device.type == "cuda", "FisheyeStereoSlam is not on the card")
+    reset_launches(project_match)
+    first, lost = [], []
+    t0 = time.perf_counter()
+    per_frame_run(lambda i: slam.process_frame(left[i], right[i], float(ts[i])),
+                  range(FE_ST_FRAMES), first, lost)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(project_match.LAUNCHES)
+    acc = traj_ate(slam, ts, t_wc, with_scale=False)
+    without = FE_ST_FRAMES - acc["poses"]
+    check(first, "the two-camera rig never initialized")
+    check(without <= FE_ST_MAX_LOST, f"{without} frames without a pose (limit {FE_ST_MAX_LOST})")
+    check(acc["ate_m"] <= 2 * FE_JAX["b_ate_m"],
+          f"two-camera rig: metric ATE {acc['ate_m']:.5f} m above 2x the JAX run's "
+          f"{FE_JAX['b_ate_m']:.5f} m")
+    check(launches["track"] > 0, "the two-camera rig launched no tracking search")
+    # the cross-camera depth of the first pair against the rendered depth
+    cfg = slam.config
+    fl, fr = orb.extract(left[0], cfg), orb.extract(right[0], cfg)
+    R_d, t_d = slam.R_rl, slam.t_rl
+
+    def cross():
+        return twocam.triangulate_cross_camera(fl, fr, R_d, t_d, slam.cam_params, slam.cam_params)
+
+    c = cross()
+    ok = c.ok.cpu().numpy()
+    z = c.X_l[:, 2].cpu().numpy()[ok]
+    xy = fl.xy.cpu().numpy()[ok]
+    _, depth = synth.render(synth.make_room(seed=2), R_wc[0], t_wc[0], FE_KB8, height=FE_H,
+                            width=FE_W, cam_model="kb8")
+    dep = depth.cpu().numpy()
+    gt = dep[np.clip(np.round(xy[:, 1]).astype(int), 0, FE_H - 1),
+             np.clip(np.round(xy[:, 0]).astype(int), 0, FE_W - 1)]
+    rel = float(np.median(np.abs(z - gt) / gt)) if ok.any() else float("nan")
+    ms = cuda_ms(cross, 50)
+    dev_us = device_us(cross, 20)
+    print(f"fisheye (b): two-camera KB8 rig ({FE_BASE} m, yawed {FE_YAW} rad) {FE_W}x{FE_H}, "
+          f"{FE_ST_FRAMES} frames per frame in {secs:.1f} s ({FE_ST_FRAMES / secs:.2f} frames/s); "
+          f"initialized at frame {first[0]}, {without} frames without a pose; metric ATE "
+          f"{acc['ate_m']:.5f} m (JAX package, CPU: {FE_JAX['b_ate_m']:.5f} m), Sim(3) scale "
+          f"{acc['scale']:.5f}; {slam.n_kf} keyframes, {slam.n_pts} points; cross-camera points "
+          f"of the first pair {int(ok.sum())}, depth median relative error {rel:.4f} against the "
+          f"rendered depth; triangulate_cross_camera call {ms * 1e3:.1f} us (median of 50), "
+          f"device {dev_us:.1f} us (20 queued calls); K1 launches {launches}")
+    return dict(init_frame=first[0], frames_without_pose=without, frames_per_s=FE_ST_FRAMES / secs,
+                keyframes=slam.n_kf, cross_points=int(ok.sum()), cross_depth_median_rel=rel,
+                cross_ms=ms, cross_device_us=dev_us, launches=launches, **acc)
+
+
+def phase_fisheye_vi(torch, project_match) -> dict:
+    """Phase 16 (c): ``FisheyeStereoInertialSlam(cam_model="pinhole")`` on
+    phase 8's sequence with a 0.11 m pure-translation rig, per frame."""
+    from orb_slam3_ros_tpu_torch.models.fisheye_stereo import FisheyeStereoInertialSlam
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, vi_calib
+
+    kw = {**VI_SEQ_KW, "n_frames": FE_VI_FRAMES}
+    seq, im = synth.make_vi_sequence(**kw, stereo_baseline=SVI_BASE)
+    slam = FisheyeStereoInertialSlam(
+        height=kw["height"], width=kw["width"], cam_params=seq.cam_params, calib=vi_calib(),
+        R_rl=np.eye(3, dtype=np.float32), t_rl=np.asarray([-SVI_BASE, 0.0, 0.0], np.float32),
+        cam_model="pinhole", **FE_VI_KW)
+    reset_launches(project_match)
+    first, lost = [], []
+    t0 = time.perf_counter()
+    per_frame_run(lambda i: slam.process_frame(
+        seq.images[i], seq.images_right[i], float(seq.timestamps[i]), acc=im["acc"][i],
+        gyro=im["gyro"][i], dts=im["dts"][i]), range(FE_VI_FRAMES), first, lost)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(project_match.LAUNCHES)
+    acc = traj_ate(slam, seq.timestamps, seq.t_wc, with_scale=False)
+    check(first, "the two-camera inertial run never initialized")
+    check(slam.imu_initialized and slam.imu_fix_scale,
+          f"IMU initialized {slam.imu_initialized}, fix_scale {slam.imu_fix_scale}")
+    check(abs(acc["scale"] - 1.0) <= FE_VI_SCALE_TOL, f"two-camera inertial scale {acc['scale']:.5f}")
+    check(acc["ate_m"] <= 2 * FE_JAX["c_ate_m"],
+          f"two-camera inertial: metric ATE {acc['ate_m']:.5f} m above 2x the JAX run's "
+          f"{FE_JAX['c_ate_m']:.5f} m")
+    check(launches["track"] > 0, "the two-camera inertial run launched no tracking search")
+    print(f"fisheye (c): two-camera inertial (pinhole, {SVI_BASE} m rig) {kw['width']}x"
+          f"{kw['height']}, {FE_VI_FRAMES} frames per frame in {secs:.1f} s; initialized at frame "
+          f"{first[0]}, lost {lost}; IMU stage {slam.imu_stage} (scale fixed); metric ATE "
+          f"{acc['ate_m']:.5f} m (JAX package, CPU: {FE_JAX['c_ate_m']:.5f} m), scale "
+          f"{acc['scale']:.5f}; {slam.n_kf} keyframes; K1 launches {launches}")
+    return dict(init_frame=first[0], lost=lost, imu_stage=slam.imu_stage, keyframes=slam.n_kf,
+                frames_per_s=FE_VI_FRAMES / secs, launches=launches, **acc)
+
+
+def phase_rectified(torch, project_match) -> dict:
+    """Phase 16 (d): KB8 frames rendered at FE_RECT_UP x the TUM-VI shape,
+    one ``kb8_rect_map``, ``remap_bilinear`` on the card each frame, into the
+    pinhole ``MonoSlam`` at ``virtual_pinhole_params``; per frame."""
+    from orb_slam3_ros_tpu_torch.models.system import MonoSlam
+    from orb_slam3_ros_tpu_torch.ops import rectify
+
+    hi = FE_KB8.copy()
+    hi[:4] *= FE_RECT_UP
+    hs, ws = int(FE_H * FE_RECT_UP), int(FE_W * FE_RECT_UP)
+    fish, _, R_wc, t_wc, ts = kb8_orbit(torch, FE_RECT_FRAMES, FE_ST_DT, hi, hs, ws)
+    pin = rectify.virtual_pinhole_params(FE_KB8, FE_H, FE_W)
+    smap = rectify.kb8_rect_map(torch.as_tensor(hi, device=fish.device), pin, FE_H, FE_W)
+    slam = MonoSlam(height=FE_H, width=FE_W, cam_params=pin, **FE_RECT_KW)
+    reset_launches(project_match)
+    first, lost = [], []
+    t0 = time.perf_counter()
+    per_frame_run(lambda i: slam.process_frame(rectify.remap_bilinear(fish[i], smap),
+                                               float(ts[i])), range(FE_RECT_FRAMES), first, lost)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(project_match.LAUNCHES)
+    remap_ms = cuda_ms(lambda: rectify.remap_bilinear(fish[0], smap), 50)
+    acc = traj_ate(slam, ts, t_wc, with_scale=True)
+    check(first, "the rectified route never initialized")
+    check(acc["ate_m"] <= 2 * FE_JAX["d_ate_m"],
+          f"rectified route: Sim(3) ATE {acc['ate_m']:.5f} m above 2x the JAX run's "
+          f"{FE_JAX['d_ate_m']:.5f} m")
+    check(launches["track"] > 0, "the rectified route launched no tracking search")
+    print(f"fisheye (d): rectified route {ws}x{hs} KB8 -> {FE_W}x{FE_H} pinhole, "
+          f"{FE_RECT_FRAMES} frames per frame in {secs:.1f} s; initialized at frame {first[0]}, "
+          f"lost {lost}; Sim(3) ATE {acc['ate_m']:.5f} m (JAX package, CPU: "
+          f"{FE_JAX['d_ate_m']:.5f} m); remap {remap_ms * 1e3:.1f} us a frame (median of 50, CUDA "
+          f"events); {slam.n_kf} keyframes; K1 launches {launches}")
+    return dict(init_frame=first[0], lost=lost, keyframes=slam.n_kf, remap_ms=remap_ms,
+                frames_per_s=FE_RECT_FRAMES / secs, launches=launches, **acc)
+
+
+def phase_fisheye(torch, project_match) -> dict:
+    """Phase 16: the fisheye paths, (a) to (d), and K1 on a KB8 frame."""
+    t0 = time.perf_counter()
+    a, slam, imgs = phase_fisheye_chunk(torch, project_match)
+    k1 = phase_fisheye_kernel(torch, project_match, slam, imgs)
+    del slam, imgs
+    b = phase_fisheye_stereo(torch, project_match)
+    c = phase_fisheye_vi(torch, project_match)
+    d = phase_rectified(torch, project_match)
+    secs = time.perf_counter() - t0
+    launches = {k: sum(x["launches"][k] for x in (a, b, c, d)) for k in a["launches"]}
+    print(f"phase 16: {secs:.1f} s; K1 launches on its main paths {launches}")
+    return dict(a=a, k1=k1, b=b, c=c, d=d, seconds=secs, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -2463,10 +2874,12 @@ def main() -> int:
     at = phase_atlas(torch, project_match, map_seq)
     st = phase_stereo(torch, project_match)
     kb = st["b"]
+    fe = phase_fisheye(torch, project_match)
+    kfe = fe["k1"]
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
                       "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "stereo": st,
-                      "card": smi[0]}, default=str))
+                      "fisheye": fe, "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
@@ -2475,12 +2888,13 @@ def main() -> int:
         # the main paths: mapping (phase 7), mono-inertial (phase 8), its
         # chunk loop (phase 9), the mono chunk loop (phase 10),
         # relocalization (phase 11), mono loop closing (phase 12 (a), (b)),
-        # VI loop closing (phase 13), the Atlas (phase 14 (a), (b), (c)) and
-        # stereo and RGB-D (phase 15 (a), (c), (d)), the counts set to 0
-        # before each and read after it
+        # VI loop closing (phase 13), the Atlas (phase 14 (a), (b), (c)),
+        # stereo and RGB-D (phase 15 (a), (c), (d)) and the fisheye paths
+        # (phase 16 (a) to (d)), the counts set to 0 before each and read
+        # after it
         "launches": sum(sum(x["launches"].values())
                         for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"],
-                                  st)),
+                                  st, fe)),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
@@ -2506,6 +2920,13 @@ def main() -> int:
         "launches_stereo_chunk_fuse": st["a"]["launches"]["fuse"],
         "launches_stereo_vi_track": st["c"]["launches"]["track"],
         "launches_rgbd_track": st["d"]["rgbd"]["launches"]["track"] + st["d"]["rgbd_vi"]["launches"]["track"],
+        "launches_fisheye_track": fe["launches"]["track"],
+        "launches_fisheye_fuse": fe["launches"]["fuse"],
+        "launches_fisheye_chunk_track": fe["a"]["launches"]["track"],
+        "launches_fisheye_chunk_fuse": fe["a"]["launches"]["fuse"],
+        "launches_fisheye_stereo_track": fe["b"]["launches"]["track"],
+        "launches_fisheye_vi_track": fe["c"]["launches"]["track"],
+        "launches_fisheye_rectified_track": fe["d"]["launches"]["track"],
         "merge_ms": at["merge_ms"],
         "merge_plain_ms": at["merge_plain_ms"],
         "merge_device_us": at["merge_device_us"],
@@ -2516,7 +2937,8 @@ def main() -> int:
         "sim3_bound_us": la["sim3_bound_us"],
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"],
                            la["sim3_max_abs_err"], at["merge_max_abs_err"],
-                           kb["k1"]["max_abs_err"], kb["k1_r4"]["max_abs_err"]),
+                           kb["k1"]["max_abs_err"], kb["k1_r4"]["max_abs_err"],
+                           kfe["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_us"] / 1e3,
@@ -2546,6 +2968,12 @@ def main() -> int:
         "kitti_bound_us": kb["k1"]["bound_us"],
         "kitti_r4_ms": kb["k1_r4"]["ms"],
         "kitti_r4_device_us": kb["k1_r4"]["device_us"],
+        # a KB8 frame at the TUM-VI shape (P = 768, N = 1032), phase 16
+        "fisheye_max_abs_err": kfe["max_abs_err"],
+        "fisheye_ms": kfe["ms"],
+        "fisheye_plain_ms": kfe["plain_ms"],
+        "fisheye_device_us": kfe["device_us"],
+        "fisheye_bound_us": kfe["bound_us"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -103,20 +103,21 @@ def prep_frame(img, cfg):
 
 
 def admit_keyframe_points(m, kf_id, R, t, xy, valid, depth, n_pts, room, cam_params,
-                          max_depth: float = 0.0):
+                          max_depth: float = 0.0, cam_model: str = "pinhole"):
     """A new keyframe's landmarks into the point slots from ``n_pts`` on,
     at most ``room`` of them: with a ``depth`` per feature (stereo, RGB-D;
     -1 where none) first the close points (under ``max_depth``) from
     depth, metric, at the keyframe's pose (R, t); then triangulation
     against the previous keyframe binds what is still unbound (far points,
-    every monocular one). Returns (map, points admitted as a 0-d tensor)."""
+    every monocular one; under ``cam_model``). Returns (map, points
+    admitted as a 0-d tensor)."""
     base, n_new = n_pts, 0
     if depth is not None:
         cand = (depth > 0) & (depth < max_depth) & valid
         X_c = stereo.backproject(cam_params, xy, depth)
         m, n_new = map_updates.admit_depth_points(m, kf_id, (X_c - t) @ R, cand, base, room)
         base = base + n_new
-    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params)
+    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params, cam_model=cam_model)
     m, n_tri = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, base, room - n_new)
     return m, n_new + n_tri
 

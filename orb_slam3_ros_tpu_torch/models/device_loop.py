@@ -19,6 +19,10 @@ host reads two words, ``(need_kf, alive)``. The local BA stops at
 (``ba.bundle_adjust(on_device=True)``), as the JAX package's ``while_loop``
 does.
 
+``ChunkConfig.cam_model`` "kb8" runs the same graphs on raw fisheye
+frames: KB8 projection and Jacobians in tracking, fusion and the local BA,
+and triangulation gated on bearings (``MonoSlam(cam_model="kb8")``).
+
 A frame with fewer than 15 inliers ends the chunk: its step leaves the
 state as it was, and the host replays it and the frames after it one at a
 time (the JAX scan runs on past it with the state frozen; the frames the
@@ -95,6 +99,9 @@ class ChunkConfig(NamedTuple):
     max_depth: float = 0.0
     stereo: bool = False
     fx: float = 0.0
+    # The camera of every projection, triangulation and BA row (pinhole |
+    # kb8: raw fisheye pixels).
+    cam_model: str = "pinhole"
 
 
 def frame_step(c: LoopCarry, img, x_in, cfg: ChunkConfig, schedule: tuple):
@@ -115,7 +122,7 @@ def frame_step(c: LoopCarry, img, x_in, cfg: ChunkConfig, schedule: tuple):
         pt_mask = c.m.pt_first_kf >= (c.n_kf - cfg.track_window)
     res = tracking.track_against_map(
         c.m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
-        pt_mask=pt_mask, schedule=schedule, track_cap=cfg.track_cap,
+        pt_mask=pt_mask, schedule=schedule, track_cap=cfg.track_cap, cam_model=cfg.cam_model,
     )
     if cfg.stereo:
         from .stereo_system import _stereo_refine
@@ -175,7 +182,7 @@ def kf_insert(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
     m, n_new = admit_keyframe_points(
         m, kf_id, fr["kf_R"], fr["kf_t"], fr["f_xy"], fr["f_valid"],
         fr["f_depth"] if cfg.stereo else None, c.n_pts, m.P - c.n_pts, cfg.cam_params,
-        cfg.max_depth,
+        cfg.max_depth, cfg.cam_model,
     )
     return c._replace(m=m, n_pts=c.n_pts + n_new)
 
@@ -183,7 +190,8 @@ def kf_insert(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
 def kf_fuse(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
     """Keyframe segment 2: landmark fusion with the most covisible keyframes."""
     m, _ = map_updates.fuse_in_neighbors(
-        c.m, fr["kf_id"], cfg.cam_params, cfg.width, cfg.height, n_neighbors=cfg.fuse_neighbors
+        c.m, fr["kf_id"], cfg.cam_params, cfg.width, cfg.height, n_neighbors=cfg.fuse_neighbors,
+        cam_model=cfg.cam_model,
     )
     return c._replace(m=m)
 
@@ -199,7 +207,8 @@ def kf_ba(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
     prob, sel = local_mapping.build_local_ba(
         m, window_ids, fixed, cfg.cam_params, bf=cfg.bf, entry_valid=entry_valid
     )
-    res = ba.bundle_adjust(prob, n_iters=cfg.local_ba_iters, rel_tol=1e-3, on_device=True)
+    res = ba.bundle_adjust(prob, n_iters=cfg.local_ba_iters, rel_tol=1e-3, on_device=True,
+                           cam_model=cfg.cam_model)
     m = local_mapping.apply_local_ba(m, window_ids, sel, res, entry_valid)
     m = local_mapping.drop_ba_outlier_obs(m, window_ids, res, entry_valid)
     return c._replace(m=map_updates.cull_points(m, kf_id + 1))

@@ -57,7 +57,10 @@ frames reach the 15-dof refinement through ``_track_post`` (monocular once
 the IMU is initialized, the stereo refinement before), and the
 stereo-inertial chunks take [2, H, W] pairs.
 
-Not ported (it raises, naming its ROADMAP item): the ``on_frame`` hook.
+Not ported (it raises, naming its ROADMAP item): the ``on_frame`` hook;
+the KB8 camera (``cam_model="kb8"``), whose visual rows the JAX package's
+VI-BA and VI tracking project through the pinhole model (ROADMAP "Known
+faults"). ``cam_model`` reaches the keyframe's triangulation and fusion.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ def _vi_kf_work(
     m, kf_id, R, t, ts, feats, feat_pt, n_pts, free_cap, vb_new,
     window_ids, fixed, imu_blocks, edge_ok, calib, cam_params,
     *, width, height, fuse_neighbors, do_fuse, do_stats, do_cull, n_iters, n_levels,
-    bf=0.0, ur=None, depth=None, max_depth=0.0,
+    bf=0.0, ur=None, depth=None, max_depth=0.0, cam_model="pinhole",
 ):
     """One VI keyframe's mapping work (LocalMapping::Run with
     LocalInertialBA): insert -> record body state -> triangulate -> admit
@@ -94,10 +97,11 @@ def _vi_kf_work(
     m.kf_bg[kf_id] = vb_new[3:6]
     m.kf_ba[kf_id] = vb_new[6:9]
     m, n_new = admit_keyframe_points(m, kf_id, R, t, feats.xy, feats.valid, depth, n_pts,
-                                     free_cap, cam_params, max_depth)
+                                     free_cap, cam_params, max_depth, cam_model)
     if do_fuse:
         m, _ = map_updates.fuse_in_neighbors(
-            m, kf_id, cam_params, width, height, n_neighbors=fuse_neighbors
+            m, kf_id, cam_params, width, height, n_neighbors=fuse_neighbors,
+            cam_model=cam_model,
         )
     prob = local_mapping.build_vi_ba(
         m, window_ids, fixed, imu_blocks[..., 0:3], imu_blocks[..., 3:6], imu_blocks[..., 6],
@@ -155,6 +159,12 @@ class InertialSlam(MonoSlam):
         **kw,
     ):
         super().__init__(*args, **kw)
+        if self.cam_model == "kb8":
+            raise NotImplementedError(
+                "the inertial pipelines with the KB8 camera: the JAX package's visual-inertial "
+                "BA and VI tracking project every visual row through the pinhole model "
+                "(ROADMAP \"Known faults\")"
+            )
         # Per-frame VI motion-only optimization once the IMU is initialized
         # and the RECENTLY_LOST dead-reckoning window it enables.
         self.vi_tracking = vi_tracking
@@ -639,7 +649,8 @@ class InertialSlam(MonoSlam):
             do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
             do_stats=kf_id % self.stats_every == 0,
             do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
-            n_iters=self.local_ba_iters, n_levels=self.config.n_levels, bf=self.bf, **depth_kw,
+            n_iters=self.local_ba_iters, n_levels=self.config.n_levels, bf=self.bf,
+            cam_model=self.cam_model, **depth_kw,
         )
         self.n_kf += 1
         self.last_kf_frame = self.frame_id

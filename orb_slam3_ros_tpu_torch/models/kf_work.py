@@ -42,22 +42,26 @@ def keyframe_work(
     width: int,
     height: int,
     window: tuple | None = None,
+    cam_model: str = "pinhole",
 ) -> tuple[MapState, torch.Tensor, int]:
     """One keyframe's full mapping work on ``m`` (whose tensors it updates
     in place where the stages do). ``window``: the local-BA window as
     (window_ids, fixed_mask, entry_valid or None); None selects the
-    covisibility window of ``w_free`` + ``w_fixed`` entries. Returns (map,
-    n_new_points as a 0-d int32 tensor, local-BA iterations run)."""
+    covisibility window of ``w_free`` + ``w_fixed`` entries. ``cam_model``:
+    the camera of triangulation, fusion and the BA rows (pinhole | kb8).
+    Returns (map, n_new_points as a 0-d int32 tensor, local-BA iterations
+    run)."""
     m = map_updates.insert_keyframe(m, kf_id, R_cur, t_cur, ts, feats, feat_pt)
-    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params)
+    tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params, cam_model=cam_model)
     m, n_new = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, n_pts, free_cap)
     if do_fuse:
         m, _ = map_updates.fuse_in_neighbors(
-            m, kf_id, cam_params, width, height, n_neighbors=fuse_neighbors
+            m, kf_id, cam_params, width, height, n_neighbors=fuse_neighbors,
+            cam_model=cam_model,
         )
     if window is None:
         window = local_mapping.select_covis_window(m, kf_id, w_free, w_fixed)
-    m, iters = local_mapping.local_ba(m, window, cam_params, n_iters, bf)
+    m, iters = local_mapping.local_ba(m, window, cam_params, n_iters, bf, cam_model)
     m = map_updates.cull_points(m, kf_id + 1)
     if do_stats:
         m = map_updates.refresh_point_stats(m, n_levels=n_levels)

@@ -292,6 +292,7 @@ def cull_points(m: MapState, n_kf) -> MapState:
 def _fuse_into_kf(
     m: MapState, src_pts: torch.Tensor, dst_kf, active: torch.Tensor,
     cam_params: torch.Tensor, width: int, height: int, radius: float,
+    cam_model: str = "pinhole",
 ) -> tuple[MapState, torch.Tensor]:
     """Project the landmark set ``src_pts`` [P] into keyframe ``dst_kf``
     (int or 0-d tensor) and fuse with its features: a free feature gains
@@ -308,7 +309,7 @@ def _fuse_into_kf(
     dst_row = m.kf_obs.index_select(0, k1)[0]
     feats = kf_features(m, k1)
     Xc = m.pt_X @ R.T + t
-    uv = cameras.project_model(cam_params, Xc)
+    uv = cameras.project_model(cam_params, Xc, cam_model)
     in_dst = torch.zeros((P,), dtype=torch.int32, device=dev).index_add_(
         0, torch.clamp(dst_row, 0, P - 1).long(), ((dst_row >= 0) & feats.valid).to(torch.int32)
     ) > 0  # pMP->IsInKeyFrame(pKFi) skip
@@ -401,11 +402,13 @@ def fuse_in_neighbors(
     height: int,
     n_neighbors: int = 1,
     radius: float = 3.0,
+    cam_model: str = "pinhole",
 ) -> tuple[MapState, torch.Tensor]:
     """``LocalMapping::SearchInNeighbors``: fuse duplicated landmarks
     between keyframe ``kf_id`` and its ``n_neighbors`` most covisible
-    keyframes (ties to the lower slot), both directions. ``kf_id``: an int
-    or a 0-d tensor. Returns (map, n_fused)."""
+    keyframes (ties to the lower slot), both directions, projecting under
+    ``cam_model``. ``kf_id``: an int or a 0-d tensor. Returns (map,
+    n_fused)."""
     k1 = kf_index(kf_id, m.kf_obs.device)
     obs = obs_matrix(m)
     w = obs.to(torch.float32) @ obs.index_select(0, k1)[0].to(torch.float32)  # [K]
@@ -419,11 +422,12 @@ def fuse_in_neighbors(
         # forward: the new keyframe's landmarks into the neighbour
         m, f1 = _fuse_into_kf(
             m, obs_matrix(m).index_select(0, k1)[0], nk, active, cam_params, width, height,
-            radius,
+            radius, cam_model,
         )
         # reverse: the neighbour's landmarks into the new keyframe
         src = obs_matrix(m).index_select(0, nk.reshape(1))[0]
-        m, f2 = _fuse_into_kf(m, src, kf_id, active, cam_params, width, height, radius)
+        m, f2 = _fuse_into_kf(m, src, kf_id, active, cam_params, width, height, radius,
+                              cam_model)
         n_fused = n_fused + f1 + f2
     return m, n_fused
 

@@ -21,8 +21,7 @@ stereo branch.
 Left out, as the JAX package's compile and host helpers: the schedule
 warm-up (``_warm_schedules``), the stage timer (``_tic``), the two-device
 map replica (``_tmap``) and the lag-1 VI chunk drain (ROADMAP "Do not
-port"). Fisheye stereo (KB8, ``rectify``, ``twocam``) waits for ROADMAP
-Queue 1 item 6.
+port"). The non-rectified fisheye rig is ``fisheye_stereo``.
 """
 
 from __future__ import annotations

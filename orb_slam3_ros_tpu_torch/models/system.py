@@ -50,11 +50,18 @@ their own frames and go through ``_track``; ``bf`` (fx * baseline, 0 here)
 gives every BA the (u, v, u_r) rows of their keyframes, and
 ``_chunk_stereo`` lets the chunk loop take [2, H, W] stereo pairs.
 
+``cam_model="kb8"`` tracks raw Kannala-Brandt-8 fisheye frames natively,
+per frame and in chunks: KB8 projection in tracking, fusion and every BA,
+triangulation gated on bearings, two-view initialization and
+relocalization's PnP on fx-scaled bearings (a centred virtual pinhole).
+Loop closing and the Atlas project through the pinhole model in the JAX
+package whatever the camera (ROADMAP "Known faults"), so with KB8 they
+raise. The two-camera fisheye rig is ``fisheye_stereo``; the rectified
+route is ``ops.rectify`` into the pinhole system.
+
 What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-the two-device split, cameras other than pinhole (the KB8 fisheye and its
-stereo rig wait for ROADMAP Queue 1 item 6), the ``on_frame`` /
-``points_every`` observation hooks; the pipelined one-frame-lag mode is not
-ported by design.
+the two-device split, the ``on_frame`` / ``points_every`` observation
+hooks; the pipelined one-frame-lag mode is not ported by design.
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import ba_pcg, matching, orb, pnp, ransac, retrieval
+from ..ops import ba_pcg, cameras, matching, orb, pnp, ransac, retrieval
 from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
 from .atlas import Atlas
 from .chunk_runner import read_host, read_rows
@@ -126,23 +133,29 @@ def _reloc_detect(m: map_state.MapState, desc_sign, valid, vocab) -> torch.Tenso
 
 
 def _reloc_attempt(m: map_state.MapState, cand: int, feats: orb.Features, cam_params,
-                   width: int, height: int, generator=None, samples=None) -> torch.Tensor:
+                   width: int, height: int, generator=None, samples=None,
+                   cam_model: str = "pinhole") -> torch.Tensor:
     """One relocalization attempt against keyframe ``cand``
     (Tracking::Relocalization, Tracking.cc:3648-3760; the JAX package's
-    ``_reloc_attempt_fused``, pinhole): descriptor matches to its landmarks,
-    a PnP RANSAC seed (the keyframe's own pose when PnP has too little
-    support), then tracking against the map from the seed. ``samples``
+    ``_reloc_attempt_fused``): descriptor matches to its landmarks, a PnP
+    RANSAC seed (the keyframe's own pose when PnP has too little support),
+    then tracking against the map from the seed. Under KB8 the PnP runs on
+    ``cameras.fx_bearings`` with ``cameras.bearing_camera``. ``samples``
     [256, 6]: the PnP hypotheses' samples (drawn by ``generator`` when
     None). Returns [13] f32 on the device: (R, t, tracking inliers)."""
     X, uv, ok = _reloc_pnp_inputs(m, cand, feats)
+    pnp_cam = cam_params
+    if cam_model == "kb8":
+        uv, pnp_cam = cameras.fx_bearings(cam_params, uv), cameras.bearing_camera(cam_params)
     if samples is None:
-        pres = pnp.solve_pnp(X, uv, ok, cam_params, generator)
+        pres = pnp.solve_pnp(X, uv, ok, pnp_cam, generator)
     else:
-        pres = pnp.solve_pnp_from_samples(X, uv, ok, cam_params, samples)
+        pres = pnp.solve_pnp_from_samples(X, uv, ok, pnp_cam, samples)
     use = pres.ok & (torch.sum(ok) >= 15)
     R0 = torch.where(use, pres.R, m.kf_R[cand])
     t0 = torch.where(use, pres.t, m.kf_t[cand])
-    res = tracking.track_against_map(m, feats, R0, t0, cam_params, width, height)
+    res = tracking.track_against_map(m, feats, R0, t0, cam_params, width, height,
+                                     cam_model=cam_model)
     return torch.cat([res.R.reshape(-1), res.t, res.n_inliers.reshape(1).to(res.t.dtype)])
 
 
@@ -153,7 +166,9 @@ class MonoSlam:
     ``device`` (None: the CUDA device, an error where there is none; the CPU
     only when asked for); the options whose paths are not ported raise when
     set.
-    ``transfer_uint8`` sets the frame format of the chunk loop's stack."""
+    ``transfer_uint8`` sets the frame format of the chunk loop's stack;
+    ``cam_model`` the camera ("pinhole", or "kb8": ``cam_params`` then
+    holds the eight KB8 parameters and frames are raw fisheye images)."""
 
     def __init__(
         self,
@@ -197,13 +212,19 @@ class MonoSlam:
             )
         if devices is not None:
             raise _not_ported("the two-device tracking/mapping split", "8")
-        if cam_model != "pinhole":
-            raise _not_ported(f"camera model {cam_model!r}", "6")
+        cameras.check_model(cam_model)
+        if cam_model == "kb8" and (enable_loop_closing or enable_atlas):
+            what = "loop closing" if enable_loop_closing else "the Atlas"
+            raise NotImplementedError(
+                f"{what} with the KB8 camera: the JAX package projects its "
+                "Sim(3) and weld searches through the pinhole model (ROADMAP \"Known faults\")"
+            )
         if points_every:
             raise _not_ported("the points_every observation hook", "7")
         self.device = resolve_device(device)
         self.height, self.width = height, width
         self.cam_params = torch.as_tensor(np.asarray(cam_params, np.float32), device=self.device)
+        self.cam_model = cam_model
         self.config = orb.default_config(height, width, n_features=n_features)
         self.K_cap = max_keyframes
         self.P_cap = max_points
@@ -462,6 +483,7 @@ class MonoSlam:
             torch.as_tensor(t_pred, device=dev), self.cam_params,
             self.width, self.height, pt_mask=pt_mask,
             schedule=self._current_schedule(), track_cap=self.track_cap,
+            cam_model=self.cam_model,
         )
         return self._track_post(feats, res, ts)
 
@@ -510,7 +532,8 @@ class MonoSlam:
     def _dispatch_gba_chunk(self) -> None:
         g = self._gba
         it = min(g["chunk"], g["target"] - g["done"])
-        res = ba_pcg.bundle_adjust_pcg(g["prob"], n_iters=it, n_cg=g["n_cg"])
+        res = ba_pcg.bundle_adjust_pcg(g["prob"], n_iters=it, n_cg=g["n_cg"],
+                                       cam_model=self.cam_model)
         g["prob"] = g["prob"]._replace(R=res.R, t=res.t, X=res.X)
         g["res"] = res
         g["done"] += it
@@ -587,7 +610,7 @@ class MonoSlam:
             track_cap=self.track_cap, track_window=self.track_window, bf=float(self.bf),
             baseline=float(getattr(self, "baseline", 0.0)),
             max_depth=float(getattr(self, "max_depth", 0.0)), stereo=self._chunk_stereo(),
-            fx=float(getattr(self, "fx", 0.0)),
+            fx=float(getattr(self, "fx", 0.0)), cam_model=self.cam_model,
         )
 
     def _frame_stack(self, imgs) -> torch.Tensor:
@@ -744,7 +767,8 @@ class MonoSlam:
             if c < 0:
                 continue
             buf = _reloc_attempt(
-                self.map, int(c), feats, self.cam_params, self.width, self.height, self.generator
+                self.map, int(c), feats, self.cam_params, self.width, self.height, self.generator,
+                cam_model=self.cam_model,
             ).cpu().numpy()
             if int(buf[12]) >= 30:
                 self.R_cur = buf[:9].reshape(3, 3).copy()
@@ -773,7 +797,9 @@ class MonoSlam:
         first frame with > 100 features becomes the reference; each later
         frame is matched against it and, with >= 60 matches, reconstructed
         by H/F RANSAC. The reference frame moves on after too few matches
-        or three failed reconstructions in a row."""
+        or three failed reconstructions in a row. Under KB8 the H/F RANSAC
+        runs on ``cameras.fx_bearings`` with ``cameras.bearing_camera`` (a
+        fisheye's epipolar geometry is not linear in pixels)."""
         if self.init_feats is None:
             if int(feats.valid.sum()) > 100:
                 self.init_feats = feats
@@ -785,10 +811,14 @@ class MonoSlam:
             self.init_feats = feats
             self.init_ts = ts
             return None
+        xy1 = self.init_feats.xy
         xy2 = feats.xy[torch.clamp(idx, min=0).long()]
-        res = ransac.two_view_init(
-            self.init_feats.xy, xy2, matched, self.cam_params, self.generator
-        )
+        init_cam = self.cam_params
+        if self.cam_model == "kb8":
+            xy1 = cameras.fx_bearings(self.cam_params, xy1)
+            xy2 = cameras.fx_bearings(self.cam_params, xy2)
+            init_cam = cameras.bearing_camera(self.cam_params)
+        res = ransac.two_view_init(xy1, xy2, matched, init_cam, self.generator)
         if not bool(res.ok) or int(res.n_good) < 50:
             self._init_fail_count += 1
             if self._init_fail_count >= 3:
@@ -964,6 +994,7 @@ class MonoSlam:
             do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
             width=self.width, height=self.height,
             window=None if self.covis_ba else self._temporal_window(kf_id + 1),
+            cam_model=self.cam_model,
         )
         self.ba_iters.append(iters)
         self.n_kf += 1
@@ -1018,5 +1049,5 @@ class MonoSlam:
         else:
             window = self._temporal_window(self.n_kf)
         self.map, iters = local_mapping.local_ba(self.map, window, self.cam_params, n_iters,
-                                                 self.bf)
+                                                 self.bf, self.cam_model)
         self.ba_iters.append(iters)

@@ -1,7 +1,9 @@
 """Per-frame tracking against the map (coarse-to-fine project / match /
 pose-optimize passes) and new-landmark triangulation between keyframes —
 port of ``track_against_map``, ``triangulate_with_ref`` and what they call
-in ``orb_slam3_ros_tpu.models.tracking`` (pinhole camera).
+in ``orb_slam3_ros_tpu.models.tracking``, under the pinhole or the KB8
+fisheye camera (``cam_model``; KB8 projects raw fisheye pixels, and its
+epipolar gate runs on bearings).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ class TrackResult(NamedTuple):
 
 def _project_points(
     m: MapState, R, t, cam_params, width, height, margin=2.0,
-    band_lo=0.8, band_hi=1.2, view_min=0.5,
+    band_lo=0.8, band_hi=1.2, view_min=0.5, cam_model="pinhole",
 ):
     """Frustum + viewing-statistics gate (the reference's
     ``Frame::isInFrustum``). Points whose band was never set
@@ -39,7 +41,7 @@ def _project_points(
     point searches at its creation octave ``pt_level`` (the JAX package's
     default; its ``predict_scale`` option is not ported)."""
     Xc = m.pt_X @ R.T + t
-    uv = cameras.project_model(cam_params, Xc)
+    uv = cameras.project_model(cam_params, Xc, cam_model)
     O_w = -R.T @ t
     po = m.pt_X - O_w
     dist = torch.linalg.norm(po, dim=-1)
@@ -61,11 +63,11 @@ def _project_points(
 
 def _match_and_pose(
     m: MapState, feats: Features, R, t, cam_params, width, height, radius,
-    scale, rounds, iters, band_lo=0.8, band_hi=1.2, view_min=0.5,
+    scale, rounds, iters, band_lo=0.8, band_hi=1.2, view_min=0.5, cam_model="pinhole",
 ):
     uv_proj, proj_ok = _project_points(
         m, R, t, cam_params, width, height,
-        band_lo=band_lo, band_hi=band_hi, view_min=view_min,
+        band_lo=band_lo, band_hi=band_hi, view_min=view_min, cam_model=cam_model,
     )
     idx, _ = matching.search_by_projection(
         uv_proj, proj_ok, m.pt_level, m.pt_desc_sign, feats,
@@ -77,7 +79,7 @@ def _match_and_pose(
     inv_sigma2 = 1.0 / scale ** (2.0 * feats.level[fidx].to(torch.float32))
     res = pose_opt.pose_optimization(
         R, t, m.pt_X, obs_uv, inv_sigma2, matched, cam_params,
-        rounds=rounds, iters_per_round=iters,
+        rounds=rounds, iters_per_round=iters, cam_model=cam_model,
     )
     return res, idx, proj_ok
 
@@ -94,6 +96,7 @@ def track_against_map(
     pt_mask: torch.Tensor | None = None,
     schedule: tuple | None = None,
     track_cap: int | None = None,
+    cam_model: str = "pinhole",
 ) -> TrackResult:
     """Coarse-to-fine project/match/optimize against the point table.
 
@@ -104,8 +107,9 @@ def track_against_map(
     by visibility under the predicted pose, ties toward recent points (the
     reference's local-map tracking). Tied scores keep the lower point index
     first, as ``lax.top_k`` does; the order of the cut fixes the matcher's
-    row order and with it which row wins a tie. (The JAX package's
-    ``cam_model`` serves its fisheye path, which is not ported.)
+    row order and with it which row wins a tie. ``cam_model``: the
+    projection of the points and of the pose optimization's edges
+    (pinhole | kb8).
     """
     if schedule is None:
         schedule = SCHEDULE_DENSE
@@ -116,7 +120,7 @@ def track_against_map(
     if track_cap is not None and track_cap < P_full:
         _, vis = _project_points(
             m, R_pred, t_pred, cam_params, width, height,
-            margin=20.0, band_lo=0.4, band_hi=2.5, view_min=0.0,
+            margin=20.0, band_lo=0.4, band_hi=2.5, view_min=0.0, cam_model=cam_model,
         )
         P32 = float(P_full)
         score = (
@@ -141,12 +145,12 @@ def track_against_map(
     res, idx, proj_ok = _match_and_pose(
         m, feats, R_pred, t_pred, cam_params, width, height,
         radius=radius0, scale=scale, rounds=rounds0, iters=iters0,
-        band_lo=0.4, band_hi=2.5, view_min=0.0,
+        band_lo=0.4, band_hi=2.5, view_min=0.0, cam_model=cam_model,
     )
     for radius_i, rounds_i, iters_i in schedule[1:]:
         res, idx, proj_ok = _match_and_pose(
             m, feats, res.R, res.t, cam_params, width, height,
-            radius=radius_i, scale=scale, rounds=rounds_i, iters=iters_i,
+            radius=radius_i, scale=scale, rounds=rounds_i, iters=iters_i, cam_model=cam_model,
         )
     # Invert the point->feature map into per-feature point ids (inliers).
     P = m.P
@@ -206,11 +210,17 @@ def triangulate_with_ref(
     ref_kf,
     cam_params: torch.Tensor,
     scale: float = 1.2,
+    cam_model: str = "pinhole",
 ) -> TriangulationResult:
     """Epipolar search + DLT new-landmark creation between the newest
     keyframe and a reference keyframe (LocalMapping::CreateNewMapPoints,
     reduced to one neighbour): cheirality, parallax and reprojection checks
-    in both views. Keyframe ids: ints or 0-d tensors."""
+    in both views. Keyframe ids: ints or 0-d tensors.
+
+    Under KB8 the epipolar gate runs on the features' bearings scaled by fx
+    (a centred virtual pinhole, so the tolerance keeps its pixel meaning)
+    with the essential matrix: a fisheye's epipolar line is a curve in
+    pixels (the reference's KannalaBrandt8::epipolarConstrain)."""
     dev = m.kf_R.device
     k_new, k_ref = kf_index(new_kf, dev), kf_index(ref_kf, dev)
 
@@ -226,10 +236,16 @@ def triangulate_with_ref(
     t21 = t2 - R21 @ t1
     R12 = R21.T
     t12 = -R21.T @ t21
-    K = triangulate.K_matrix(cam_params)
+    if cam_model == "kb8":
+        K = triangulate.K_matrix(cameras.bearing_camera(cam_params))
+        g_new = f_new._replace(xy=cameras.fx_bearings(cam_params, f_new.xy))
+        g_ref = f_ref._replace(xy=cameras.fx_bearings(cam_params, f_ref.xy))
+    else:
+        K = triangulate.K_matrix(cam_params)
+        g_new, g_ref = f_new, f_ref
     F12 = triangulate.fundamental_from_poses(K, K, R12, t12)
     idx, _ = matching.search_for_triangulation(
-        f_new, f_ref, F12,
+        g_new, g_ref, F12,
         already_matched1=row(m.kf_obs, k_new) >= 0,
         already_matched2=row(m.kf_obs, k_ref) >= 0,
         scale=scale,
@@ -237,13 +253,13 @@ def triangulate_with_ref(
     matched = idx >= 0
     ridx = torch.clamp(idx, 0, m.N - 1)
     xy_ref = f_ref.xy[ridx.long()]
-    rays1 = cameras.unproject_model(cam_params, f_new.xy)
-    rays2 = cameras.unproject_model(cam_params, xy_ref)
+    rays1 = cameras.unproject_model(cam_params, f_new.xy, cam_model)
+    rays2 = cameras.unproject_model(cam_params, xy_ref, cam_model)
     X1 = triangulate.triangulate_dlt(rays1, rays2, R21, t21)
     X2 = X1 @ R21.T + t21
     cospar = triangulate.parallax_cos(X1, -R21.T @ t21)
-    e1 = torch.sum((cameras.project_model(cam_params, X1) - f_new.xy) ** 2, -1)
-    e2 = torch.sum((cameras.project_model(cam_params, X2) - xy_ref) ** 2, -1)
+    e1 = torch.sum((cameras.project_model(cam_params, X1, cam_model) - f_new.xy) ** 2, -1)
+    e2 = torch.sum((cameras.project_model(cam_params, X2, cam_model) - xy_ref) ** 2, -1)
     sig2_1 = scale ** (2.0 * f_new.level.to(torch.float32))
     sig2_2 = scale ** (2.0 * f_ref.level[ridx.long()].to(torch.float32))
     ok = (

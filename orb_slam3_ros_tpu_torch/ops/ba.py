@@ -99,15 +99,19 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
     return cof * inv_det[..., None, None]
 
 
-def _edge_res_jac(R, t, X, uv, ur, bf, cam_params):
+def _edge_res_jac(R, t, X, uv, ur, bf, cam_params, cam_model: str = "pinhole"):
     """Per-edge 3-dim (u, v, u_r) residuals [E,3] and Jacobians w.r.t. the
     camera's left se3 perturbation [E,3,6] and the point [E,3,3]; the u_r
     row is zero on monocular edges (ur < 0), which reduces exactly to the
-    2-dim case."""
+    2-dim case. ``cam_model`` selects the projection (pinhole | kb8); under
+    KB8 every u_r row is zero, as in the JAX package (its stereo rows are
+    the rectified pinhole's)."""
     Xc = torch.einsum("eij,ej->ei", R, X) + t
-    pred = cameras.project_model(cam_params, Xc)
-    Jproj = cameras.project_jac_model(cam_params, Xc)  # [E,2,3]
+    pred = cameras.project_model(cam_params, Xc, cam_model)
+    Jproj = cameras.project_jac_model(cam_params, Xc, cam_model)  # [E,2,3]
     has_st = (ur >= 0).to(X.dtype)
+    if cam_model == "kb8":
+        has_st = torch.zeros_like(has_st)
     z = Xc[:, 2]
     z_safe = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     ur_pred = pred[:, 0] - bf / z_safe
@@ -122,8 +126,9 @@ def _edge_res_jac(R, t, X, uv, ur, bf, cam_params):
     return r, Jc, Jp
 
 
-def _gather_edges(prob: BAProblem, cam, pt, R, t, X):
-    return _edge_res_jac(R[cam], t[cam], X[pt], prob.uv, prob.ur, prob.bf, prob.cam_params)
+def _gather_edges(prob: BAProblem, cam, pt, R, t, X, cam_model: str = "pinhole"):
+    return _edge_res_jac(R[cam], t[cam], X[pt], prob.uv, prob.ur, prob.bf, prob.cam_params,
+                         cam_model)
 
 
 def _robust_cost(chi2, w_valid, delta2):
@@ -142,8 +147,10 @@ def bundle_adjust(
     lam0: float = 1e-3,
     rel_tol: float = 0.0,
     on_device: bool = False,
+    cam_model: str = "pinhole",
 ) -> BAResult:
-    """Run up to ``n_iters`` LM iterations of full BA on the problem.
+    """Run up to ``n_iters`` LM iterations of full BA on the problem
+    (``cam_model``: the projection of its rows, pinhole | kb8).
 
     ``rel_tol``: stop once an accepted step improves the robust cost by
     less than ``rel_tol`` of its value (g2o's terminate action); 0 runs all
@@ -166,7 +173,7 @@ def bundle_adjust(
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     def chi2_of(R, t, X):
-        r, _, _ = _gather_edges(prob, cam, pt, R, t, X)
+        r, _, _ = _gather_edges(prob, cam, pt, R, t, X, cam_model)
         return torch.sum(r * r, dim=-1) * prob.inv_sigma2
 
     def cost_of(R, t, X):
@@ -182,7 +189,7 @@ def bundle_adjust(
     wcp_row = cam * P + pt
 
     def step(R, t, X, lam, cost):
-        r, Jc, Jp = _gather_edges(prob, cam, pt, R, t, X)  # [E,3],[E,3,6],[E,3,3]
+        r, Jc, Jp = _gather_edges(prob, cam, pt, R, t, X, cam_model)  # [E,3],[E,3,6],[E,3,3]
         chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
         w_rob = robust.huber_weight(chi2, delta2) if use_robust else torch.ones_like(chi2)
         w = prob.inv_sigma2 * w_rob * prob.edge_valid.to(dtype)  # [E]

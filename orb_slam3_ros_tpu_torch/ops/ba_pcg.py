@@ -1,7 +1,9 @@
 """Map-scale bundle adjustment: matrix-free preconditioned conjugate
 gradients on the Schur complement — port of
 ``orb_slam3_ros_tpu.ops.ba_pcg`` (the role of the reference's
-``Optimizer::GlobalBundleAdjustemnt``, Optimizer.cc:52), pinhole only.
+``Optimizer::GlobalBundleAdjustemnt``, Optimizer.cc:52), with pinhole and
+KB8 rows (``cam_model``; under KB8 the u_r rows are zero, as in
+``ba.bundle_adjust``).
 
 The reduced camera system S = Hcc - W Hpp^-1 W^T is never formed. A
 product S x is gathers over the edge table and two ``index_add_`` scatters
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import ba, graphs, lie, linalg, robust
+from . import ba, cameras, graphs, lie, linalg, robust
 from .ba import BAProblem, BAResult
 
 
@@ -34,16 +36,13 @@ def bundle_adjust_pcg(
 ) -> BAResult:
     """LM bundle adjustment with matrix-free Schur-PCG camera solves, the
     contract of ``ba.bundle_adjust`` with all ``n_iters`` iterations run.
-    ``cam_model`` other than "pinhole" raises (ROADMAP Queue 1 item 6)."""
-    if cam_model != "pinhole":
-        raise NotImplementedError(
-            f"camera model {cam_model!r} is not ported yet (ROADMAP Queue 1 item 6)"
-        )
-    return graphs.replay(_solve, prob, n_iters, n_cg, chi2_th, use_robust, lam0)
+    ``cam_model``: the projection of the rows (pinhole | kb8)."""
+    cameras.check_model(cam_model)
+    return graphs.replay(_solve, prob, n_iters, n_cg, chi2_th, use_robust, lam0, cam_model)
 
 
 def _solve(prob: BAProblem, n_iters: int, n_cg: int, chi2_th: float, use_robust: bool,
-           lam0: float) -> BAResult:
+           lam0: float, cam_model: str = "pinhole") -> BAResult:
     K, P = prob.R.shape[0], prob.X.shape[0]
     dtype, dev = prob.R.dtype, prob.R.device
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
@@ -52,7 +51,7 @@ def _solve(prob: BAProblem, n_iters: int, n_cg: int, chi2_th: float, use_robust:
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     def chi2_of(R, t, X):
-        r, _, _ = ba._gather_edges(prob, cam, pt, R, t, X)
+        r, _, _ = ba._gather_edges(prob, cam, pt, R, t, X, cam_model)
         return torch.sum(r * r, dim=-1) * prob.inv_sigma2
 
     def cost_of(R, t, X):
@@ -73,7 +72,7 @@ def _solve(prob: BAProblem, n_iters: int, n_cg: int, chi2_th: float, use_robust:
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
     def step(R, t, X, lam, cost):
-        r, Jc, Jp = ba._gather_edges(prob, cam, pt, R, t, X)  # [E,3],[E,3,6],[E,3,3]
+        r, Jc, Jp = ba._gather_edges(prob, cam, pt, R, t, X, cam_model)  # [E,3],[E,3,6],[E,3,3]
         chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
         w_rob = robust.huber_weight(chi2, delta2) if use_robust else torch.ones_like(chi2)
         w = prob.inv_sigma2 * w_rob * prob.edge_valid.to(dtype)

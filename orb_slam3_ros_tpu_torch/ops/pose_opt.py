@@ -29,13 +29,14 @@ class PoseOptResult(NamedTuple):
     chi2: torch.Tensor  # [N] final per-edge chi2 (sigma-normalized)
 
 
-def _residual_jac(R, t, Xw, uv, cam_params):
+def _residual_jac(R, t, Xw, uv, cam_params, cam_model: str = "pinhole"):
     """Per-edge reprojection residuals [N, 2] and Jacobians [N, 2, 6] with
     respect to the left-multiplicative se3 perturbation of Tcw (the JAX
-    package's per-edge function with the edge axis written out)."""
+    package's per-edge function with the edge axis written out);
+    ``cam_model`` selects the projection (pinhole | kb8)."""
     Xc = Xw @ R.T + t
-    r = cameras.project_model(cam_params, Xc) - uv
-    Jproj = cameras.project_jac_model(cam_params, Xc)  # [N, 2, 3]
+    r = cameras.project_model(cam_params, Xc, cam_model) - uv
+    Jproj = cameras.project_jac_model(cam_params, Xc, cam_model)  # [N, 2, 3]
     # dXc/d[rho, phi] = [I, -hat(Xc)]
     eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand(Xc.shape[0], 3, 3)
     JX = torch.cat([eye, -lie.hat(Xc)], dim=-1)  # [N, 3, 6]
@@ -52,16 +53,17 @@ def pose_optimization(
     cam_params: torch.Tensor,
     rounds: int = 4,
     iters_per_round: int = 10,
+    cam_model: str = "pinhole",
 ) -> PoseOptResult:
     """Optimize Tcw given fixed 3-D points and their observations.
 
     Args:
       R0, t0: initial Tcw.
       Xw: [N, 3] world points.
-      uv: [N, 2] observed pixels (undistorted).
+      uv: [N, 2] observed pixels (undistorted pinhole, or raw KB8).
       inv_sigma2: [N] per-edge information scale (1/sigma^2 by octave).
       valid: [N] bool — edge exists.
-      cam_params: pinhole [9].
+      cam_params: pinhole [9] or KB8 [8], as ``cam_model`` says.
 
     After each round, edges with sigma-normalized chi2 > CHI2_MONO leave
     the next round and may re-enter later (the reference's outlier schedule,
@@ -69,13 +71,13 @@ def pose_optimization(
     chi2_th = robust.CHI2_MONO
 
     def residuals(R, t):
-        return _residual_jac(R, t, Xw, uv, cam_params)
+        return _residual_jac(R, t, Xw, uv, cam_params, cam_model)
 
     return _lm(residuals, R0, t0, inv_sigma2, valid, chi2_th, rounds, iters_per_round)
 
 
 def _lm(residuals, R0, t0, inv_sigma2, valid, chi2_th, rounds: int, iters_per_round: int):
-    """The LM ladder of both solves: ``rounds`` x ``iters_per_round``
+    """The LM ladder of the solves (this module's and ``twocam``'s): ``rounds`` x ``iters_per_round``
     damped Gauss-Newton steps on the Huber-weighted edges, each kept only if
     it lowers the cost, the edges above ``chi2_th`` (a float, or a per-edge
     tensor) reclassified after each round. ``residuals(R, t)`` gives the

@@ -1,6 +1,6 @@
 """Synthetic dataset: a ray-traced textured room with exact ground-truth
-poses and depth — port of the pinhole part of
-``orb_slam3_ros_tpu.utils.synth``: the orbit, loop and multi-loop
+poses and depth — port of ``orb_slam3_ros_tpu.utils.synth``: pinhole and
+KB8 fisheye rendering (``render(cam_model=)``), the orbit, loop and multi-loop
 sequences and the visual-inertial "wander" and "loop" sequences with
 their exact IMU samples, each with a rectified right view
 (``stereo_baseline``) and depth where asked.
@@ -21,7 +21,7 @@ import torch
 
 from .. import resolve_device
 from ..models import map_state, map_updates
-from ..ops import orb, stereo
+from ..ops import cameras, orb, stereo
 
 
 def _value_noise_texture(size: int, seed: int, octaves: int = 5) -> np.ndarray:
@@ -109,9 +109,14 @@ def _sample_tex(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     )
 
 
-def render(scene: RoomScene, R_wc, t_wc, cam_params, height: int = 480, width: int = 752):
+def render(scene: RoomScene, R_wc, t_wc, cam_params, height: int = 480, width: int = 752,
+           cam_model: str = "pinhole"):
     """Grayscale view [H, W] float32 in [0, 255] and camera z-depth [H, W]
-    for the camera-to-world pose (R_wc, t_wc), on the scene's device."""
+    for the camera-to-world pose (R_wc, t_wc), on the scene's device.
+    ``cam_model="kb8"`` renders raw fisheye imagery: one ray per pixel from
+    the KB8 unprojection (past theta = pi/2 the ray points backwards and the
+    corner shows the scene mirrored, as in the JAX package); the depth is
+    then the ray parameter of its z = 1 direction."""
     dev = scene.textures.device
     R_wc = torch.as_tensor(R_wc, dtype=torch.float32, device=dev)
     t_wc = torch.as_tensor(t_wc, dtype=torch.float32, device=dev)
@@ -119,8 +124,11 @@ def render(scene: RoomScene, R_wc, t_wc, cam_params, height: int = 480, width: i
     ys = torch.arange(height, dtype=torch.float32, device=dev)
     xs = torch.arange(width, dtype=torch.float32, device=dev)
     yg, xg = torch.meshgrid(ys, xs, indexing="ij")
-    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
-    dirs_c = torch.stack([(xg - cx) / fx, (yg - cy) / fy, torch.ones_like(xg)], dim=-1)
+    if cam_model == "kb8":
+        dirs_c = cameras.kb8_unproject(cam, torch.stack([xg, yg], dim=-1))
+    else:
+        fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
+        dirs_c = torch.stack([(xg - cx) / fx, (yg - cy) / fy, torch.ones_like(xg)], dim=-1)
     dirs_w = torch.einsum("ij,hwj->hwi", R_wc, dirs_c)
     origin = t_wc.expand(dirs_w.shape)
     ts, uvs = _ray_box_hits(origin, dirs_w, scene.half)

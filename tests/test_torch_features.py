@@ -81,8 +81,13 @@ class TestMath:
         np.testing.assert_array_equal(
             tcam.in_image(T(uv), W, H, 2.0).numpy(), np.asarray(jcam.in_image(uv, W, H, 2.0))
         )
-        with pytest.raises(NotImplementedError):
-            tcam.project_model(T(CAM), T(X), "kb8")
+        # the KB8 branch of the dispatcher (tests/test_torch_kb8.py holds the
+        # camera itself against the JAX package)
+        kb8 = np.asarray([150.0, 150.0, 187.5, 119.5, 0.02, 0.001, -0.002, 0.0002], np.float32)
+        np.testing.assert_allclose(
+            tcam.project_model(T(kb8), T(X), "kb8").numpy(),
+            np.asarray(jcam.project_model(kb8, X, "kb8")), rtol=1e-6, atol=1e-4,
+        )
         chi2 = rng.uniform(0, 20, 100).astype(np.float32)
         np.testing.assert_allclose(
             trob.huber_weight(T(chi2), trob.CHI2_MONO).numpy(),

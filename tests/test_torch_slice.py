@@ -80,7 +80,7 @@ def test_unported_states_raise():
     # against, and the frame stays LOST.
     slam.state = tsys.LOST
     assert slam.process_frame(img, 0.1) is None and slam.state == tsys.LOST
-    for kw in ({"pipelined": True}, {"points_every": 1}, {"cam_model": "kb8"}):
+    for kw in ({"pipelined": True}, {"points_every": 1}, {"devices": (0, 1)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, **kw})
     # the Atlas is ported (tests/test_torch_atlas.py)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from orb_slam3_ros_tpu.models import kf_work as jkf
 from orb_slam3_ros_tpu.models import map_state as jms
@@ -21,6 +22,7 @@ from orb_slam3_ros_tpu_torch.models import map_state as tms
 from orb_slam3_ros_tpu_torch.ops import ba as tba
 from orb_slam3_ros_tpu_torch.ops import imu as timu
 from orb_slam3_ros_tpu_torch.ops import orb as torb
+from orb_slam3_ros_tpu_torch.ops import twocam as ttwocam
 from orb_slam3_ros_tpu_torch.ops import viba as tviba
 
 
@@ -134,3 +136,10 @@ def jax_seed_map(seq, kf_every, slam, max_depth: float = 8.0):
         n_kf += 1
     m = jmu.refresh_point_stats(m, n_levels=slam.config.n_levels, dense=False)
     return m, n_kf, n_pts
+
+
+def torch_cross(jc):
+    """The port's ``CrossCamTriangulation`` from the JAX package's."""
+    return ttwocam.CrossCamTriangulation(
+        **{k: torch.from_numpy(np.array(v)) for k, v in np_tree(jc).items()}
+    )
