@@ -183,6 +183,33 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``kb8_rect_map``, ``remap_bilinear`` on the card each frame, the pinhole
      ``MonoSlam``), 25 frames: the Sim(3) ATE within 2x the JAX run's;
      prints the remap's time a frame.
+ 17. the system surface: (a) the dataset-replay entry point
+     (``run_synth.run`` with ``--native-feed --stream --verbose 1 --json``)
+     at phase 7's sequence and configuration, per frame, fed by the C++
+     measurement sync (``native.py``, built from ``native/measurement_sync
+     .cpp`` with g++ in this run) from a producer thread, the JSONL event
+     stream and the stage timer live, ``points_every`` 1: requires
+     initialization by frame 4, a pose for every frame after it, Sim(3) ATE
+     <= 0.02 m, one frame event a tracked frame, one keyframe event a
+     keyframe, the point events at their cadence, K1 launches equal to the
+     tracking passes plus 2 for each fusing keyframe, and K1 exact against
+     its plain version on the run's first tracking and fusion searches;
+     prints frames/s (the whole run's and the steady rate phase 7 reports),
+     ``print_time_stats()`` and the producer's push waits; (b) the same run
+     with the control socket (``--control``) and clients in a second
+     process: status, save_traj, save_map (loaded back into a fresh
+     system), localization mode on and off, a subscriber that receives the
+     frame events and one that never reads; requires every reply, the
+     reader kept and the other dropped once its socket buffer and its
+     queue filled, K1's launches as in (a), and the median frame rate
+     within 10% of (a)'s, (a) run again after (b) and its two runs
+     averaged, all three under the same instrumentation
+     (``SurfaceCounters``); (c) the problem dump of phase 12 (a)'s
+     closed loop (``dump_from_map`` and ``save_optimization_data`` on its
+     final map and loop edge) re-solved by ``reoptimize`` on the card: the
+     cost falls and the poses are within 1e-4 of the same call on the CPU;
+     (d) ``detect_plane`` on (a)'s map finds a plane (ok: >= 15% inliers)
+     and ``ARDemo.render`` draws the cube.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -196,6 +223,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -307,6 +335,9 @@ FE_RECT_KW = dict(n_features=1000, max_keyframes=32, max_points=4096)
 # (a) and (d), the metric ATE of (b) and (c); the card is held to 2x each.
 FE_JAX = dict(a_ate_m=0.09143445721133506, b_ate_m=0.005943132446196125,
               c_ate_m=0.015430461873248041, d_ate_m=0.007757705106899272)
+# Phase 17: the point events' cadence, the frame rate (b) keeps against
+# (a), the reoptimization's card-vs-CPU pose bound and its iterations.
+SURF_POINTS_EVERY, SURF_FPS_RATIO, SURF_REOPT_TOL, SURF_REOPT_ITERS = 1, 0.9, 1e-4, 30
 
 
 def check(cond, msg: str) -> None:
@@ -1628,7 +1659,7 @@ def phase_loop_mono(torch, project_match) -> dict:
              sim3_ms=k_ms, sim3_plain_ms=plain_ms, sim3_device_us=dev_us,
              sim3_bound_us=bound["bound_us"], sim3_bound_by=bound["bound_by"], run_s=loop_s,
              pgo_graph_vs_eager=pgo_diff, pcg_graph_vs_eager=pcg_diff)
-    return dict(closed_loop=a, lc=phase_lc_protocol(torch, project_match))
+    return dict(closed_loop=a, lc=phase_lc_protocol(torch, project_match)), slam
 
 
 def phase_lc_protocol(torch, project_match) -> dict:
@@ -2820,6 +2851,355 @@ def phase_fisheye(torch, project_match) -> dict:
     return dict(a=a, k1=k1, b=b, c=c, d=d, seconds=secs, launches=launches)
 
 
+def surface_args(tmp: str, control: bool) -> list:
+    """Phase 17's ``run_synth`` flags: phase 7's sequence at the EuRoC
+    shape through the native feed, the event stream and the log level on."""
+    argv = ["--frames", str(MAP_FRAMES), "--height", str(H), "--width", str(W),
+            "--features", str(N_FEATURES), "--seed", "3", "--dt", "0.1", "--device", "cuda",
+            "--native-feed", "--stream", os.path.join(tmp, "events.jsonl"), "--verbose", "1",
+            "--json"]
+    return argv + (["--control", os.path.join(tmp, "slam.sock")] if control else [])
+
+
+def surface_kw() -> dict:
+    """Phase 7's configuration (``make_slam``'s) and the point cadence."""
+    return dict(max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3, stats_every=3,
+                cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
+                points_every=SURF_POINTS_EVERY)
+
+
+def check_stream(path: str, summary: dict, n_kf_work: int, tss) -> dict:
+    """The event stream of a native-feed run: one frame event a tracked
+    frame (the initializing frame has none), one keyframe event a keyframe
+    the run made, and the point events at the frame ids the cadence rule
+    picks among the tracked frames."""
+    evs = [json.loads(x) for x in open(path).read().splitlines()]
+    kinds = [e["event"] for e in evs]
+    frames = [e for e in evs if e["event"] == "frame"]
+    check(len(frames) == summary["tracked"] - 1,
+          f"{len(frames)} frame events for {summary['tracked']} tracked frames")
+    check(kinds.count("keyframe") == n_kf_work,
+          f"{kinds.count('keyframe')} keyframe events, {n_kf_work} keyframes made")
+    last, want = -1, []
+    for e in frames:
+        fid = int(np.argmin(np.abs(tss - e["ts"])))  # the frame's index = its frame id
+        if fid - last >= SURF_POINTS_EVERY:
+            last = fid
+            want.append(e["ts"])
+    for kind in ("map_points", "kf_markers", "tracked_points"):
+        got = [e["ts"] for e in evs if e["event"] == kind]
+        check(got == want, f"{kind} events at {got}, the cadence gives {want}")
+    check(all(e["n"] > 0 for e in evs if e["event"] == "map_points"), "an empty map_points event")
+    return dict(events=len(evs), frame_events=len(frames), keyframe_events=kinds.count("keyframe"),
+                point_events=3 * len(want))
+
+
+def surface_clients(sock: str, tmp: str, out_path: str) -> None:
+    """Phase 17 (b)'s clients, in a process of their own (as a deployment's
+    are: threads here would take the interpreter lock from the SLAM
+    thread): a subscriber that reads the frame events until the server
+    closes, one that never reads, and a client that sends status,
+    save_traj, save_map and localization mode on, then off once 5 more
+    frame events came. Writes the replies, the frame events' count, or the
+    error, as JSON to ``out_path``."""
+    import socket
+
+    from orb_slam3_ros_tpu_torch.utils.control import ControlClient
+
+    out = {}
+    try:
+        deadline = time.time() + 120
+        while not os.path.exists(sock):
+            check(time.time() < deadline, "the control socket never appeared")
+            time.sleep(0.05)
+        frames = []
+        sub = ControlClient(sock, timeout=60)
+
+        def listen():
+            try:
+                for ev in sub.subscribe():
+                    if ev.get("event") == "frame":
+                        frames.append(ev["ts"])
+            except (OSError, ValueError):
+                pass
+
+        th = threading.Thread(target=listen, daemon=True)
+        th.start()
+        stuck = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        stuck.connect(sock)
+        stuck.sendall(b'{"cmd": "subscribe"}\n')  # and never reads
+        c = ControlClient(sock, timeout=60)
+        while len(frames) < 5:
+            check(time.time() < deadline, "the subscriber received no frame events")
+            time.sleep(0.05)
+        out["status"] = c.call("status")
+        out["save_traj"] = c.call("save_traj", path=os.path.join(tmp, "traj.txt"), format="tum")
+        out["save_map"] = c.call("save_map", path=os.path.join(tmp, "session"))
+        out["loc_on"] = c.call("localization_mode", on=True)
+        n0 = len(frames)
+        while len(frames) < n0 + 5:
+            check(time.time() < deadline, "no frame events in localization mode")
+            time.sleep(0.05)
+        out["loc_off"] = c.call("localization_mode", on=False)
+        out["status_end"] = c.call("status")
+        th.join(timeout=120)  # the server closes the connection at the run's end
+        check(not th.is_alive(), "the subscriber's connection outlived the run")
+        out["frame_events"] = len(frames)
+        for x in (stuck, c, sub):
+            x.close()
+    except Exception as e:  # reported to the replay's process
+        out["error"] = repr(e)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+class SurfaceCounters:
+    """Phase 17's instrumentation, the same on every replay it compares:
+    K1's launch counts by site (zeroed on entry, read on exit), the
+    tracking passes and fusing keyframes they must equal, the first search
+    at each site (for the kernel-vs-plain check) and the wall time of each
+    ``process_frame`` call (for phase 7's steady rate)."""
+
+    def __init__(self, project_match):
+        self.pm = project_match
+        self.passes = self.n_fusing = self.n_work = 0
+        self.frames = []  # (ms, tracked) a process_frame call
+
+    def __enter__(self):
+        from orb_slam3_ros_tpu_torch.models import kf_work, system
+
+        self._saved = (kf_work.keyframe_work, system.MonoSlam._track_res,
+                       system.MonoSlam.process_frame)
+        work, track_res, process = self._saved
+
+        def counted_work(*args, **kw):
+            self.n_fusing += bool(kw["do_fuse"])
+            self.n_work += 1
+            return work(*args, **kw)
+
+        def counted_track(slam, feats):
+            self.passes += len(slam._current_schedule())
+            return track_res(slam, feats)
+
+        def timed_process(slam, *args, **kw):
+            t0 = time.perf_counter()
+            out = process(slam, *args, **kw)
+            self.frames.append(((time.perf_counter() - t0) * 1e3, out is not None))
+            return out
+
+        kf_work.keyframe_work = counted_work
+        system.MonoSlam._track_res, system.MonoSlam.process_frame = counted_track, timed_process
+        reset_launches(self.pm)
+        self.rec_t = SearchRecorder(self.pm, "track").__enter__()
+        self.rec_f = SearchRecorder(self.pm, "fuse").__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from orb_slam3_ros_tpu_torch.models import kf_work, system
+
+        self.rec_f.__exit__(*exc)
+        self.rec_t.__exit__(*exc)
+        kf_work.keyframe_work = self._saved[0]
+        system.MonoSlam._track_res, system.MonoSlam.process_frame = self._saved[1:]
+        self.launches = dict(self.pm.LAUNCHES)
+
+    def steady_ms(self) -> list:
+        """The ``process_frame`` ms of the frames after the first tracked
+        one and ``WARM`` more (phase 7's steady frames)."""
+        first = next(i for i, (_, ok) in enumerate(self.frames) if ok)
+        return [t for t, _ in self.frames[first + WARM + 1:]]
+
+    def steady_fps(self) -> float:
+        """Phase 7's rate: the steady frames over their time."""
+        ms = self.steady_ms()
+        return len(ms) / (sum(ms) / 1e3)
+
+    def median_fps(self) -> float:
+        """1 / the median steady frame: the tracking cadence, without the
+        keyframes' long frames and the commands that ``poll()`` runs
+        between frames."""
+        return 1e3 / float(np.median(self.steady_ms()))
+
+    def check_launches(self, what: str) -> None:
+        check(self.launches == {"track": self.passes, "fuse": 2 * self.n_fusing, "sim3": 0,
+                                "merge": 0},
+              f"{what}: matcher launches {self.launches}, expected {self.passes} from tracking "
+              f"and {2 * self.n_fusing} from fusion")
+
+
+def surface_replay(project_match, tmp: str, control: bool, argv=None):
+    """One phase 17 replay through ``run_synth.run`` (``argv``: its flags,
+    by default the native feed's) under ``SurfaceCounters``; with
+    ``control`` the clients of ``surface_clients`` run beside it, in a
+    process started here and ended before this returns. Returns (the
+    system, the sequence, the summary, the counters, the clients' results)."""
+    from orb_slam3_ros_tpu_torch import run_synth
+
+    box, proc = {}, None
+    out_path = os.path.join(tmp, "clients.json")
+    if control:
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.Popen([
+            sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.surface_clients(*sys.argv[2:])", here, os.path.join(tmp, "slam.sock"),
+            tmp, out_path])
+    try:
+        with SurfaceCounters(project_match) as cnt:
+            slam, seq, summary, _ = run_synth.run(
+                run_synth.parse_args(argv or surface_args(tmp, control)), surface_kw())
+        if proc is not None:
+            check(proc.wait(timeout=120) == 0, f"the clients' process exited {proc.returncode}")
+            box = json.load(open(out_path))
+            check("error" not in box, f"the control clients failed: {box.get('error')}")
+            check("status_end" in box, "the control clients did not finish")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return slam, seq, summary, cnt, box
+
+
+def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
+    """Phase 17: the dataset-replay entry point through the native feed with
+    the event stream, stage timer and control socket live; the problem dump
+    of phase 12 (a)'s closure re-solved on the card; plane detection and the
+    AR overlay on the replay's map. ``mp``: phase 7's result, whose steady
+    rate (the plain loop: no feed, no events, no timer around each frame)
+    is printed beside (a)'s."""
+    from orb_slam3_ros_tpu_torch import native
+    from orb_slam3_ros_tpu_torch.models import system
+    from orb_slam3_ros_tpu_torch.utils import ar, checkpoint, kernel_build, optdump
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="surface-")  # removed at the phase's end
+    tmp, tmp_b, tmp_a2 = (os.path.join(root, x) for x in ("a", "b", "a2"))
+    for d in (tmp, tmp_b, tmp_a2):
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    lib = native.load_library()
+    lib_dir = os.path.dirname(lib._name)
+    build_log = open(os.path.join(lib_dir, "build.log")).read().splitlines()[0]
+    check(os.path.dirname(lib_dir) == str(kernel_build.BUILD_ROOT) and "g++" in build_log,
+          f"the measurement sync was not built from source here: {lib._name}")
+    print(f"surface: measurement sync built with g++ and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({build_log})")
+
+    # (a) the native-feed replay, counted as phase 7 counts
+    slam, seq, sa, ca, _ = surface_replay(project_match, tmp, False)
+    launches = ca.launches
+    init_at = int(np.argmin(np.abs(seq.timestamps - slam.trajectory[0][0])))
+    rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
+    stream = check_stream(os.path.join(tmp, "events.jsonl"), sa, ca.n_work, seq.timestamps)
+    steady_a = ca.steady_fps()
+    print(f"surface (a): native feed, {MAP_FRAMES} frames at {W}x{H}: {sa['fps']} frames/s over "
+          f"the run, {steady_a:.2f} steady as phase 7 counts (phase 7: "
+          f"{mp['frames_per_s']:.2f}), initialized at frame {init_at}, tracked {sa['tracked']}, "
+          f"{slam.n_kf} keyframes, Sim(3) ATE {rmse:.5f} m; producer waits {sa['native_feed']}; "
+          f"stream {stream}; K1 launches {launches} (tracking passes {ca.passes}, fusing "
+          f"keyframes {ca.n_fusing})")
+    slam.print_time_stats(file=sys.stdout)
+    check(init_at <= MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
+    check(sa["tracked"] == MAP_FRAMES - init_at and slam.state == system.OK,
+          f"{sa['tracked']} frames tracked of {MAP_FRAMES - init_at} after initialization")
+    check(rmse <= MAP_ATE_LIMIT, f"native-feed ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
+    ca.check_launches("surface (a)")
+    check(ca.rec_t.args is not None and ca.rec_f.args is not None, "no search was recorded")
+    err_t, m_t = kernel_vs_plain(torch, project_match, ca.rec_t.args, ca.rec_t.kw,
+                                 "the replay's tracking")
+    err_f, m_f = kernel_vs_plain(torch, project_match, ca.rec_f.args, ca.rec_f.kw,
+                                 "the replay's fusion")
+    stages = {k: round(v[0] * 1e3, 3) for k, v in slam.timing_summary().items()}
+    a = dict(frames_per_s=sa["fps"], steady_frames_per_s=steady_a,
+             phase7_frames_per_s=mp["frames_per_s"], init_frame=init_at, tracked=sa["tracked"],
+             keyframes=slam.n_kf, ate_sim3_m=rmse, native_feed=sa["native_feed"],
+             per_stage_ms=stages, stream=stream, launches=launches, tracking_passes=ca.passes,
+             fusing_keyframes=ca.n_fusing, k1_max_abs_err=max(err_t, err_f),
+             k1_matches=(m_t, m_f), run_s=sa["wall_s"])
+
+    # (b) the same run with the control socket and its clients, then (a)
+    # again: (b) is held to the mean of the two (a)s, which cancels a drift
+    # of the host's speed across the three runs
+    slam_b, _, sb, cb, box = surface_replay(project_match, tmp_b, True)
+    _, _, sa2, ca2, _ = surface_replay(project_match, tmp_a2, False)
+    ca2.check_launches("surface (a) again")
+    st, tr, sm = box["status"], box["save_traj"], box["save_map"]
+    check(st["ok"] and st["state"] == system.OK and st["n_kf"] >= 2, f"status reply {st}")
+    check(tr["ok"] and tr["n_poses"] == len(open(tr["path"]).read().splitlines()) > 0,
+          f"save_traj reply {tr}")
+    fresh = system.MonoSlam(height=H, width=W, cam_params=seq.cam_params, n_features=N_FEATURES,
+                            **{k: v for k, v in surface_kw().items() if k != "points_every"})
+    checkpoint.load_atlas(sm["path"], fresh)
+    check(sm["ok"] and fresh.n_kf >= 2 and fresh.state == system.OK,
+          f"save_map reply {sm}; loaded n_kf {fresh.n_kf}, state {fresh.state}")
+    check(box["loc_on"] == {"ok": True, "localization_only": True}
+          and box["loc_off"] == {"ok": True, "localization_only": False}
+          and not slam_b.localization_only, f"localization mode {box['loc_on']}, {box['loc_off']}")
+    n_sub = box["frame_events"]
+    med_a = (ca.median_fps() + ca2.median_fps()) / 2
+    fps_ratio = cb.median_fps() / med_a
+    whole_ratio = sb["fps"] / ((sa["fps"] + sa2["fps"]) / 2)
+    print(f"surface (b): with the control socket: median frame rate {cb.median_fps():.3f} "
+          f"frames/s, {fps_ratio:.3f} of (a)'s {ca.median_fps():.3f} and {ca2.median_fps():.3f} "
+          f"(run before and after); over the whole run {sb['fps']} frames/s, {whole_ratio:.3f} of "
+          f"(a)'s {sa['fps']} and {sa2['fps']}; status {st}, save_traj {tr['n_poses']} poses, "
+          f"save_map md5 {sm['md5']} (loaded: {fresh.n_kf} keyframes), localization mode on then "
+          f"off, subscriber {n_sub} frame events, subscribers dropped "
+          f"{sb['control']['dropped']} (the one that never read); tracked {sb['tracked']}, "
+          f"{slam_b.n_kf} keyframes, K1 launches {cb.launches}")
+    check(n_sub >= 10, f"the subscriber received {n_sub} frame events")
+    check(sb["control"]["dropped"] == 1,
+          f"{sb['control']['dropped']} subscribers dropped: the one that never read must go once "
+          "its socket buffer and queue are full, the reader must stay")
+    cb.check_launches("surface (b)")
+    check(fps_ratio >= SURF_FPS_RATIO, f"median frame rate with the control socket "
+          f"{cb.median_fps():.3f} below {SURF_FPS_RATIO} x (a)'s {med_a:.3f}")
+    b = dict(frames_per_s=sb["fps"], median_frames_per_s=cb.median_fps(),
+             a_median_frames_per_s=(ca.median_fps(), ca2.median_fps()),
+             a_frames_per_s=(sa["fps"], sa2["fps"]), fps_ratio=fps_ratio,
+             whole_run_ratio=whole_ratio, subscriber_frames=n_sub,
+             dropped=sb["control"]["dropped"], status=st, saved_poses=tr["n_poses"],
+             loaded_keyframes=fresh.n_kf)
+
+    # (c) phase 12 (a)'s closure as a problem dump, re-solved on the card
+    lc = loop_slam.loop_closer
+    k = int(np.nonzero(lc._edge_i >= 0)[0][0])
+    edge = (int(lc._edge_i[k]), int(lc._edge_j[k]), lc._edge_R[k], lc._edge_t[k],
+            float(lc._edge_s[k]))
+    d = os.path.join(tmp, f"closure_{edge[0]}")
+    optdump.save_optimization_data(d, **optdump.dump_from_map(loop_slam.map, loop_slam.n_kf,
+                                                              loop_edges=[edge]))
+    dump = optdump.load_optimization_data(d)
+    t0 = time.perf_counter()
+    R_g, t_g, s_g, cost = optdump.reoptimize(dump, n_iters=SURF_REOPT_ITERS, device="cuda")
+    reopt_s = time.perf_counter() - t0
+    cost0 = optdump.reoptimize(dump, n_iters=0, device="cuda")[3]
+    R_c, t_c, s_c, cost_c = optdump.reoptimize(dump, n_iters=SURF_REOPT_ITERS, device="cpu")
+    diff = max(float(np.abs(R_g - R_c).max()), float(np.abs(t_g * s_g[:, None]
+                                                            - t_c * s_c[:, None]).max()))
+    print(f"surface (c): the dump of phase 12 (a)'s closure {edge[:2]} ({len(dump.kf_id)} "
+          f"keyframes, {len(dump.e_i)} edges, {len(dump.pt_X)} points): reoptimize on the card "
+          f"cost {cost0:.6g} -> {cost:.6g} in {reopt_s:.2f} s (the CPU: {cost_c:.6g}), poses "
+          f"within {diff:.3g} of the CPU's")
+    check(cost < cost0, f"reoptimize's cost did not fall: {cost0} -> {cost}")
+    check(diff <= SURF_REOPT_TOL, f"reoptimize on the card vs the CPU: {diff:.3g}")
+    c = dict(closure=edge[:2], keyframes=len(dump.kf_id), edges=len(dump.e_i), cost0=cost0,
+             cost=cost, cost_cpu=cost_c, card_vs_cpu=diff, reopt_s=reopt_s)
+
+    # (d) plane and AR on (a)'s map
+    demo = ar.ARDemo(slam)
+    check(demo.try_detect_plane(), "no dominant plane on the replay's map")
+    n_valid = int(slam.map.pt_valid.sum())
+    img = seq.images[-1]
+    drawn = int((np.abs(demo.render(img) - img.cpu().numpy()) > 0).sum())
+    n, dpl, _ = demo.plane
+    print(f"surface (d): plane normal {np.round(n, 4).tolist()}, d {dpl:.4f} over {n_valid} "
+          f"points; the cube drew {drawn} pixels; phase 17 {time.perf_counter() - t_phase:.1f} s")
+    check(drawn > 50, f"the cube drew {drawn} pixels")
+    shutil.rmtree(root)
+    return dict(a=a, b=b, c=c, d=dict(normal=n.tolist(), d=dpl, drawn_px=drawn),
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -2868,7 +3248,7 @@ def main() -> int:
     mc, mono_snap, mono_stack = phase_mono_chunk(torch, project_match, mp, map_seq)
     rl = phase_reloc(torch, project_match, mono_snap, map_seq, mono_stack)
     vi["stages"] = phase_vi_stages(torch, vi_slam, caps)
-    lp = phase_loop_mono(torch, project_match)
+    lp, loop_slam = phase_loop_mono(torch, project_match)
     lv = phase_loop_vi(torch, project_match, vc)
     la = lp["closed_loop"]
     at = phase_atlas(torch, project_match, map_seq)
@@ -2876,10 +3256,11 @@ def main() -> int:
     kb = st["b"]
     fe = phase_fisheye(torch, project_match)
     kfe = fe["k1"]
+    su = phase_surface(torch, project_match, loop_slam, mp)
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
                       "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "stereo": st,
-                      "fisheye": fe, "card": smi[0]}, default=str))
+                      "fisheye": fe, "surface": su, "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
@@ -2890,11 +3271,11 @@ def main() -> int:
         # relocalization (phase 11), mono loop closing (phase 12 (a), (b)),
         # VI loop closing (phase 13), the Atlas (phase 14 (a), (b), (c)),
         # stereo and RGB-D (phase 15 (a), (c), (d)) and the fisheye paths
-        # (phase 16 (a) to (d)), the counts set to 0 before each and read
-        # after it
+        # (phase 16 (a) to (d)) and the native-feed replay (phase 17 (a)),
+        # the counts set to 0 before each and read after it
         "launches": sum(sum(x["launches"].values())
                         for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"],
-                                  st, fe)),
+                                  st, fe, su["a"])),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
@@ -2927,6 +3308,8 @@ def main() -> int:
         "launches_fisheye_stereo_track": fe["b"]["launches"]["track"],
         "launches_fisheye_vi_track": fe["c"]["launches"]["track"],
         "launches_fisheye_rectified_track": fe["d"]["launches"]["track"],
+        "launches_surface_track": su["a"]["launches"]["track"],
+        "launches_surface_fuse": su["a"]["launches"]["fuse"],
         "merge_ms": at["merge_ms"],
         "merge_plain_ms": at["merge_plain_ms"],
         "merge_device_us": at["merge_device_us"],
@@ -2938,7 +3321,7 @@ def main() -> int:
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"],
                            la["sim3_max_abs_err"], at["merge_max_abs_err"],
                            kb["k1"]["max_abs_err"], kb["k1_r4"]["max_abs_err"],
-                           kfe["max_abs_err"]),
+                           kfe["max_abs_err"], su["a"]["k1_max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_us"] / 1e3,

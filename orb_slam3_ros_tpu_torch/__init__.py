@@ -24,8 +24,16 @@ format (``utils/checkpoint.py``) and the ``run_synth`` / ``evaluate``
 CLIs; stereo and RGB-D, alone and with an IMU
 (``models/stereo_system.py``: ``StereoSlam``, ``RgbdSlam``,
 ``StereoInertialSlam``, ``RgbdInertialSlam``, with ``ops/stereo.py``'s
-stereo matching and the stereo branch of both chunk loops). The fisheye
-(KB8) camera and its stereo rig are not ported yet.
+stereo matching and the stereo branch of both chunk loops); the fisheye
+(KB8) camera, its two-camera rig and the rectified route
+(``models/fisheye_stereo.py``, ``ops/rectify.py``, ``ops/twocam.py``); and
+the system surface: settings files (``utils/config.py``), the event stream
+and log (``utils/obslog.py``, every system's ``on_frame`` hook), the stage
+timer, the C++ measurement sync (``native.py``), the control socket
+(``utils/control.py``), the loop-closure problem dump and its offline
+re-optimization (``utils/optdump.py``, ``reoptimize.py``), plane detection,
+the AR overlay and map drawing (``ops/plane.py``, ``utils/ar.py``,
+``utils/viz.py``). Not ported: the JAX package's ``parallel/``.
 
 Entry points run on the CUDA device unless the caller passes ``device``:
 ``device=None`` resolves through :func:`default_device`, which raises where

@@ -22,14 +22,20 @@ the inertial keyframe work read; under KB8 every BA zeroes the u_r rows,
 as the JAX package does (ROADMAP "Known faults").
 
 Frames run one at a time and eagerly, as RGB-D does (the chunk gate does
-not admit a system with bf > 0 and no stereo chunk branch). Left out, as
-in the other ported systems: the JAX package's compile and host helpers
-(``_frame_program``'s jit, ``_warm_schedules``, ``_tic``), its lag-1 VI
-chunk plumbing (``_drain_vi_chunk``, ``_vi_dev_state``; ROADMAP "Do not
-port") and its asynchronous keyframe apply (``_apply_kf_async``).
+not admit a system with bf > 0 and no stereo chunk branch):
+``process_frames`` of [N, 2, H, W] pairs splits each pair into
+``process_frame``. The stage timer names "extract+cross" and "track", the
+JAX package's; a keyframe emits a "keyframe" event, which the JAX
+package's rig omits. Left out, as in the other ported systems: the JAX
+package's compile and host helpers (``_frame_program``'s jit,
+``_warm_schedules``), its lag-1 VI chunk plumbing (``_drain_vi_chunk``,
+``_vi_dev_state``; ROADMAP "Do not port") and its asynchronous keyframe
+apply (``_apply_kf_async``).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -37,7 +43,7 @@ import torch
 from ..ops import orb, stereo, twocam
 from . import map_updates
 from .inertial_system import InertialSlam
-from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
+from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
 
 
 def _twocam_refine(m, feats, feat_pt, cross_ok, uv_right, R0, t0, R_rl, t_rl, cam_params,
@@ -86,10 +92,9 @@ class FisheyeStereoSlam(MonoSlam):
         """Process one pair of raw frames ([H, W] each, numpy or tensors,
         values in [0, 255]). Returns Twc [4, 4] (numpy), or None while
         initializing or when tracking is lost."""
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         self._check_ts_jump(ts)
         dev = self.device
+        t0 = time.perf_counter()
         feats = orb.extract(torch.as_tensor(img_left, dtype=torch.float32, device=dev),
                             self.config)
         feats_r = orb.extract(torch.as_tensor(img_right, dtype=torch.float32, device=dev),
@@ -105,6 +110,7 @@ class FisheyeStereoSlam(MonoSlam):
             u_right=self._virtual_ur(feats, cross, cand), depth=torch.where(cand, z, -1.0),
             valid=cand,
         )
+        t0 = self._tic("extract+cross", t0)
         if self.state == NOT_INITIALIZED:
             out = self._fisheye_initialize(feats, cross, ts)
         elif self.state in (OK, RECENTLY_LOST):
@@ -112,8 +118,16 @@ class FisheyeStereoSlam(MonoSlam):
             out = self._track(feats, ts)
         else:
             out = self._try_relocalize(feats, ts)
+        self._tic("track", t0)
         self.frame_id += 1
         return out
+
+    def _fallback_frame(self, img, ts: float):
+        """A frame of ``process_frames``: a [2, H, W] pair split into its
+        views. The rig has no chunk program (``_chunkable`` fails on its
+        ``bf`` > 0 without a stereo chunk branch), so every frame of
+        ``process_frames`` comes here."""
+        return self.process_frame(img[0], img[1], ts)
 
     def _virtual_ur(self, feats, cross, cand):
         z = torch.clamp(cross.X_l[:, 2], min=1e-3)
@@ -165,6 +179,7 @@ class FisheyeStereoSlam(MonoSlam):
         then one host read of (admitted points, refined pose)."""
         self.abort_gba()
         kf_id = self.n_kf
+        self._emit_keyframe(ts, kf_id)
         dev = self.device
         cross, _ = self._last_cross
         cand = self._cross_candidates(cross)
@@ -214,3 +229,8 @@ class FisheyeStereoInertialSlam(InertialSlam, FisheyeStereoSlam):
         frame; arrays [M, 3] / [M]). Returns Twc or None."""
         self._record_frame_imu(ts, acc, gyro, dts)
         return FisheyeStereoSlam.process_frame(self, img_left, img_right, ts)
+
+    def _fallback_frame_imu(self, img, ts, acc, gyro, dts):
+        """A frame of ``process_frames`` with its IMU block: the pair split
+        (no VI chunk either: ``_vi_chunkable`` fails on ``bf`` > 0)."""
+        return self.process_frame(img[0], img[1], ts, acc=acc, gyro=gyro, dts=dts)

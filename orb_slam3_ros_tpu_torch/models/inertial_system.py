@@ -57,10 +57,15 @@ frames reach the 15-dof refinement through ``_track_post`` (monocular once
 the IMU is initialized, the stereo refinement before), and the
 stereo-inertial chunks take [2, H, W] pairs.
 
-Not ported (it raises, naming its ROADMAP item): the ``on_frame`` hook;
-the KB8 camera (``cam_model="kb8"``), whose visual rows the JAX package's
-VI-BA and VI tracking project through the pinhole model (ROADMAP "Known
-faults"). ``cam_model`` reaches the keyframe's triangulation and fusion.
+The ``on_frame`` events are ``MonoSlam``'s: a VI frame emits "frame" (no
+point-cloud events, as in the JAX package), a VI keyframe "keyframe", a
+chunk both from its rows and the point-cloud events at its boundary. A
+bad-IMU reset is logged at ``obslog.NORMAL``.
+
+Not ported (it raises, naming ROADMAP "Known faults"): the KB8 camera
+(``cam_model="kb8"``), whose visual rows the JAX package's VI-BA and VI
+tracking project through the pinhole model. ``cam_model`` reaches the
+keyframe's triangulation and fusion.
 """
 
 from __future__ import annotations
@@ -72,9 +77,10 @@ import torch
 
 from ..ops import imu as imu_ops
 from ..ops import orb, viba
+from ..utils import obslog
 from . import local_mapping, map_state, map_updates, tracking, vi_device_loop
 from .chunk_runner import admit_keyframe_points, read_host, read_rows
-from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
+from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
 
 
 def _vi_kf_work(
@@ -228,6 +234,10 @@ class InertialSlam(MonoSlam):
         if not bad:
             return False
         self.bad_imu_resets += 1
+        obslog.log(
+            f"bad IMU solve (v={self.v_cur}, bg={self.bg_cur}, "
+            f"ba={self.ba_cur}) — resetting active map", obslog.NORMAL,
+        )
         self._reset_active_map()
         return True
 
@@ -331,8 +341,6 @@ class InertialSlam(MonoSlam):
     def process_frame(self, img, ts: float, acc=None, gyro=None, dts=None):
         """Track one frame with its IMU block (the samples since the
         previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         has_imu = self._record_frame_imu(ts, acc, gyro, dts)
         if self.imu_initialized and self.vi_tracking and has_imu and self.state in (OK, RECENTLY_LOST):
             self._check_ts_jump(ts)
@@ -530,6 +538,9 @@ class InertialSlam(MonoSlam):
         self._vi_prior = vires.Sigma
         self.map = map_updates.update_track_counters(self.map, res.visible_mask, res.found_mask)
         self._log_pose(ts)
+        if self.on_frame is not None:
+            self.on_frame(dict(event="frame", ts=ts, Twc=self._pose_mat(), n_inliers=n_vis,
+                               state=self.state, n_kf=self.n_kf))
         if self._need_keyframe(n_vis):
             self._ref_kf_inl = n_vis
             self._insert_keyframe(feats, ts, res)
@@ -620,6 +631,7 @@ class InertialSlam(MonoSlam):
         then the loop-closure check. It stops a global BA in flight after
         its current dispatch, as ``MonoSlam._insert_keyframe`` does."""
         self.abort_gba()
+        self._emit_keyframe(ts, kf_id)
         # Temporal VI-BA window over the last W keyframes INCLUDING the new
         # one (LocalInertialBA's mPrevKF chain).
         last = kf_id + 1
@@ -944,8 +956,6 @@ class InertialSlam(MonoSlam):
         Without IMU samples, ``MonoSlam.process_frames``."""
         if acc is None:
             return super().process_frames(imgs, tss)
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         self._poll_between_chunks()
         C = len(tss)
         tss_np = np.asarray(tss, np.float64)
@@ -1011,9 +1021,10 @@ class InertialSlam(MonoSlam):
             c.st.kf_blk[new], c.st.kf_edge_ok[new],
         )
         out = read_rows(rows)
-        self._absorb_vi_chunk(out, R_sc, t_sc, v, bg, ba, sc, kf_ids, new_blk, new_ok, tss_np)
         self.frame_id = fid0 + C
+        self._absorb_vi_chunk(out, R_sc, t_sc, v, bg, ba, sc, kf_ids, new_blk, new_ok, tss_np)
         self._last_frame_ts = float(tss_np[-1])
+        self._maybe_publish_points(float(tss_np[-1]))
         if self._check_bad_imu():
             return
         self._vi_dev_valid = True  # unless a closure or the dead tail below moves things

@@ -21,6 +21,11 @@ scalars per candidate, one packed read per pending verification (the
 batched verification runs its rounds as a Python loop with the state on the
 device and reads once at the end), one per closure.
 
+With ``dump_dir`` (or $ORB_TPU_LOOP_DUMP_DIR) every closure writes its
+pose-graph problem before and after the correction
+(``closure_<kf>_pre`` / ``_post``, ``utils/optdump.py``'s format), which
+``reoptimize`` re-solves offline.
+
 A known fault of the JAX package is not copied: its batched verification
 (``_verify_pending_scan``, loop_closing.py:600) never resets the miss count
 on a hit; here, as in its sequential path and LoopClosing.cc:1415, a hit
@@ -38,6 +43,7 @@ import torch
 
 from ..ops import cameras, hamming, lie, matching, pgo, retrieval, sim3solver
 from ..ops.topk import top_k
+from ..utils import optdump
 from . import map_updates
 from .chunk_runner import read_host
 from .map_state import MapState, covisibility
@@ -399,10 +405,6 @@ class LoopCloser:
                  four_dof: bool = False, dump_dir: str | None = None,
                  run_gba: bool = True, gba_iters: int = 8,
                  required_consistency: int = 3, auto_train_vocab: bool = True):
-        if dump_dir or os.environ.get("ORB_TPU_LOOP_DUMP_DIR"):
-            raise NotImplementedError(
-                "the loop-closure problem dump (optdump) is not ported (ROADMAP Queue 1 item 7)"
-            )
         self.min_gap = min_gap
         self.min_score = min_score
         self.min_sim3_inliers = min_sim3_inliers
@@ -417,6 +419,10 @@ class LoopCloser:
         self.run_gba = run_gba
         self.gba_iters = gba_iters
         self.four_dof = four_dof
+        # The optimization problem of every closure, before and after its
+        # correction (the fork's SetSaveLoopData, LoopClosing.cc:987), into
+        # ``dump_dir`` or $ORB_TPU_LOOP_DUMP_DIR when set.
+        self.dump_dir = dump_dir or os.environ.get("ORB_TPU_LOOP_DUMP_DIR")
         self.use_covisibility = use_covisibility
         self.last_closed_kf = -100
         self.closures = []
@@ -680,6 +686,8 @@ class LoopCloser:
                 slam._poll_gba(force=True)
         four_dof = self.four_dof or bool(getattr(slam, "imu_initialized", False))
         dev = slam.map.kf_t.device
+        if self.dump_dir:
+            self._dump_problem(slam, new_kf, cand, loop_R, loop_t, loop_s, "pre")
         slam.map, _ = _essential_graph_pgo(
             slam.map, new_kf, cand, loop_R, loop_t, loop_s, slam.n_kf, *self._past_edges(dev),
             four_dof=four_dof,
@@ -687,6 +695,8 @@ class LoopCloser:
         R, t, s, R_kf, t_kf = read_host(loop_R, loop_t, loop_s, slam.map.kf_R[new_kf],
                                         slam.map.kf_t[new_kf])
         self._record_loop_edge(new_kf, cand, R, t, float(s))
+        if self.dump_dir:
+            self._dump_problem(slam, new_kf, cand, R, t, s, "post")
         slam.map = _fuse_duplicates(slam.map, pt1, pt2, fuse_ok)
         if self.run_gba:
             slam._start_async_gba(self.gba_iters)
@@ -699,3 +709,12 @@ class LoopCloser:
         slam._ref_cache = None
         return True
 
+    def _dump_problem(self, slam, new_kf: int, cand: int, R, t, s, tag: str) -> None:
+        """Write the closure's whole optimization problem with its loop
+        constraint to ``dump_dir/closure_<new_kf>_<tag>`` (the fork's
+        SaveOptimizationData pre / post directories,
+        LoopClosing.cc:2006-2365)."""
+        R, t, s = (x.cpu().numpy() if isinstance(x, torch.Tensor) else x for x in (R, t, s))
+        d = optdump.dump_from_map(slam.map, slam.n_kf,
+                                  loop_edges=[(new_kf, cand, R, t, float(s))])
+        optdump.save_optimization_data(os.path.join(self.dump_dir, f"closure_{new_kf}_{tag}"), **d)

@@ -18,13 +18,19 @@ these with ``InertialSlam`` (IMU initialization with the scale held fixed:
 depth observes it); the stereo-inertial chunks run ``vi_device_loop``'s
 stereo branch.
 
+The stage timer names the JAX package's stages: "extract+stereo" or
+"extract+depth", then "track". A keyframe emits a "keyframe" event through
+``on_frame``, which the JAX package's stereo keyframe path omits.
+
 Left out, as the JAX package's compile and host helpers: the schedule
-warm-up (``_warm_schedules``), the stage timer (``_tic``), the two-device
-map replica (``_tmap``) and the lag-1 VI chunk drain (ROADMAP "Do not
-port"). The non-rectified fisheye rig is ``fisheye_stereo``.
+warm-up (``_warm_schedules``), the two-device map replica (``_tmap``) and
+the lag-1 VI chunk drain (ROADMAP "Do not port"). The non-rectified
+fisheye rig is ``fisheye_stereo``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -32,7 +38,7 @@ import torch
 from ..ops import orb, pose_opt, stereo
 from . import map_updates
 from .inertial_system import InertialSlam
-from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam, _not_ported
+from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
 
 
 def _stereo_refine(m, feats, feat_pt, ur, R0, t0, cam_params, bf):
@@ -88,11 +94,11 @@ class StereoSlam(MonoSlam):
         """Process one rectified pair ([H, W] each, numpy or tensors, values
         in [0, 255]). Returns Twc [4, 4] (numpy), or None when tracking is
         lost or the first pair has too little depth."""
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         self._check_ts_jump(ts)
+        t0 = time.perf_counter()
         feats, sm = self._match(img_left, img_right)
         self._last_depth = sm
+        t0 = self._tic("extract+stereo", t0)
         if self.state == NOT_INITIALIZED:
             out = self._stereo_initialize(feats, sm, ts)
         elif self.state in (OK, RECENTLY_LOST):
@@ -100,6 +106,7 @@ class StereoSlam(MonoSlam):
             out = self._track(feats, ts)
         else:
             out = self._try_relocalize(feats, ts)
+        self._tic("track", t0)
         self.frame_id += 1
         return out
 
@@ -140,6 +147,7 @@ class StereoSlam(MonoSlam):
         culling and statistics, then one host read of (admitted points,
         refined pose) and the loop-closure check."""
         kf_id = self.n_kf
+        self._emit_keyframe(ts, kf_id)
         dev = self.device
         sm = self._last_depth
         R = torch.as_tensor(self.R_cur, device=dev)
@@ -250,20 +258,21 @@ class RgbdSlam(StereoSlam):
         """Process one frame ([H, W], values in [0, 255]) with its metric
         depth map ([H, W], metres; 0 where the sensor has none). Returns
         Twc [4, 4] or None."""
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         self._check_ts_jump(ts)
         dev = self.device
+        t0 = time.perf_counter()
         feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
         sm = self._depth_to_match(
             feats, torch.as_tensor(depth_map, dtype=torch.float32, device=dev))
         self._last_depth = sm
+        t0 = self._tic("extract+depth", t0)
         if self.state == NOT_INITIALIZED:
             out = self._stereo_initialize(feats, sm, ts)
         elif self.state in (OK, RECENTLY_LOST):
             out = self._track(feats, ts)
         else:
             out = self._try_relocalize(feats, ts)
+        self._tic("track", t0)
         self.frame_id += 1
         return out
 

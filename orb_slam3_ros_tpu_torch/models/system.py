@@ -59,13 +59,26 @@ package whatever the camera (ROADMAP "Known faults"), so with KB8 they
 raise. The two-camera fisheye rig is ``fisheye_stereo``; the rectified
 route is ``ops.rectify`` into the pinhole system.
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP item:
-the two-device split, the ``on_frame`` / ``points_every`` observation
-hooks; the pipelined one-frame-lag mode is not ported by design.
+``on_frame`` (a callable, e.g. ``utils.obslog.FrameStreamer`` or a
+``utils.control.ControlServer``'s hook) receives the JAX package's events
+as dicts of numpy arrays and Python scalars: "frame" for every tracked
+frame, "keyframe" for every keyframe, and with ``points_every`` > 0, every
+``points_every`` frames, "map_points", "kf_markers" and (per frame)
+"tracked_points" from one host read. A chunk's frame and keyframe events
+come from the rows its loop reads anyway (no read or graph node added),
+its point events from one read at its boundary.
+
+``timing`` holds host wall-clock stage times per frame
+(``timing_summary``, ``print_time_stats``); see ``_tic``.
+
+The two-device split raises ``NotImplementedError`` naming its ROADMAP
+item; the pipelined one-frame-lag mode is not ported by design.
 """
 
 from __future__ import annotations
 
+import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -82,10 +95,6 @@ NOT_INITIALIZED = 0
 OK = 1
 LOST = 2
 RECENTLY_LOST = 3  # inertial dead reckoning (InertialSlam)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 item {item})")
 
 
 class _ChunkReplayView:
@@ -211,7 +220,9 @@ class MonoSlam:
                 "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
             )
         if devices is not None:
-            raise _not_ported("the two-device tracking/mapping split", "8")
+            raise NotImplementedError(
+                "the two-device tracking/mapping split is not ported (ROADMAP Queue 1 item 5)"
+            )
         cameras.check_model(cam_model)
         if cam_model == "kb8" and (enable_loop_closing or enable_atlas):
             what = "loop closing" if enable_loop_closing else "the Atlas"
@@ -219,8 +230,6 @@ class MonoSlam:
                 f"{what} with the KB8 camera: the JAX package projects its "
                 "Sim(3) and weld searches through the pinhole model (ROADMAP \"Known faults\")"
             )
-        if points_every:
-            raise _not_ported("the points_every observation hook", "7")
         self.device = resolve_device(device)
         self.height, self.width = height, width
         self.cam_params = torch.as_tensor(np.asarray(cam_params, np.float32), device=self.device)
@@ -268,7 +277,10 @@ class MonoSlam:
         self._cap_retry_frame = -999
         self.init_feats: Optional[orb.Features] = None
         self.init_ts = 0.0
-        self.on_frame = None  # observation hook: not ported, must stay None
+        self.on_frame = None  # observation hook: a callable taking one event dict
+        self.points_every = points_every
+        self._last_points_pub = -1  # frame id of the last point-cloud events
+        self.timing = {}  # stage name -> [host seconds], see _tic
         self.ba_iters = []  # local-BA iterations run, one entry per BA of the per-frame path
         self.loop_closer = LoopCloser() if enable_loop_closing else None
         # The global BA in flight (mbStopGBA semantics), or None; with counts
@@ -453,39 +465,83 @@ class MonoSlam:
         """Process one grayscale frame ([H, W], numpy or a tensor, values in
         [0, 255]). Returns Twc [4, 4] (numpy), or None while initializing
         or when tracking is lost."""
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         self._check_ts_jump(ts)
         dev = self.device
+        t0 = time.perf_counter()
         feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
-        if self.state == NOT_INITIALIZED:
-            out = self._try_initialize(feats, ts)
-        elif self.state == LOST:
-            out = self._try_relocalize(feats, ts)
+        if self.state in (NOT_INITIALIZED, LOST):
+            t0 = self._tic("extract", t0)
+            if self.state == NOT_INITIALIZED:
+                out = self._try_initialize(feats, ts)
+            else:
+                out = self._try_relocalize(feats, ts)
         else:
             self._predict_motion(ts)
-            out = self._track(feats, ts)
+            res = self._track_res(feats)
+            t0 = self._tic("extract+track", t0)
+            out = self._track_post(feats, res, ts)
+        self._tic("frame", t0)
         self.frame_id += 1
         return out
+
+    def _tic(self, name: str, t0: float) -> float:
+        """Close stage ``name`` opened at ``t0`` (``time.perf_counter``) and
+        open the next one: host wall clock, with no synchronization added to
+        measure it. On the card a stage's time is the host's time to enqueue
+        its work plus any host read inside it, so device time lands in the
+        stage that reads: in ``process_frame`` the tracked frame's one read
+        is in "frame", not in "extract+track".
+
+        The stage names are the JAX package's, at its boundaries where the
+        port has one. ``MonoSlam.process_frame``: "extract" (a frame that
+        initializes or relocalizes), "extract+track" (extraction and
+        tracking; the JAX package's one fused program), "frame" (the rest:
+        the pose read, keyframe decision and keyframe work, or
+        initialization / relocalization). The stereo, RGB-D and two-camera
+        frames: "extract+stereo" / "extract+depth" / "extract+cross" (both
+        views' extraction and their match), then "track". The port's eager
+        path splits differently from the JAX package's programs in one
+        place: its extraction runs before the state test, so "extract" and
+        "extract+track" both start at the frame's upload. The inertial
+        frame once the IMU is initialized and the chunk loop add no stage,
+        as in the JAX package."""
+        t1 = time.perf_counter()
+        self.timing.setdefault(name, []).append(t1 - t0)
+        return t1
+
+    def timing_summary(self) -> dict:
+        """Stage name -> (mean s, std s, calls)."""
+        return {k: (float(np.mean(v)), float(np.std(v)), len(v)) for k, v in self.timing.items()}
+
+    def print_time_stats(self, file=None) -> None:
+        """Per-stage wall clock, mean +- std [calls], slowest first (the
+        reference's ``Tracking::PrintTimeStats``, Tracking.cc:299)."""
+        out = file or sys.stderr
+        print("*** orb-tpu time stats (ms, mean +- std [n]) ***", file=out)
+        for name, (mean, std, n) in sorted(self.timing_summary().items(), key=lambda kv: -kv[1][0]):
+            print(f"  {name:24s} {mean * 1e3:9.2f} +- {std * 1e3:7.2f}  [{n}]", file=out)
 
     def _track(self, feats: orb.Features, ts: float):
         """Track ``feats`` against the map from the motion model's
         prediction, then ``_track_post`` (the stereo and RGB-D systems call
         it with the features they extracted themselves)."""
+        return self._track_post(feats, self._track_res(feats), ts)
+
+    def _track_res(self, feats: orb.Features) -> tracking.TrackResult:
+        """``track_against_map`` from the motion model's prediction."""
         dev = self.device
         R_pred = self.vel_R @ self.R_cur
         t_pred = self.vel_R @ self.t_cur + self.vel_t
         pt_mask = None
         if self.track_window is not None:
             pt_mask = self.map.pt_first_kf >= (self.n_kf - self.track_window)
-        res = tracking.track_against_map(
+        return tracking.track_against_map(
             self.map, feats, torch.as_tensor(R_pred, device=dev),
             torch.as_tensor(t_pred, device=dev), self.cam_params,
             self.width, self.height, pt_mask=pt_mask,
             schedule=self._current_schedule(), track_cap=self.track_cap,
             cam_model=self.cam_model,
         )
-        return self._track_post(feats, res, ts)
 
     def _fallback_frame(self, img, ts: float):
         """One frame of a chunk that runs per frame (a gate that does not
@@ -636,8 +692,6 @@ class MonoSlam:
         through ``process_frame``. A chunk that loses track hands the frame
         that lost it and the frames after it to ``process_frame``, in state
         LOST: they relocalize."""
-        if self.on_frame is not None:
-            raise _not_ported("the on_frame observation hook", "7")
         self._poll_between_chunks()
         C = len(tss)
         tss_np = np.asarray(tss, np.float64)
@@ -692,8 +746,9 @@ class MonoSlam:
             torch.stack([c.n_kf, c.n_pts, c.last_kf_fid, c.alive.to(torch.int32), c.ref_inl]),
         )
         out = read_rows(rows)
-        self._absorb_chunk(out, pose, sc, tss_np)
         self.frame_id = fid0 + C
+        self._absorb_chunk(out, pose, sc, tss_np)
+        self._maybe_publish_points(float(tss_np[-1]))
         new_kfs = self._new_kf_slots(out)
         if self.loop_closer is not None:
             # the chunk's new keyframes, at its boundary (the reference's loop
@@ -733,7 +788,9 @@ class MonoSlam:
 
     def _log_chunk_rows(self, out, tss_np) -> None:
         """The trajectory logs of a chunk's tracked frames (``out``: its
-        rows read on the host)."""
+        rows read on the host), and their "frame" / "keyframe" events: a
+        row's ``ref`` is its reference keyframe slot after the frame's
+        keyframe decision (n_kf - 1 at that frame)."""
         for i in np.nonzero(out.alive)[0]:
             ts = float(tss_np[i])
             T = np.eye(4, dtype=np.float32)
@@ -741,6 +798,11 @@ class MonoSlam:
             T[:3, 3] = -out.R[i].T @ out.t[i]
             self.trajectory.append((ts, T))
             self.rel_traj.append((ts, int(out.ref[i]), out.R_cr[i].copy(), out.t_cr[i].copy()))
+            if self.on_frame is not None:
+                self.on_frame(dict(event="frame", ts=ts, Twc=T, n_inliers=int(out.n_inliers[i]),
+                                   state=OK, n_kf=int(out.ref[i]) + 1))
+                if out.is_kf[i]:
+                    self.on_frame(dict(event="keyframe", ts=ts, kf_id=int(out.ref[i])))
 
     def _predict_motion(self, ts: float) -> None:
         """Hook: update vel_R / vel_t before tracking (constant velocity
@@ -896,10 +958,44 @@ class MonoSlam:
             self.map, res.visible_mask, res.found_mask
         )
         self._log_pose(ts)
+        if self.on_frame is not None:
+            self.on_frame(dict(event="frame", ts=ts, Twc=self._pose_mat(), n_inliers=n_inl,
+                               state=self.state, n_kf=self.n_kf))
+            self._maybe_publish_points(ts, found_mask=res.found_mask)
         if self._need_keyframe(n_inl):
             self._ref_kf_inl = n_inl
             self._insert_keyframe(feats, ts, res)
         return self._pose_mat()
+
+    def _maybe_publish_points(self, ts: float, found_mask=None) -> None:
+        """Every ``points_every`` frames, the point-cloud events through
+        ``on_frame`` (the reference's tracked-points / all-points /
+        keyframe-marker publishers, src/common.cc:273-369), from one host
+        read: "map_points" (every live landmark), "kf_markers" (every live
+        keyframe's camera centre) and, with this frame's ``found_mask``,
+        "tracked_points"."""
+        if self.on_frame is None or self.points_every <= 0:
+            return
+        if self.frame_id - self._last_points_pub < self.points_every:
+            return
+        self._last_points_pub = self.frame_id
+        m = self.map
+        got = read_host(m.pt_X, m.pt_valid, m.kf_R, m.kf_t, m.kf_valid,
+                        *(() if found_mask is None else (found_mask,)))
+        X, pv, kR, kt, kv = got[0], got[1] > 0.5, got[2], got[3], got[4] > 0.5
+        self.on_frame(dict(event="map_points", ts=ts, n=int(pv.sum()), points=X[pv]))
+        kv[self.n_kf:] = False
+        centers = -np.einsum("kji,kj->ki", kR[kv], kt[kv])
+        self.on_frame(dict(event="kf_markers", ts=ts, n=int(kv.sum()),
+                           centers=centers.astype(np.float32)))
+        if found_mask is not None:
+            fm = (got[5] > 0.5) & pv
+            self.on_frame(dict(event="tracked_points", ts=ts, n=int(fm.sum()), points=X[fm]))
+
+    def _emit_keyframe(self, ts: float, kf_id: int) -> None:
+        """The "keyframe" event of a keyframe about to be inserted."""
+        if self.on_frame is not None:
+            self.on_frame(dict(event="keyframe", ts=ts, kf_id=kf_id))
 
     def _need_keyframe(self, n_inl: int) -> bool:
         """Simplified NeedNewKeyFrame (Tracking.cc:3103): periodic, or early
@@ -981,6 +1077,7 @@ class MonoSlam:
         bound on the staleness of the snapshot)."""
         self.abort_gba()
         kf_id = self.n_kf
+        self._emit_keyframe(ts, kf_id)
         dev = self.device
         self.map, n_new, iters = kf_work.keyframe_work(
             self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),

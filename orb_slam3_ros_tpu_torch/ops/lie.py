@@ -283,3 +283,45 @@ def sim3_inv(R, t, s):
 
 def sim3_apply(R, t, s, x):
     return s[..., None] * torch.einsum("...ij,...j->...i", R, x) + t
+
+
+# ---------------------------------------------------------------------------
+# Quaternion <-> matrix (serialization: the loop-closure problem dump,
+# ``utils/optdump.py``). ``utils/trajectory.py`` keeps its own numpy copy.
+# ---------------------------------------------------------------------------
+
+
+def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> unit quaternion [..., 4] as (qw, qx, qy, qz), qw >= 0.
+
+    Branch-free Shepperd method: the candidate built on the largest of the
+    four squared magnitudes, as the JAX package's."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = torch.clamp(1.0 + tr, min=0.0)
+    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    cand = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+    ], dim=-2)  # [..., 4 (candidate), 4 (component)]
+    idx = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    q = torch.gather(cand, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (qw, qx, qy, qz) [..., 4], normalized first -> [..., 3, 3]."""
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)

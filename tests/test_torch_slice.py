@@ -80,9 +80,11 @@ def test_unported_states_raise():
     # against, and the frame stays LOST.
     slam.state = tsys.LOST
     assert slam.process_frame(img, 0.1) is None and slam.state == tsys.LOST
-    for kw in ({"pipelined": True}, {"points_every": 1}, {"devices": (0, 1)}):
+    for kw in ({"pipelined": True}, {"devices": (0, 1)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, **kw})
+    # the observation hooks are ported (tests/test_torch_events.py)
+    assert tsys.MonoSlam(cam_params=cam, device="cpu", points_every=1, **SLAM_KW).points_every == 1
     # the Atlas is ported (tests/test_torch_atlas.py)
     assert tsys.MonoSlam(cam_params=cam, device="cpu", enable_atlas=True, **SLAM_KW).atlas.maps == []
     other = tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, "max_points": 128})
