@@ -202,14 +202,42 @@ Phases (each raises on failure, so any failure exits non-zero):
      frame events and one that never reads; requires every reply, the
      reader kept and the other dropped once its socket buffer and its
      queue filled, K1's launches as in (a), and the median frame rate
-     within 10% of (a)'s, (a) run again after (b) and its two runs
-     averaged, all three under the same instrumentation
-     (``SurfaceCounters``); (c) the problem dump of phase 12 (a)'s
+     within 10% of (a)'s: (b) runs twice, each between two runs of (a)
+     (a b a b a, all under the same instrumentation, ``SurfaceCounters``),
+     each run's rate divided by the host's speed over its frames (the rate
+     of a fixed pure-Python loop in a second process, ``host_probe``), and
+     the mean of the two (b)s' ratios to the (a)s around them is held to
+     0.9; (c) the problem dump of phase 12 (a)'s
      closed loop (``dump_from_map`` and ``save_optimization_data`` on its
      final map and loop edge) re-solved by ``reoptimize`` on the card: the
      cost falls and the poses are within 1e-4 of the same call on the CPU;
      (d) ``detect_plane`` on (a)'s map finds a plane (ok: >= 15% inliers)
      and ``ARDemo.render`` draws the cube.
+ 18. scale-out and the two-device split: (a) the sharded Schur-LM BA (2
+     iterations), PCG BA (2 iterations, 20 CG steps), VI-BA (24 keyframes,
+     512 points, 4 iterations) and 7-dof PGO (64 keyframes, 256 edges, 6
+     iterations; ``scale_out.ITERS``) of ``parallel/dist_ba.py`` at the
+     global-BA shape (K=64, P=8192, E=65536, ``parallel/problems.py``), at
+     world 1 in this process over NCCL (one rank, so no collective runs),
+     at world 2 as two ``parallel/scale_out.py`` processes on this
+     card over gloo with CUDA tensors and, with two cards, over NCCL; each
+     held to the same solve without a communicator on the card at
+     ``tests/test_dist_ba.py``'s tolerances (> 60000 inliers at this shape);
+     prints ms per iteration by CUDA events, the bytes summed per iteration
+     and the peak memory of each rank; (b) ``MonoSlam(devices=("cuda:0",
+     "cuda:0"))`` (two cards: "cuda:0", "cuda:1") on phase 7's sequence and
+     configuration per frame: requires initialization by phase 7's frame, no
+     frame lost, Sim(3) ATE <= 0.02 m and within 2x phase 7's, the canonical
+     map on the map device and the replica on the track device in storage of
+     its own, one replica refresh a keyframe, no frame more than one
+     keyframe behind, K1 launches equal to the tracking passes plus 2 for
+     each fusing keyframe and K1 exact on the first tracking and fusion
+     searches; prints frames/s beside phase 7's and the microseconds and
+     bytes of a refresh; (c) ``InertialSlam`` split on the first 60 frames
+     of phase 8's sequence per frame: the map initialized by frame 20 (phase
+     8's bound), the IMU initialized no later than in the same run on one
+     device (its sixth keyframe, frame ~32) and the metric ATE within 2x
+     that run's.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -338,6 +366,8 @@ FE_JAX = dict(a_ate_m=0.09143445721133506, b_ate_m=0.005943132446196125,
 # Phase 17: the point events' cadence, the frame rate (b) keeps against
 # (a), the reoptimization's card-vs-CPU pose bound and its iterations.
 SURF_POINTS_EVERY, SURF_FPS_RATIO, SURF_REOPT_TOL, SURF_REOPT_ITERS = 1, 0.9, 1e-4, 30
+SURF_B_RUNS = 2  # (b) runs, each between two runs of (a)
+PROBE_LOOP = 100_000  # interpreter iterations a host-probe sample (8-10 ms on the card's host)
 
 
 def check(cond, msg: str) -> None:
@@ -2894,6 +2924,49 @@ def check_stream(path: str, summary: dict, n_kf_work: int, tss) -> dict:
                 point_events=3 * len(want))
 
 
+def host_probe() -> None:
+    """The host's speed seen from a second process: prints the wall time and
+    the rate (iterations/s) of a fixed pure-Python loop, sample after
+    sample, until killed. A replay's frame rate is host-bound and follows
+    the host's speed, which drifts from one replay to the next by more than
+    (b)'s margin; divided by this rate over its frames, it drifts less."""
+    while True:
+        t0 = time.perf_counter()
+        x = 0
+        for i in range(PROBE_LOOP):
+            x += i * i % 7
+        print(f"{time.time():.4f} {PROBE_LOOP / (time.perf_counter() - t0):.1f}", flush=True)
+
+
+class HostProbe:
+    """``host_probe`` in a process of its own for the ``with`` block, its
+    samples in ``path``; ``rate(t0, t1)`` is their median between two wall
+    times."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self._out = open(self.path, "w")
+        self._proc = subprocess.Popen([
+            sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.host_probe()", here], stdout=self._out)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.kill()
+        self._proc.wait()
+        self._out.close()
+
+    def rate(self, t0: float, t1: float) -> float:
+        check(self._proc.poll() is None, f"the host probe exited {self._proc.returncode}")
+        rows = [line.split() for line in open(self.path).read().splitlines()]
+        v = [float(r) for t, r in rows if t0 <= float(t) <= t1]
+        check(len(v) >= 10, f"{len(v)} host-probe samples between {t0:.2f} and {t1:.2f}")
+        return float(np.median(v))
+
+
 def surface_clients(sock: str, tmp: str, out_path: str) -> None:
     """Phase 17 (b)'s clients, in a process of their own (as a deployment's
     are: threads here would take the interpreter lock from the SLAM
@@ -2901,10 +2974,18 @@ def surface_clients(sock: str, tmp: str, out_path: str) -> None:
     closes, one that never reads, and a client that sends status,
     save_traj, save_map and localization mode on, then off once 5 more
     frame events came. Writes the replies, the frame events' count, or the
-    error, as JSON to ``out_path``."""
+    error, as JSON to ``out_path``. The port's ``ControlClient`` is loaded
+    from its file alone: the package's ``__init__`` imports torch, whose
+    import took 10-14 s of CPU on the card's host beside the replay."""
+    import importlib.util
     import socket
 
-    from orb_slam3_ros_tpu_torch.utils.control import ControlClient
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "control", os.path.join(here, "orb_slam3_ros_tpu_torch", "utils", "control.py"))
+    control = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(control)
+    ControlClient = control.ControlClient
 
     out = {}
     try:
@@ -2963,7 +3044,7 @@ class SurfaceCounters:
     def __init__(self, project_match):
         self.pm = project_match
         self.passes = self.n_fusing = self.n_work = 0
-        self.frames = []  # (ms, tracked) a process_frame call
+        self.frames = []  # (ms, tracked, wall start) a process_frame call
 
     def __enter__(self):
         from orb_slam3_ros_tpu_torch.models import kf_work, system
@@ -2982,9 +3063,9 @@ class SurfaceCounters:
             return track_res(slam, feats)
 
         def timed_process(slam, *args, **kw):
-            t0 = time.perf_counter()
+            w0, t0 = time.time(), time.perf_counter()
             out = process(slam, *args, **kw)
-            self.frames.append(((time.perf_counter() - t0) * 1e3, out is not None))
+            self.frames.append(((time.perf_counter() - t0) * 1e3, out is not None, w0))
             return out
 
         kf_work.keyframe_work = counted_work
@@ -3003,11 +3084,21 @@ class SurfaceCounters:
         system.MonoSlam._track_res, system.MonoSlam.process_frame = self._saved[1:]
         self.launches = dict(self.pm.LAUNCHES)
 
+    def _steady(self) -> list:
+        """The frames after the first tracked one and ``WARM`` more (phase
+        7's steady frames)."""
+        first = next(i for i, (_, ok, _) in enumerate(self.frames) if ok)
+        return self.frames[first + WARM + 1:]
+
     def steady_ms(self) -> list:
-        """The ``process_frame`` ms of the frames after the first tracked
-        one and ``WARM`` more (phase 7's steady frames)."""
-        first = next(i for i, (_, ok) in enumerate(self.frames) if ok)
-        return [t for t, _ in self.frames[first + WARM + 1:]]
+        """The ``process_frame`` ms of the steady frames."""
+        return [t for t, _, _ in self._steady()]
+
+    def steady_window(self) -> tuple:
+        """The wall times (``time.time()``) at the first steady frame's start
+        and the last one's end."""
+        f = self._steady()
+        return f[0][2], f[-1][2] + f[-1][0] / 1e3
 
     def steady_fps(self) -> float:
         """Phase 7's rate: the steady frames over their time."""
@@ -3072,9 +3163,8 @@ def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="surface-")  # removed at the phase's end
-    tmp, tmp_b, tmp_a2 = (os.path.join(root, x) for x in ("a", "b", "a2"))
-    for d in (tmp, tmp_b, tmp_a2):
-        os.makedirs(d)
+    tmp = os.path.join(root, "a")
+    os.makedirs(tmp)
     t0 = time.perf_counter()
     lib = native.load_library()
     lib_dir = os.path.dirname(lib._name)
@@ -3084,80 +3174,107 @@ def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
     print(f"surface: measurement sync built with g++ and loaded in {time.perf_counter() - t0:.2f} s "
           f"({build_log})")
 
-    # (a) the native-feed replay, counted as phase 7 counts
-    slam, seq, sa, ca, _ = surface_replay(project_match, tmp, False)
-    launches = ca.launches
-    init_at = int(np.argmin(np.abs(seq.timestamps - slam.trajectory[0][0])))
-    rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
-    stream = check_stream(os.path.join(tmp, "events.jsonl"), sa, ca.n_work, seq.timestamps)
-    steady_a = ca.steady_fps()
-    print(f"surface (a): native feed, {MAP_FRAMES} frames at {W}x{H}: {sa['fps']} frames/s over "
-          f"the run, {steady_a:.2f} steady as phase 7 counts (phase 7: "
-          f"{mp['frames_per_s']:.2f}), initialized at frame {init_at}, tracked {sa['tracked']}, "
-          f"{slam.n_kf} keyframes, Sim(3) ATE {rmse:.5f} m; producer waits {sa['native_feed']}; "
-          f"stream {stream}; K1 launches {launches} (tracking passes {ca.passes}, fusing "
-          f"keyframes {ca.n_fusing})")
-    slam.print_time_stats(file=sys.stdout)
-    check(init_at <= MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
-    check(sa["tracked"] == MAP_FRAMES - init_at and slam.state == system.OK,
-          f"{sa['tracked']} frames tracked of {MAP_FRAMES - init_at} after initialization")
-    check(rmse <= MAP_ATE_LIMIT, f"native-feed ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
-    ca.check_launches("surface (a)")
-    check(ca.rec_t.args is not None and ca.rec_f.args is not None, "no search was recorded")
-    err_t, m_t = kernel_vs_plain(torch, project_match, ca.rec_t.args, ca.rec_t.kw,
-                                 "the replay's tracking")
-    err_f, m_f = kernel_vs_plain(torch, project_match, ca.rec_f.args, ca.rec_f.kw,
-                                 "the replay's fusion")
-    stages = {k: round(v[0] * 1e3, 3) for k, v in slam.timing_summary().items()}
-    a = dict(frames_per_s=sa["fps"], steady_frames_per_s=steady_a,
-             phase7_frames_per_s=mp["frames_per_s"], init_frame=init_at, tracked=sa["tracked"],
-             keyframes=slam.n_kf, ate_sim3_m=rmse, native_feed=sa["native_feed"],
-             per_stage_ms=stages, stream=stream, launches=launches, tracking_passes=ca.passes,
-             fusing_keyframes=ca.n_fusing, k1_max_abs_err=max(err_t, err_f),
-             k1_matches=(m_t, m_f), run_s=sa["wall_s"])
+    with HostProbe(os.path.join(root, "probe.txt")) as probe:
+        # (a) the native-feed replay, counted as phase 7 counts
+        slam, seq, sa, ca, _ = surface_replay(project_match, tmp, False)
+        launches = ca.launches
+        init_at = int(np.argmin(np.abs(seq.timestamps - slam.trajectory[0][0])))
+        rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
+        stream = check_stream(os.path.join(tmp, "events.jsonl"), sa, ca.n_work, seq.timestamps)
+        steady_a = ca.steady_fps()
+        print(f"surface (a): native feed, {MAP_FRAMES} frames at {W}x{H}: {sa['fps']} frames/s over "
+              f"the run, {steady_a:.2f} steady as phase 7 counts (phase 7: "
+              f"{mp['frames_per_s']:.2f}), initialized at frame {init_at}, tracked {sa['tracked']}, "
+              f"{slam.n_kf} keyframes, Sim(3) ATE {rmse:.5f} m; producer waits {sa['native_feed']}; "
+              f"stream {stream}; K1 launches {launches} (tracking passes {ca.passes}, fusing "
+              f"keyframes {ca.n_fusing})")
+        slam.print_time_stats(file=sys.stdout)
+        check(init_at <= MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
+        check(sa["tracked"] == MAP_FRAMES - init_at and slam.state == system.OK,
+              f"{sa['tracked']} frames tracked of {MAP_FRAMES - init_at} after initialization")
+        check(rmse <= MAP_ATE_LIMIT, f"native-feed ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
+        ca.check_launches("surface (a)")
+        check(ca.rec_t.args is not None and ca.rec_f.args is not None, "no search was recorded")
+        err_t, m_t = kernel_vs_plain(torch, project_match, ca.rec_t.args, ca.rec_t.kw,
+                                     "the replay's tracking")
+        err_f, m_f = kernel_vs_plain(torch, project_match, ca.rec_f.args, ca.rec_f.kw,
+                                     "the replay's fusion")
+        stages = {k: round(v[0] * 1e3, 3) for k, v in slam.timing_summary().items()}
+        a = dict(frames_per_s=sa["fps"], steady_frames_per_s=steady_a,
+                 phase7_frames_per_s=mp["frames_per_s"], init_frame=init_at, tracked=sa["tracked"],
+                 keyframes=slam.n_kf, ate_sim3_m=rmse, native_feed=sa["native_feed"],
+                 per_stage_ms=stages, stream=stream, launches=launches, tracking_passes=ca.passes,
+                 fusing_keyframes=ca.n_fusing, k1_max_abs_err=max(err_t, err_f),
+                 k1_matches=(m_t, m_f), run_s=sa["wall_s"])
 
-    # (b) the same run with the control socket and its clients, then (a)
-    # again: (b) is held to the mean of the two (a)s, which cancels a drift
-    # of the host's speed across the three runs
-    slam_b, _, sb, cb, box = surface_replay(project_match, tmp_b, True)
-    _, _, sa2, ca2, _ = surface_replay(project_match, tmp_a2, False)
-    ca2.check_launches("surface (a) again")
-    st, tr, sm = box["status"], box["save_traj"], box["save_map"]
-    check(st["ok"] and st["state"] == system.OK and st["n_kf"] >= 2, f"status reply {st}")
-    check(tr["ok"] and tr["n_poses"] == len(open(tr["path"]).read().splitlines()) > 0,
-          f"save_traj reply {tr}")
-    fresh = system.MonoSlam(height=H, width=W, cam_params=seq.cam_params, n_features=N_FEATURES,
-                            **{k: v for k, v in surface_kw().items() if k != "points_every"})
-    checkpoint.load_atlas(sm["path"], fresh)
-    check(sm["ok"] and fresh.n_kf >= 2 and fresh.state == system.OK,
-          f"save_map reply {sm}; loaded n_kf {fresh.n_kf}, state {fresh.state}")
-    check(box["loc_on"] == {"ok": True, "localization_only": True}
-          and box["loc_off"] == {"ok": True, "localization_only": False}
-          and not slam_b.localization_only, f"localization mode {box['loc_on']}, {box['loc_off']}")
-    n_sub = box["frame_events"]
-    med_a = (ca.median_fps() + ca2.median_fps()) / 2
-    fps_ratio = cb.median_fps() / med_a
-    whole_ratio = sb["fps"] / ((sa["fps"] + sa2["fps"]) / 2)
-    print(f"surface (b): with the control socket: median frame rate {cb.median_fps():.3f} "
-          f"frames/s, {fps_ratio:.3f} of (a)'s {ca.median_fps():.3f} and {ca2.median_fps():.3f} "
-          f"(run before and after); over the whole run {sb['fps']} frames/s, {whole_ratio:.3f} of "
-          f"(a)'s {sa['fps']} and {sa2['fps']}; status {st}, save_traj {tr['n_poses']} poses, "
-          f"save_map md5 {sm['md5']} (loaded: {fresh.n_kf} keyframes), localization mode on then "
-          f"off, subscriber {n_sub} frame events, subscribers dropped "
-          f"{sb['control']['dropped']} (the one that never read); tracked {sb['tracked']}, "
-          f"{slam_b.n_kf} keyframes, K1 launches {cb.launches}")
-    check(n_sub >= 10, f"the subscriber received {n_sub} frame events")
-    check(sb["control"]["dropped"] == 1,
-          f"{sb['control']['dropped']} subscribers dropped: the one that never read must go once "
-          "its socket buffer and queue are full, the reader must stay")
-    cb.check_launches("surface (b)")
-    check(fps_ratio >= SURF_FPS_RATIO, f"median frame rate with the control socket "
-          f"{cb.median_fps():.3f} below {SURF_FPS_RATIO} x (a)'s {med_a:.3f}")
-    b = dict(frames_per_s=sb["fps"], median_frames_per_s=cb.median_fps(),
-             a_median_frames_per_s=(ca.median_fps(), ca2.median_fps()),
-             a_frames_per_s=(sa["fps"], sa2["fps"]), fps_ratio=fps_ratio,
-             whole_run_ratio=whole_ratio, subscriber_frames=n_sub,
-             dropped=sb["control"]["dropped"], status=st, saved_poses=tr["n_poses"],
+        # (b) the same run with the control socket and its clients, each
+        # (b) between two runs of (a): each run's median frame rate over
+        # the host's speed across its frames, and each (b) over the mean of
+        # the (a)s around it, which cancels the host's drift in between
+        a_runs, b_runs = [(sa, ca)], []
+        for r in range(SURF_B_RUNS):
+            d_b, d_a = (os.path.join(root, f"{x}{r + 1}") for x in ("b", "a"))
+            os.makedirs(d_b)
+            os.makedirs(d_a)
+            b_runs.append(surface_replay(project_match, d_b, True))
+            _, _, sa_r, ca_r, _ = surface_replay(project_match, d_a, False)
+            ca_r.check_launches(f"surface (a) after (b) {r + 1}")
+            a_runs.append((sa_r, ca_r))
+        # M probe iterations/s over each run's steady frames
+        host_a = [probe.rate(*c.steady_window()) / 1e6 for _, c in a_runs]
+        host_b = [probe.rate(*cb.steady_window()) / 1e6 for *_, cb, _ in b_runs]
+    med_a = [c.median_fps() for _, c in a_runs]
+    med_b = [cb.median_fps() for *_, cb, _ in b_runs]
+
+    def around(v_b, v_a):  # each (b) over the mean of the (a)s before and after it
+        return [x / ((v_a[r] + v_a[r + 1]) / 2) for r, x in enumerate(v_b)]
+
+    ratios = around([m / h for m, h in zip(med_b, host_b)], [m / h for m, h in zip(med_a, host_a)])
+    fps_ratio = float(np.mean(ratios))
+    raw = around(med_b, med_a)
+    whole = around([sb["fps"] for _, _, sb, _, _ in b_runs], [sa_r["fps"] for sa_r, _ in a_runs])
+    print(f"surface (b): (a) median frame rates {[round(x, 3) for x in med_a]} frames/s, the "
+          f"host {[round(x, 3) for x in host_a]} M probe iterations/s over their frames; (b) "
+          f"{[round(x, 3) for x in med_b]} frames/s, the host {[round(x, 3) for x in host_b]}; "
+          f"(b) over the (a)s around it: over the host's speed {[round(x, 4) for x in ratios]}, "
+          f"mean {fps_ratio:.4f}; as measured {[round(x, 4) for x in raw]}; over the whole run "
+          f"{[round(x, 4) for x in whole]}")
+    for r, (slam_b, _, sb, cb, box) in enumerate(b_runs):
+        st, tr, sm = box["status"], box["save_traj"], box["save_map"]
+        fresh = system.MonoSlam(height=H, width=W, cam_params=seq.cam_params,
+                                n_features=N_FEATURES, **{k: v for k, v in surface_kw().items()
+                                                          if k != "points_every"})
+        check(st["ok"] and st["state"] == system.OK and st["n_kf"] >= 2, f"status reply {st}")
+        check(tr["ok"] and tr["n_poses"] == len(open(tr["path"]).read().splitlines()) > 0,
+              f"save_traj reply {tr}")
+        checkpoint.load_atlas(sm["path"], fresh)
+        check(sm["ok"] and fresh.n_kf >= 2 and fresh.state == system.OK,
+              f"save_map reply {sm}; loaded n_kf {fresh.n_kf}, state {fresh.state}")
+        check(box["loc_on"] == {"ok": True, "localization_only": True}
+              and box["loc_off"] == {"ok": True, "localization_only": False}
+              and not slam_b.localization_only,
+              f"localization mode {box['loc_on']}, {box['loc_off']}")
+        n_sub = box["frame_events"]
+        print(f"surface (b) {r + 1}: with the control socket: status {st}, save_traj "
+              f"{tr['n_poses']} poses, save_map md5 {sm['md5']} (loaded: {fresh.n_kf} keyframes), "
+              f"localization mode on then off, subscriber {n_sub} frame events, subscribers "
+              f"dropped {sb['control']['dropped']} (the one that never read); tracked "
+              f"{sb['tracked']}, {slam_b.n_kf} keyframes, K1 launches {cb.launches}")
+        check(n_sub >= 10, f"the subscriber received {n_sub} frame events")
+        check(sb["control"]["dropped"] == 1,
+              f"{sb['control']['dropped']} subscribers dropped: the one that never read must go "
+              "once its socket buffer and queue are full, the reader must stay")
+        cb.check_launches(f"surface (b) {r + 1}")
+    check(fps_ratio >= SURF_FPS_RATIO, f"median frame rate with the control socket, over the "
+          f"host's speed, {fps_ratio:.4f} of (a)'s, below {SURF_FPS_RATIO} (by run {ratios})")
+    b = dict(frames_per_s=[sb["fps"] for _, _, sb, _, _ in b_runs], median_frames_per_s=med_b,
+             a_median_frames_per_s=med_a, a_frames_per_s=[sa_r["fps"] for sa_r, _ in a_runs],
+             host_rate_a=host_a, host_rate_b=host_b, ratios=ratios, fps_ratio=fps_ratio,
+             ratios_as_measured=raw, whole_run_ratios=whole,
+             subscriber_frames=[box["frame_events"] for *_, box in b_runs],
+             dropped=[sb["control"]["dropped"] for _, _, sb, _, _ in b_runs],
+             status=b_runs[0][4]["status"],
+             saved_poses=[box["save_traj"]["n_poses"] for *_, box in b_runs],
              loaded_keyframes=fresh.n_kf)
 
     # (c) phase 12 (a)'s closure as a problem dump, re-solved on the card
@@ -3200,6 +3317,236 @@ def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
                 phase_s=time.perf_counter() - t_phase)
 
 
+SCALE_SHAPE = (64, 8192, 65536)  # K, P, E: the global-BA shape (scripts/bench_dist.py)
+SCALE_TIMEOUT = 240  # seconds for a group of worker processes
+SPLIT_VI_FRAMES = 60
+REFRESH_TIMED = 20  # replica refreshes timed alone after phase 18 (b)'s run
+
+
+def scale_workers(torch, world: int, backend: str, devices: list, probs: str, tmp: str) -> dict:
+    """``world`` scale-out ranks, one process each (``parallel/scale_out.py``,
+    the runner a user starts), each with the same problems file, rank r on
+    ``devices[r]``; every rank must exit 0. Returns rank 0's report."""
+    from orb_slam3_ros_tpu_torch.parallel.multihost import free_port
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "orb_slam3_ros_tpu_torch.parallel.scale_out", "--world",
+           str(world), "--coordinator", f"127.0.0.1:{free_port()}", "--backend", backend,
+           "--problems", probs, "--compare"]
+    logs = [open(os.path.join(tmp, f"{backend}{world}-rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen(cmd + ["--rank", str(r), "--device", devices[r]], cwd=here, env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=SCALE_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                rc = "a timeout"
+            logs[r].seek(0)
+            out = logs[r].read()
+            check(rc == 0, f"scale-out rank {r} of {world} ({backend}) exited with {rc}: "
+                           f"{out[-2000:]}")
+            if r == 0:
+                line = [ln for ln in out.splitlines() if ln.startswith("SCALE_OUT ")]
+                check(line, f"scale-out rank 0 printed no report: {out[-2000:]}")
+                report = json.loads(line[0][len("SCALE_OUT "):])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return report
+
+
+def print_scale(tag: str, rep: dict) -> None:
+    for name, e in rep["solvers"].items():
+        c = e["check"]
+        check(c["ok"], f"scale-out {tag} {name}: differs from the solve without a communicator "
+                       f"beyond the JAX tests' tolerances: {c}")
+        print(f"scale-out {tag} {name}: {[round(r[0], 3) for r in e['ms_per_iter']]} ms/iter by "
+              f"rank over {e['iters']} iterations, {e['sums_per_iter']:.1f} sums and "
+              f"{e['bytes_per_iter'] / 2**20:.3f} MiB summed per iteration, peak "
+              f"{[round(m, 1) for m in e['peak_mib']]} MiB by rank, shards (edges, points, "
+              f"cameras) {[[int(x) for x in r] for r in e['shard']]}, largest |differences| to "
+              f"the solve without a communicator {c['max_diff']} (of the bound "
+              f"{ {k: round(v, 4) for k, v in c['of_bound'].items()} })"
+              + (f", {c['n_inliers']} inliers" if "n_inliers" in c else ""))
+
+
+def phase_scale_out(torch) -> dict:
+    """Phase 18 (a): the sharded solvers at the global-BA shape, at world 1
+    in this process over NCCL (one rank: every sum is over one rank, so no
+    collective runs), at world 2 as two processes on this card over gloo
+    (NCCL takes one rank a card) and, with two cards, over NCCL."""
+    import torch.distributed as dist
+
+    from orb_slam3_ros_tpu_torch.parallel import multihost, problems, scale_out
+
+    t0 = time.perf_counter()
+    K, P, E = SCALE_SHAPE
+    trees = dict(ba=problems.ba_problem(K, P, E), vi=problems.vi_problem(),
+                 pgo=problems.pgo_problem())
+    tmp = tempfile.mkdtemp(prefix="scale-out-")  # removed at the phase's end
+    try:
+        probs = os.path.join(tmp, "problems.npz")
+        problems.save(probs, **trees)
+        out = {}
+        multihost.init(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl",
+                       device="cuda:0")
+        try:
+            out["nccl1"], _ = scale_out.run(multihost.global_mesh(), trees, check=True)
+        finally:
+            dist.destroy_process_group()
+        print_scale("world 1 (NCCL, in process, no collective)", out["nccl1"])
+        out["gloo2"] = scale_workers(torch, 2, "gloo", ["cuda:0", "cuda:0"], probs, tmp)
+        print_scale("world 2 (gloo, two processes on one card)", out["gloo2"])
+        if torch.cuda.device_count() >= 2:
+            out["nccl2"] = scale_workers(torch, 2, "nccl", ["cuda:0", "cuda:1"], probs, tmp)
+            print_scale("world 2 (NCCL, two cards)", out["nccl2"])
+        else:
+            print("scale-out world 2 over NCCL on two cards: not measured (one card)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"scale-out: K={K} P={P} E={E}, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_split(torch, project_match, mp: dict, seq) -> dict:
+    """Phase 18 (b): ``MonoSlam`` split over (track, map) devices on phase
+    7's sequence and configuration, per frame, counted as phase 17 counts."""
+    from orb_slam3_ros_tpu_torch.models import system
+
+    devices = ("cuda:0", "cuda:1") if torch.cuda.device_count() >= 2 else ("cuda:0", "cuda:0")
+    t0 = time.perf_counter()
+    slam = make_slam(seq, devices[1], devices=devices)
+    check(slam._replica is not None and not slam._chunkable(), "MonoSlam(devices=...) is not split")
+    with SurfaceCounters(project_match) as cnt:
+        init_at = None
+        for i in range(MAP_FRAMES):
+            out = slam.process_frame(seq.images[i], float(seq.timestamps[i]))
+            if init_at is None and out is not None:
+                init_at = i
+            check(init_at is not None or i < MAP_INIT_BY, f"split: not initialized by frame "
+                                                          f"{MAP_INIT_BY}")
+            check(init_at is None or out is not None, f"split: lost frame {i}")
+    torch.cuda.synchronize()
+    rep = slam._replica
+    rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
+    fps = cnt.steady_fps()
+    ptrs = {x.data_ptr() for x in slam.map}
+    on_dev = all(x.device == torch.device(devices[1]) for x in slam.map) and all(
+        x.device == torch.device(devices[0]) for b in rep._bufs for x in b)
+    distinct = all(not ptrs & {x.data_ptr() for x in b} for b in rep._bufs)
+    us = rep.refresh_us() or [float("nan")]  # timed on the card only
+    c = dict(rep.counts)
+    # In the run the card is idle when a keyframe's refresh is queued (the
+    # keyframe ends in a host read), so its events time the host's queueing.
+    # The device's time: refreshes queued behind a spin kernel, which the copy
+    # stream waits for.
+    host_us, n0 = [], len(us)
+    for _ in range(REFRESH_TIMED):
+        torch.cuda._sleep(SPIN_CYCLES // 10)
+        t1 = time.perf_counter()
+        rep.start(slam.map)
+        host_us.append((time.perf_counter() - t1) * 1e6)
+        rep.poll(force=True)
+    dev_us = rep.refresh_us()[n0:] or [float("nan")]
+    k_t = kernel_vs_plain(torch, project_match, cnt.rec_t.args, cnt.rec_t.kw, "split tracking")
+    k_f = kernel_vs_plain(torch, project_match, cnt.rec_f.args, cnt.rec_f.kw, "split fusion")
+    bound_us = 2 * rep.nbytes / HBM_BYTES_PER_S * 1e6
+    print(f"split {devices}: initialized at frame {init_at}, tracked {MAP_FRAMES - init_at} "
+          f"frames, {slam.n_kf} keyframes, Sim(3) ATE {rmse:.5f} m (phase 7 "
+          f"{mp['ate_sim3_m']:.5f}); {fps:.2f} frames/s steady (phase 7 {mp['frames_per_s']:.2f}); "
+          f"replica refreshes {c}; a refresh in the run {float(np.median(us)):.1f} us median, "
+          f"{min(us):.1f}-{max(us):.1f} us over {len(us)} (CUDA events on the copy stream); "
+          f"queued behind a spin kernel {float(np.median(dev_us)):.1f} us of device time and "
+          f"{float(np.median(host_us)):.1f} us of host time median over {REFRESH_TIMED}; "
+          f"{rep.nbytes / 2**20:.2f} MiB, bound {bound_us:.2f} us at {HBM_BYTES_PER_S / 1e12} TB/s "
+          f"read + write; K1 launches {cnt.launches} (tracking passes {cnt.passes}, fusing "
+          f"keyframes {cnt.n_fusing}), exact on the first tracking ({k_t[1]} matches) and fusion "
+          f"({k_f[1]} matches) searches; {time.perf_counter() - t0:.1f} s")
+    check(rmse <= MAP_ATE_LIMIT and rmse <= 2 * mp["ate_sim3_m"],
+          f"split ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m or 2x phase 7's")
+    check(on_dev and distinct, "the canonical map and the replica are not where they belong")
+    # every refresh is timed, the construction's first fill too
+    check(len(us) == 1 + c["copies"] + c["syncs"], f"{len(us)} refreshes timed of {c}")
+    check(c["copies"] == cnt.n_work and c["max_stale"] <= 1,
+          f"replica refreshes {c} for {cnt.n_work} keyframes")
+    check(c["adopted"] in (c["copies"], c["copies"] - 1), f"refreshes not adopted: {c}")
+    cnt.check_launches("split")
+    return dict(devices=list(devices), init_frame=init_at, keyframes=slam.n_kf, ate_sim3_m=rmse,
+                frames_per_s=fps, replica=c, refresh_us_p50=float(np.median(us)),
+                refresh_device_us_p50=float(np.median(dev_us)),
+                refresh_host_us_p50=float(np.median(host_us)),
+                refresh_bytes=rep.nbytes, refresh_bound_us=bound_us, launches=cnt.launches,
+                k1_max_abs_err=max(k_t[0], k_f[0]))
+
+
+def phase_split_vi(torch, project_match) -> dict:
+    """Phase 18 (c): ``InertialSlam`` split on the first frames of phase 8's
+    sequence, per frame, against the same run on one device."""
+    from orb_slam3_ros_tpu_torch.models import inertial_system, system
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
+
+    devices = ("cuda:0", "cuda:1") if torch.cuda.device_count() >= 2 else ("cuda:0", "cuda:0")
+    t0 = time.perf_counter()
+    n = SPLIT_VI_FRAMES
+    seq, im = synth.make_vi_sequence(**{**VI_SEQ_KW, "n_frames": n})
+    res = {}
+    for tag, kw in (("split", dict(devices=devices)), ("one", {})):
+        slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
+                                            **{**VI_SLAM_KW, **kw})
+        reset_launches(project_match)
+        init_at = map_at = None
+        for i in range(n):
+            out = slam.process_frame(seq.images[i], float(seq.timestamps[i]), acc=im["acc"][i],
+                                     gyro=im["gyro"][i], dts=im["dts"][i])
+            if map_at is None and out is not None:
+                map_at = i
+            if init_at is None and slam.imu_initialized:
+                init_at = i
+        traj = slam.get_trajectory()
+        ts = np.asarray([t for t, _ in traj])[VI_SKIP:]
+        pos = np.stack([T[:3, 3] for _, T in traj])[VI_SKIP:]
+        metric, n_m, _ = ate_rmse(ts, pos, seq.timestamps, seq.t_wc, with_scale=False)
+        res[tag] = dict(map_at=map_at, init_at=init_at, metric=metric, n=n_m, state=slam.state,
+                        stage=slam.imu_stage, resets=slam.bad_imu_resets,
+                        launches=dict(project_match.LAUNCHES),
+                        replica=None if slam._replica is None else dict(slam._replica.counts))
+    s, o = res["split"], res["one"]
+    print(f"split VI {devices}: {n} frames of phase 8's sequence, map initialized at frame "
+          f"{s['map_at']}, IMU at {s['init_at']} (one device: {o['map_at']}, {o['init_at']}), "
+          f"stage {s['stage']}, metric ATE "
+          f"{s['metric']:.5f} m over {s['n']} poses (one device: {o['metric']:.5f} m), replica "
+          f"refreshes {s['replica']}, K1 launches {s['launches']}; {time.perf_counter() - t0:.1f} s")
+    # VI_INIT_BY bounds the map's initialization, as in phase 8; at phase 8's
+    # configuration the IMU initializes at its sixth keyframe, frame ~32
+    check(s["map_at"] is not None and s["map_at"] <= VI_INIT_BY,
+          f"split VI: the map not initialized by frame {VI_INIT_BY}")
+    check(s["init_at"] is not None and s["init_at"] <= o["init_at"],
+          f"split VI: the IMU initialized at frame {s['init_at']}, one device at {o['init_at']}")
+    check(s["state"] == system.OK and s["resets"] == 0, f"split VI ended in state {s['state']}")
+    check(s["metric"] <= 2 * o["metric"], f"split VI metric ATE {s['metric']:.5f} m above 2x "
+                                          f"one device's {o['metric']:.5f} m")
+    check(s["replica"]["max_stale"] <= 1, f"split VI replica {s['replica']}")
+    return dict(res, launches=s["launches"])
+
+
+def phase_scale(torch, project_match, mp: dict, seq) -> dict:
+    """Phase 18: the scale-out solvers and the two-device split."""
+    t0 = time.perf_counter()
+    out = dict(a=phase_scale_out(torch), b=phase_split(torch, project_match, mp, seq),
+               c=phase_split_vi(torch, project_match))
+    launches = {k: out["b"]["launches"][k] + out["c"]["launches"][k] for k in out["b"]["launches"]}
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    return dict(out, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -3236,31 +3583,56 @@ def main() -> int:
     queued = kernel_launches(lib, lambda: lib.project_match_empty_launch(stream))
     check(queued == 1, f"the library counted {queued} launches for one empty launch")
     print(f"empty kernel launch: {empty_us:.2f} us of device time (100 queued launches)")
+    laps, t_lap = {}, [t0]
+
+    def lap(name: str) -> None:  # the wall seconds since the previous lap, by phase
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     k = phase_kernel(torch, project_match, P_TRACK, 60.0, 50)
     k4 = phase_kernel(torch, project_match, P_TRACK, 4.0, 50)
     kf = phase_kernel(torch, project_match, P_FUSE, 3.0, 50, **FUSE_KW)
     phase_kernel_edges(torch, project_match)
+    lap("1-4 build and kernel")
     s, state = phase_slice(torch, project_match)
     phase_cpu(torch, state)
+    lap("5-6 slice")
     mp, map_seq = phase_mapping(torch, project_match)
+    lap("7 mapping")
     vi, start, (vi_slam, caps) = phase_vi(torch, project_match)
+    lap("8 mono-inertial")
     vc = phase_vi_chunk(torch, project_match, vi, start)
+    lap("9 VI chunks")
     mc, mono_snap, mono_stack = phase_mono_chunk(torch, project_match, mp, map_seq)
+    lap("10 mono chunks")
     rl = phase_reloc(torch, project_match, mono_snap, map_seq, mono_stack)
+    lap("11 relocalization")
     vi["stages"] = phase_vi_stages(torch, vi_slam, caps)
+    lap("8 VI stages")
     lp, loop_slam = phase_loop_mono(torch, project_match)
+    lap("12 mono loop closing")
     lv = phase_loop_vi(torch, project_match, vc)
+    lap("13 VI loop closing")
     la = lp["closed_loop"]
     at = phase_atlas(torch, project_match, map_seq)
+    lap("14 Atlas")
     st = phase_stereo(torch, project_match)
+    lap("15 stereo and RGB-D")
     kb = st["b"]
     fe = phase_fisheye(torch, project_match)
+    lap("16 fisheye")
     kfe = fe["k1"]
     su = phase_surface(torch, project_match, loop_slam, mp)
+    lap("17 surface")
+    sc = phase_scale(torch, project_match, mp, map_seq)
+    lap("18 scale-out and split")
+    print(f"seconds by phase: {laps}")
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
                       "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "stereo": st,
-                      "fisheye": fe, "surface": su, "card": smi[0]}, default=str))
+                      "fisheye": fe, "surface": su, "scale": sc, "phase_s": laps,
+                      "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
         "route": "cuda",
@@ -3271,11 +3643,12 @@ def main() -> int:
         # relocalization (phase 11), mono loop closing (phase 12 (a), (b)),
         # VI loop closing (phase 13), the Atlas (phase 14 (a), (b), (c)),
         # stereo and RGB-D (phase 15 (a), (c), (d)) and the fisheye paths
-        # (phase 16 (a) to (d)) and the native-feed replay (phase 17 (a)),
-        # the counts set to 0 before each and read after it
+        # (phase 16 (a) to (d)), the native-feed replay (phase 17 (a)) and
+        # the two-device split (phase 18 (b), (c)), the counts set to 0
+        # before each and read after it
         "launches": sum(sum(x["launches"].values())
                         for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"],
-                                  st, fe, su["a"])),
+                                  st, fe, su["a"], sc)),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
@@ -3310,6 +3683,10 @@ def main() -> int:
         "launches_fisheye_rectified_track": fe["d"]["launches"]["track"],
         "launches_surface_track": su["a"]["launches"]["track"],
         "launches_surface_fuse": su["a"]["launches"]["fuse"],
+        "launches_split_track": sc["b"]["launches"]["track"],
+        "launches_split_fuse": sc["b"]["launches"]["fuse"],
+        "launches_split_vi_track": sc["c"]["launches"]["track"],
+        "launches_split_vi_fuse": sc["c"]["launches"]["fuse"],
         "merge_ms": at["merge_ms"],
         "merge_plain_ms": at["merge_plain_ms"],
         "merge_device_us": at["merge_device_us"],
@@ -3321,7 +3698,8 @@ def main() -> int:
         "max_abs_err": max(k["max_abs_err"], k4["max_abs_err"], kf["max_abs_err"],
                            la["sim3_max_abs_err"], at["merge_max_abs_err"],
                            kb["k1"]["max_abs_err"], kb["k1_r4"]["max_abs_err"],
-                           kfe["max_abs_err"], su["a"]["k1_max_abs_err"]),
+                           kfe["max_abs_err"], su["a"]["k1_max_abs_err"],
+                           sc["b"]["k1_max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_us"] / 1e3,

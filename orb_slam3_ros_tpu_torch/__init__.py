@@ -33,7 +33,10 @@ timer, the C++ measurement sync (``native.py``), the control socket
 (``utils/control.py``), the loop-closure problem dump and its offline
 re-optimization (``utils/optdump.py``, ``reoptimize.py``), plane detection,
 the AR overlay and map drawing (``ops/plane.py``, ``utils/ar.py``,
-``utils/viz.py``). Not ported: the JAX package's ``parallel/``.
+``utils/viz.py``); the scale-out solvers over ``torch.distributed``
+(``parallel/``: the sharded BA, PCG BA, VI-BA and pose graph, the
+multi-process runtime) and the two-device tracking / mapping split
+(``MonoSlam(devices=...)``, ``models/replica.py``).
 
 Entry points run on the CUDA device unless the caller passes ``device``:
 ``device=None`` resolves through :func:`default_device`, which raises where
@@ -71,3 +74,14 @@ def default_device() -> _torch.device:
 def resolve_device(device=None) -> _torch.device:
     """``device`` as a ``torch.device``; None means :func:`default_device`."""
     return default_device() if device is None else _torch.device(device)
+
+
+def to_device(x, device):
+    """``x`` on ``device``: a tensor, or tuples and NamedTuples of them,
+    walked recursively; anything else (None, numbers) as it is."""
+    if isinstance(x, _torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        moved = [to_device(v, device) for v in x]
+        return type(x)(*moved) if hasattr(x, "_fields") else tuple(moved)
+    return x

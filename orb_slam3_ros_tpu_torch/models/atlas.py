@@ -11,7 +11,9 @@ retrieval signatures and, for an inertial map, its IMU side-state. A lost
 frame may switch into an archived map (retrieval, then tracking against
 it); a young map is welded into an archived one by a verified Sim(3): the
 cross-map SearchBySim3 is K1 at launch site "merge", the younger map is
-transformed and copied into the older one's free slots.
+transformed and copied into the older one's free slots. A system split over two
+devices keeps every active map on its map device and refreshes tracking's
+replica after an archive, a switch or a weld.
 
 Three faults of the JAX package are not copied (each pinned by a test in
 ``tests/test_torch_atlas.py``):
@@ -107,6 +109,7 @@ class Atlas:
             slam.ba_cur = np.zeros(3, np.float32)
             _drop_inertial_device_state(slam)
         slam.map = map_state.empty_map(slam.K_cap, slam.N, slam.P_cap, device=slam.device)
+        slam._sync_replica()
         slam.n_kf = 0
         slam.n_pts = 0
         slam.init_feats = None
@@ -157,6 +160,7 @@ class Atlas:
     @staticmethod
     def _switch_to(slam, am: ArchivedMap, R_cw: np.ndarray, t_cw: np.ndarray) -> None:
         slam.map = am.m
+        slam._sync_replica()
         slam.n_kf = am.n_kf
         slam.n_pts = am.n_pts
         if am.imu is not None:
@@ -290,6 +294,7 @@ class Atlas:
             # the cross-chain preintegration edge, reprojection edges tie
             # the two sides.
             slam._run_vi_ba(window=slam.W, n_iters=6)
+        slam._sync_replica()
         return True
 
 

@@ -26,7 +26,8 @@ not admit a system with bf > 0 and no stereo chunk branch):
 ``process_frames`` of [N, 2, H, W] pairs splits each pair into
 ``process_frame``. The stage timer names "extract+cross" and "track", the
 JAX package's; a keyframe emits a "keyframe" event, which the JAX
-package's rig omits. Left out, as in the other ported systems: the JAX
+package's rig omits. ``devices`` raises ``ValueError``, as in
+``stereo_system``. Left out, as in the other ported systems: the JAX
 package's compile and host helpers (``_frame_program``'s jit,
 ``_warm_schedules``), its lag-1 VI chunk plumbing (``_drain_vi_chunk``,
 ``_vi_dev_state``; ROADMAP "Do not port") and its asynchronous keyframe
@@ -43,7 +44,7 @@ import torch
 from ..ops import orb, stereo, twocam
 from . import map_updates
 from .inertial_system import InertialSlam
-from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
+from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, SPLIT_REFUSED, MonoSlam
 
 
 def _twocam_refine(m, feats, feat_pt, cross_ok, uv_right, R0, t0, R_rl, t_rl, cam_params,
@@ -73,6 +74,8 @@ class FisheyeStereoSlam(MonoSlam):
     [3]; identity and zero by default)."""
 
     def __init__(self, *args, R_rl=None, t_rl=None, **kw):
+        if kw.get("devices") is not None:
+            raise ValueError(SPLIT_REFUSED.format(type(self).__name__))
         kw.setdefault("cam_model", "kb8")
         super().__init__(*args, **kw)
         R_rl = np.eye(3, dtype=np.float32) if R_rl is None else np.asarray(R_rl, np.float32)
@@ -204,8 +207,7 @@ class FisheyeStereoSlam(MonoSlam):
         self.n_pts += int(buf[0])
         self.R_cur = buf[1:10].reshape(3, 3).copy()
         self.t_cur = buf[10:13].copy()
-        if self.loop_closer is not None:
-            self.loop_closer.try_close(self, kf_id)
+        self._close_loop(kf_id)
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
 
 

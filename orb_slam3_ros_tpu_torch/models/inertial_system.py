@@ -62,6 +62,13 @@ point-cloud events, as in the JAX package), a VI keyframe "keyframe", a
 chunk both from its rows and the point-cloud events at its boundary. A
 bad-IMU reset is logged at ``obslog.NORMAL``.
 
+With ``devices`` (``MonoSlam``'s two-device split) a VI frame's
+preintegration, prediction, extraction, tracking and 15-dof refinement run
+on the track device against the map replica; keyframes, the IMU
+initialization stages and the global BA run on the map device, and the
+replica is refreshed after each keyframe and at once after an
+initialization stage, a fold-in or a reset. No VI chunk runs while split.
+
 Not ported (it raises, naming ROADMAP "Known faults"): the KB8 camera
 (``cam_model="kb8"``), whose visual rows the JAX package's VI-BA and VI
 tracking project through the pinhole model. ``cam_model`` reaches the
@@ -183,6 +190,8 @@ class InertialSlam(MonoSlam):
             torch.as_tensor(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32))
             .to(self.device) for x in calib
         ))
+        # the calibration where a frame is tracked (the track device when split)
+        self._tcalib = imu_ops.ImuCalib(*(x.to(self.track_device) for x in self.calib))
         self.imu_cap_frame = imu_cap_frame
         self.imu_cap_kf = imu_cap_kf
         self.init_after_kf = init_after_kf
@@ -256,6 +265,7 @@ class InertialSlam(MonoSlam):
         self._vi_prior = None
         self._last_kf_ts = None
         self.map = map_state.empty_map(self.K_cap, self.N, self.P_cap, device=self.device)
+        self._sync_replica()
         self.n_kf = 0
         self.n_pts = 0
         self.init_feats = None
@@ -332,6 +342,7 @@ class InertialSlam(MonoSlam):
             self.v_cur = ((Rr_n.T @ Rr_o) @ self.v_cur).astype(np.float32)
             self._ref_cache = None
             self.gba_counts["finished"] += 1
+            self._sync_replica()
         self._vi_dev_valid = False
         self._vi_anchor = None
         self._vi_prior = None
@@ -341,6 +352,7 @@ class InertialSlam(MonoSlam):
     def process_frame(self, img, ts: float, acc=None, gyro=None, dts=None):
         """Track one frame with its IMU block (the samples since the
         previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
+        self._poll_replica()
         has_imu = self._record_frame_imu(ts, acc, gyro, dts)
         if self.imu_initialized and self.vi_tracking and has_imu and self.state in (OK, RECENTLY_LOST):
             self._check_ts_jump(ts)
@@ -389,19 +401,21 @@ class InertialSlam(MonoSlam):
                 n += m
         return a, g, d
 
-    def _frame_block(self) -> torch.Tensor:
+    def _frame_block(self, device=None) -> torch.Tensor:
         """This frame's IMU samples as one [imu_cap_frame, 7] tensor
-        (acc | gyro | dt, zero rows as padding) on the device."""
+        (acc | gyro | dt, zero rows as padding) on ``device`` (None: the map
+        device)."""
         acc, gyro, dts = self._frame_imu
         blk = np.zeros((self.imu_cap_frame, 7), np.float32)
         n = min(len(acc), self.imu_cap_frame)
         blk[:n, 0:3], blk[:n, 3:6], blk[:n, 6] = acc[:n], gyro[:n], dts[:n]
-        return torch.from_numpy(blk).to(self.device)
+        return torch.from_numpy(blk).to(device or self.device)
 
-    def _preint_block(self, blk: torch.Tensor, b: torch.Tensor) -> imu_ops.Preintegrated:
+    def _preint_block(self, blk: torch.Tensor, b: torch.Tensor, calib=None) -> imu_ops.Preintegrated:
         # The tree form: in eager torch it beats the per-sample recursion at
         # the frame and the window shape alike (PERF.md).
-        return imu_ops.preintegrate(blk[..., 0:3], blk[..., 3:6], blk[..., 6], b, self.calib)
+        return imu_ops.preintegrate(blk[..., 0:3], blk[..., 3:6], blk[..., 6], b,
+                                    calib or self.calib)
 
     # ------------------------------------------------------------------
     def _predict_motion(self, ts):
@@ -426,40 +440,46 @@ class InertialSlam(MonoSlam):
         self.vel_t = t_cw - self.vel_R @ self.t_cur
         self.v_cur = buf[12:15].copy()
 
-    def _body_state_from_host(self):
+    def _body_state_from_host(self, device=None):
         """Anchor body state from the host's camera pose, velocity and
-        biases (used when no per-frame anchor exists yet)."""
+        biases (used when no per-frame anchor exists yet), on ``device``
+        (None: the map device)."""
+        calib = self.calib if device is None else self._tcalib
         buf = torch.from_numpy(np.concatenate([
             self.R_cur.reshape(-1), self.t_cur, self.v_cur, self.bg_cur, self.ba_cur,
-        ]).astype(np.float32)).to(self.device)
+        ]).astype(np.float32)).to(device or self.device)
         R_wb, p_wb = viba.body_from_cam(
-            buf[0:9].reshape(3, 3), buf[9:12], self.calib.R_bc, self.calib.t_bc
+            buf[0:9].reshape(3, 3), buf[9:12], calib.R_bc, calib.t_bc
         )
         return R_wb, p_wb, buf[12:15], buf[15:18], buf[18:21]
 
     # ------------------------------------------------------------------
     def _process_frame_vi(self, img, ts):
-        """An OK / RECENTLY_LOST frame once the IMU is initialized."""
-        dev = self.device
-        anchor = self._vi_anchor or self._body_state_from_host()
+        """An OK / RECENTLY_LOST frame once the IMU is initialized (on the
+        track device against the replica when split)."""
+        dev, cal = self.track_device, self._tcalib
+        anchor = self._vi_anchor or self._body_state_from_host(dev)
         R_anc, p_anc, v_anc, bg_anc, ba_anc = anchor
         anc_Sigma = self._vi_prior
         if anc_Sigma is None:
             anc_Sigma = torch.zeros((15, 15), dtype=torch.float32, device=dev)
         b = torch.cat([bg_anc, ba_anc])
-        pre = self._preint_block(self._frame_block(), b)
+        pre = self._preint_block(self._frame_block(dev), b, cal)
         # PredictStateIMU from the previous frame's body state.
         R2, p2, _ = imu_ops.predict_state(R_anc, p_anc, v_anc, b, pre)
-        R_pred, t_pred = viba.cam_from_body(R2, p2, self.calib.R_bc, self.calib.t_bc)
+        R_pred, t_pred = viba.cam_from_body(R2, p2, cal.R_bc, cal.t_bc)
         feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
+        tm = self._tmap()
+        if self._replica is not None:
+            self._replica.note_frame()
         res = tracking.track_against_map(
-            self.map, feats, R_pred, t_pred, self.cam_params, self.width, self.height,
+            tm, feats, R_pred, t_pred, self._track_cam, self.width, self.height,
             schedule=self._current_schedule(), track_cap=self.track_cap,
         )
         vires, R_cw, t_cw = _vi_refine(
-            self.map, feats, res.feat_pt, res.R, res.t, v_anc, bg_anc, ba_anc,
-            R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self.cam_params,
-            self.calib.R_bc, self.calib.t_bc,
+            tm, feats, res.feat_pt, res.R, res.t, v_anc, bg_anc, ba_anc,
+            R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self._track_cam,
+            cal.R_bc, cal.t_bc,
         )
         # The frame's one host read.
         buf = torch.cat([
@@ -536,7 +556,8 @@ class InertialSlam(MonoSlam):
         self._vi_anchor = state_tuple
         # Next frame's anchor uncertainty = this solve's posterior cov.
         self._vi_prior = vires.Sigma
-        self.map = map_updates.update_track_counters(self.map, res.visible_mask, res.found_mask)
+        vis, fnd = self._to_map_dev((res.visible_mask, res.found_mask))
+        self.map = map_updates.update_track_counters(self.map, vis, fnd)
         self._log_pose(ts)
         if self.on_frame is not None:
             self.on_frame(dict(event="frame", ts=ts, Twc=self._pose_mat(), n_inliers=n_vis,
@@ -594,10 +615,13 @@ class InertialSlam(MonoSlam):
 
     def _timed_stage(self, stage: int, fn, **kw) -> None:
         """Run an initialization stage; it ends in a host read, so its wall
-        time includes its device work."""
+        time includes its device work. A stage rotates and rescales the whole
+        map: a split system's replica is refreshed at once (the JAX package
+        refreshes it only after the next keyframe)."""
         t0 = time.perf_counter()
         fn(**kw)
         self.init_stage_ms[stage] = (time.perf_counter() - t0) * 1e3
+        self._sync_replica()
 
     def _window(self, lo: int, last: int, fixed, W_eff: int):
         """Pad a keyframe window [lo, last) to ``W_eff`` entries with the
@@ -644,6 +668,7 @@ class InertialSlam(MonoSlam):
             fixed = [i == 0 or i < last - self.ba_window for i in range(lo, last)]
         window_ids, fixed_d, blocks, edge_ok = self._window(lo, last, fixed, self.W)
         dev = self.device
+        feats, feat_pt = self._to_map_dev((feats, track_res.feat_pt))
         vb = torch.from_numpy(
             np.concatenate([self.v_cur, self.bg_cur, self.ba_cur]).astype(np.float32)
         ).to(dev)
@@ -654,7 +679,7 @@ class InertialSlam(MonoSlam):
                             depth=torch.where(sm.valid, sm.depth, -1.0), max_depth=self.max_depth)
         self.map, n_new = _vi_kf_work(
             self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
-            torch.as_tensor(self.t_cur, device=dev), ts, feats, track_res.feat_pt,
+            torch.as_tensor(self.t_cur, device=dev), ts, feats, feat_pt,
             self.n_pts, self.P_cap - self.n_pts, vb,
             window_ids, fixed_d, blocks, edge_ok, self.calib, self.cam_params,
             width=self.width, height=self.height, fuse_neighbors=self.fuse_neighbors,
@@ -676,8 +701,8 @@ class InertialSlam(MonoSlam):
         self._vi_prior = None
         if self._check_bad_imu():
             return
-        if self.loop_closer is not None:
-            self.loop_closer.try_close(self, kf_id)
+        self._close_loop(kf_id)
+        self._start_replica_copy()
 
     def _take_kf_state(self, kf_id: int, buf: np.ndarray) -> None:
         """Host state from a keyframe's packed (v, bg, ba, R, t)."""
@@ -894,6 +919,7 @@ class InertialSlam(MonoSlam):
             and self.vi_tracking
             and self.imu_stage >= 3  # all three initialization stages done
             and self.state == OK
+            and self._replica is None  # no chunk while split
             and self.track_window is None
             # a monocular keyframe body builds no u_r rows: a system with
             # bf > 0 chunks only through the stereo branch

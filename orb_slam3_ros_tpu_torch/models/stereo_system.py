@@ -23,8 +23,11 @@ The stage timer names the JAX package's stages: "extract+stereo" or
 ``on_frame``, which the JAX package's stereo keyframe path omits.
 
 Left out, as the JAX package's compile and host helpers: the schedule
-warm-up (``_warm_schedules``), the two-device map replica (``_tmap``) and
-the lag-1 VI chunk drain (ROADMAP "Do not port"). The non-rectified
+warm-up (``_warm_schedules``) and the lag-1 VI chunk drain (ROADMAP "Do not
+port"). The two-device split (``devices``) raises ``ValueError`` at
+construction: the JAX package's classes raise it at their first tracked
+frame, where the stereo refinement reads the canonical map with the
+replica's tracking results (ROADMAP "Divergences"). The non-rectified
 fisheye rig is ``fisheye_stereo``.
 """
 
@@ -38,7 +41,7 @@ import torch
 from ..ops import orb, pose_opt, stereo
 from . import map_updates
 from .inertial_system import InertialSlam
-from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
+from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, SPLIT_REFUSED, MonoSlam
 
 
 def _stereo_refine(m, feats, feat_pt, ur, R0, t0, cam_params, bf):
@@ -61,6 +64,8 @@ class StereoSlam(MonoSlam):
     (the reference's mThDepth)."""
 
     def __init__(self, *args, baseline: float = 0.1, depth_factor_far: float = 40.0, **kw):
+        if kw.get("devices") is not None:
+            raise ValueError(SPLIT_REFUSED.format(type(self).__name__))
         super().__init__(*args, **kw)
         self.baseline = baseline
         self.fx = float(self.cam_params[0])  # one read at construction
@@ -173,8 +178,7 @@ class StereoSlam(MonoSlam):
         self.n_pts += int(buf[0])
         self.R_cur = buf[1:10].reshape(3, 3).copy()
         self.t_cur = buf[10:13].copy()
-        if self.loop_closer is not None:
-            self.loop_closer.try_close(self, kf_id)
+        self._close_loop(kf_id)
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
 
     # No _run_local_ba override: stereo keeps the monocular window (the

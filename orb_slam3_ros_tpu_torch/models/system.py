@@ -71,8 +71,20 @@ its point events from one read at its boundary.
 ``timing`` holds host wall-clock stage times per frame
 (``timing_summary``, ``print_time_stats``); see ``_tic``.
 
-The two-device split raises ``NotImplementedError`` naming its ROADMAP
-item; the pipelined one-frame-lag mode is not ported by design.
+``devices=(track_device, map_device)`` splits the system over two devices
+(the JAX package's two-chip split, the shape of the reference's Tracking /
+LocalMapping threads): the canonical map lives on the map device, where
+initialization, relocalization, keyframe work, loop closing, the global BA
+and the Atlas run; each frame's extraction and tracking run on the track
+device against a replica of the map (``replica.MapReplica``), refreshed
+asynchronously after every keyframe and at once after any other map
+change. A refresh that has landed is adopted at the top of the next frame,
+so tracking reads a map at most one keyframe old (the JAX package's
+per-frame path adopts it only at the next keyframe; ROADMAP "Known
+faults"). No chunk runs while split, as in the JAX package. Both devices
+may be one card (or the CPU): the replica is still a copy of its own.
+
+The pipelined one-frame-lag mode is not ported by design.
 """
 
 from __future__ import annotations
@@ -84,12 +96,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, to_device
 from ..ops import ba_pcg, cameras, matching, orb, pnp, ransac, retrieval
 from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
 from .atlas import Atlas
 from .chunk_runner import read_host, read_rows
 from .loop_closing import LoopCloser
+from .replica import MapReplica
+
+# The stereo, RGB-D and two-camera systems refuse ``devices``: the JAX
+# package's raise ValueError("Received incompatible devices ...") at their first
+# tracked frame, where the stereo / two-camera refinement reads the canonical
+# map with the replica's tracking results (ROADMAP "Divergences").
+SPLIT_REFUSED = ("{0} does not run split over two devices: the JAX package's {0} raises "
+                 "ValueError (incompatible devices) at its first tracked frame "
+                 "(ROADMAP \"Divergences\")")
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -177,7 +198,9 @@ class MonoSlam:
     set.
     ``transfer_uint8`` sets the frame format of the chunk loop's stack;
     ``cam_model`` the camera ("pinhole", or "kb8": ``cam_params`` then
-    holds the eight KB8 parameters and frames are raw fisheye images)."""
+    holds the eight KB8 parameters and frames are raw fisheye images);
+    ``devices`` = (track_device, map_device) the two-device split (module
+    docstring), in place of ``device``."""
 
     def __init__(
         self,
@@ -219,10 +242,6 @@ class MonoSlam:
             raise NotImplementedError(
                 "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
             )
-        if devices is not None:
-            raise NotImplementedError(
-                "the two-device tracking/mapping split is not ported (ROADMAP Queue 1 item 5)"
-            )
         cameras.check_model(cam_model)
         if cam_model == "kb8" and (enable_loop_closing or enable_atlas):
             what = "loop closing" if enable_loop_closing else "the Atlas"
@@ -230,9 +249,19 @@ class MonoSlam:
                 f"{what} with the KB8 camera: the JAX package projects its "
                 "Sim(3) and weld searches through the pinhole model (ROADMAP \"Known faults\")"
             )
+        if devices is not None:
+            track_device, map_device = (torch.device(d) for d in devices)
+            if track_device.type != map_device.type or (
+                    device is not None and torch.device(device).type != map_device.type):
+                raise ValueError(f"devices {devices} (with device={device}): the track and map "
+                                 "devices must be of one type, and device, if given, too")
+            device = map_device
         self.device = resolve_device(device)
+        # per-frame extraction and tracking run here (the map device unless split)
+        self.track_device = self.device if devices is None else track_device
         self.height, self.width = height, width
         self.cam_params = torch.as_tensor(np.asarray(cam_params, np.float32), device=self.device)
+        self._track_cam = self.cam_params.to(self.track_device)
         self.cam_model = cam_model
         self.config = orb.default_config(height, width, n_features=n_features)
         self.K_cap = max_keyframes
@@ -267,6 +296,8 @@ class MonoSlam:
 
         self.state = NOT_INITIALIZED
         self.map = map_state.empty_map(self.K_cap, self.N, self.P_cap, device=self.device)
+        # tracking's copy of the map on the track device when split
+        self._replica = None if devices is None else MapReplica(self.map, self.track_device)
         self.n_kf = 0
         self.n_pts = 0
         self.frame_id = 0
@@ -321,6 +352,7 @@ class MonoSlam:
                 f"system (K={self.K_cap}, P={self.P_cap}, N={self.N})"
             )
         self.map = map_state.MapState(*(x.to(self.device) for x in m))
+        self._sync_replica()
         self.n_kf = int(n_kf)
         self.n_pts = int(n_pts)
         self.R_cur = np.asarray(R_cw, np.float32)
@@ -381,6 +413,45 @@ class MonoSlam:
             vocab = retrieval.train_vocabulary(train, n_words=n_words, iters=iters)
         self.set_vocabulary(vocab)
         return vocab
+
+    # ------------------------------------------------------------------
+    # The two-device split (no-ops on one device).
+    def _tmap(self) -> map_state.MapState:
+        """The map per-frame tracking reads: the replica when split, else
+        the canonical map."""
+        return self.map if self._replica is None else self._replica.current
+
+    def _to_map_dev(self, x):
+        """Tracking's outputs (tensors, NamedTuples of them, tuples) on the
+        map device, before they update the canonical map."""
+        return x if self._replica is None else to_device(x, self.device)
+
+    def _sync_replica(self) -> None:
+        """Refresh the replica now: a map change outside the keyframe cadence
+        (initialization, a loop closure, a global-BA fold-in, compaction, an
+        Atlas switch or weld, a reset, ``set_map``)."""
+        if self._replica is not None:
+            self._replica.sync(self.map)
+
+    def _start_replica_copy(self) -> None:
+        """Refresh the replica asynchronously after keyframe work; a refresh
+        still in flight is adopted first, so tracking is never more than one
+        keyframe behind."""
+        if self._replica is not None:
+            self._replica.start(self.map)
+
+    def _close_loop(self, kf_id: int) -> None:
+        """The loop-closure check of the new keyframe ``kf_id``. A closure
+        rewrites the whole map and the tracker's pose, so the replica is
+        refreshed at once: the next frame must not predict the corrected
+        pose against the uncorrected map."""
+        if self.loop_closer is not None and self.loop_closer.try_close(self, kf_id):
+            self._sync_replica()
+
+    def _poll_replica(self) -> None:
+        """At the top of a frame: adopt a refresh that has landed."""
+        if self._replica is not None:
+            self._replica.poll()
 
     # ------------------------------------------------------------------
     def _set_ref_cache(self, ref_id, R_ref, t_ref):
@@ -465,11 +536,13 @@ class MonoSlam:
         """Process one grayscale frame ([H, W], numpy or a tensor, values in
         [0, 255]). Returns Twc [4, 4] (numpy), or None while initializing
         or when tracking is lost."""
+        self._poll_replica()
         self._check_ts_jump(ts)
-        dev = self.device
         t0 = time.perf_counter()
-        feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
+        feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=self.track_device),
+                            self.config)
         if self.state in (NOT_INITIALIZED, LOST):
+            feats = self._to_map_dev(feats)  # initialization and relocalization map side
             t0 = self._tic("extract", t0)
             if self.state == NOT_INITIALIZED:
                 out = self._try_initialize(feats, ts)
@@ -528,16 +601,20 @@ class MonoSlam:
         return self._track_post(feats, self._track_res(feats), ts)
 
     def _track_res(self, feats: orb.Features) -> tracking.TrackResult:
-        """``track_against_map`` from the motion model's prediction."""
-        dev = self.device
+        """``track_against_map`` from the motion model's prediction (on the
+        track device against the replica when split)."""
+        dev = self.track_device
         R_pred = self.vel_R @ self.R_cur
         t_pred = self.vel_R @ self.t_cur + self.vel_t
+        tm = self._tmap()
+        if self._replica is not None:
+            self._replica.note_frame()
         pt_mask = None
         if self.track_window is not None:
-            pt_mask = self.map.pt_first_kf >= (self.n_kf - self.track_window)
+            pt_mask = tm.pt_first_kf >= (self.n_kf - self.track_window)
         return tracking.track_against_map(
-            self.map, feats, torch.as_tensor(R_pred, device=dev),
-            torch.as_tensor(t_pred, device=dev), self.cam_params,
+            tm, feats, torch.as_tensor(R_pred, device=dev),
+            torch.as_tensor(t_pred, device=dev), self._track_cam,
             self.width, self.height, pt_mask=pt_mask,
             schedule=self._current_schedule(), track_cap=self.track_cap,
             cam_model=self.cam_model,
@@ -633,6 +710,7 @@ class MonoSlam:
         self.map = map_updates.refresh_point_stats(self.map, n_levels=self.config.n_levels)
         self._ref_cache = None
         self.gba_counts["finished"] += 1
+        self._sync_replica()
 
     def _chunk_stereo(self) -> bool:
         """Whether the chunk loop takes [2, H, W] stereo pairs (the stereo
@@ -641,10 +719,10 @@ class MonoSlam:
         return False
 
     def _chunkable(self) -> bool:
-        """The chunk loop's gate (the JAX package's, without its condition
-        for what is not ported: the two-device split)."""
+        """The chunk loop's gate (the JAX package's): no chunk while split."""
         return (
             self.state == OK
+            and self._replica is None
             and self.covis_ba
             # a monocular keyframe body builds no u_r rows: a system with
             # bf > 0 chunks only through the stereo branch
@@ -939,6 +1017,7 @@ class MonoSlam:
         self.vel_R = np.eye(3, dtype=np.float32)
         self.vel_t = np.zeros(3, np.float32)
         self._set_ref_cache(1, self.R_cur, self.t_cur)
+        self._sync_replica()
 
     # ------------------------------------------------------------------
     def _track_post(self, feats, res, ts):
@@ -954,14 +1033,13 @@ class MonoSlam:
         self.vel_R = R_new @ self.R_cur.T
         self.vel_t = t_new - self.vel_R @ self.t_cur
         self.R_cur, self.t_cur = R_new, t_new
-        self.map = map_updates.update_track_counters(
-            self.map, res.visible_mask, res.found_mask
-        )
+        vis, fnd = self._to_map_dev((res.visible_mask, res.found_mask))
+        self.map = map_updates.update_track_counters(self.map, vis, fnd)
         self._log_pose(ts)
         if self.on_frame is not None:
             self.on_frame(dict(event="frame", ts=ts, Twc=self._pose_mat(), n_inliers=n_inl,
                                state=self.state, n_kf=self.n_kf))
-            self._maybe_publish_points(ts, found_mask=res.found_mask)
+            self._maybe_publish_points(ts, found_mask=fnd)
         if self._need_keyframe(n_inl):
             self._ref_kf_inl = n_inl
             self._insert_keyframe(feats, ts, res)
@@ -1065,6 +1143,7 @@ class MonoSlam:
         self.map = m2
         self.n_kf = n_valid
         self._ref_cache = None
+        self._sync_replica()
         if self.loop_closer is not None:
             self.loop_closer.remap_slots(new_of_old)
         self._compact_hook(order, new_of_old, n_valid)
@@ -1074,14 +1153,16 @@ class MonoSlam:
         work, then read back (admitted points, BA-refined pose) at once;
         then the loop-closure check of the new keyframe. A new keyframe stops
         a global BA in flight after its current dispatch (the JAX package's
-        bound on the staleness of the snapshot)."""
+        bound on the staleness of the snapshot). When split, the replica's
+        refresh starts after all of it."""
         self.abort_gba()
         kf_id = self.n_kf
         self._emit_keyframe(ts, kf_id)
         dev = self.device
+        feats, feat_pt = self._to_map_dev((feats, track_res.feat_pt))
         self.map, n_new, iters = kf_work.keyframe_work(
             self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
-            torch.as_tensor(self.t_cur, device=dev), ts, feats, track_res.feat_pt,
+            torch.as_tensor(self.t_cur, device=dev), ts, feats, feat_pt,
             self.n_pts, self.P_cap - self.n_pts, self.cam_params, self.bf,
             w_free=self.ba_window, w_fixed=self.ba_fixed,
             n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
@@ -1103,14 +1184,14 @@ class MonoSlam:
         self.n_pts += int(buf[0])
         self.R_cur = buf[1:10].reshape(3, 3).copy()
         self.t_cur = buf[10:13].copy()
-        if self.loop_closer is not None:
-            self.loop_closer.try_close(self, kf_id)
+        self._close_loop(kf_id)
         if self.atlas is not None and self.atlas.maps and kf_id % 4 == 0:
             # try to weld this map into the oldest archived one (MergeLocal)
             self._freeze_rel_traj()
             self.atlas.merge_current_into(self, 0)
         # the (possibly loop-corrected or welded) pose of the newest keyframe
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
+        self._start_replica_copy()
 
     def _temporal_window(self, n_kf: int):
         """The local-BA window of ``covis_ba=False`` over keyframe slots

@@ -17,6 +17,12 @@ iterations after convergence: the per-frame path. The device form
 (``on_device=True``) always runs ``n_iters`` steps and freezes the state
 from the step that set ``done``, with no host read: the form a captured
 CUDA graph can hold (the chunk loop).
+
+``comm`` (``parallel.dist_ba``) makes one solve of a problem sharded over
+several processes: each holds a share of the edge rows and the points
+those edges see, the cameras in full. The solver sums its partial
+accumulations where they must be combined and nothing else changes; with
+``comm=None`` (every single-process caller) the solve is as it was.
 """
 
 from __future__ import annotations
@@ -139,6 +145,23 @@ def _robust_cost(chi2, w_valid, delta2):
     return torch.sum(torch.where(w_valid, rho, torch.zeros_like(rho)))
 
 
+def reduce(comm, over: str, *xs):
+    """Sum each tensor of ``xs`` over the ranks of ``over`` in place and
+    return them: "world" (all ranks: sums over edges), "obs" (the ranks that
+    hold the same points: sums over points) or "pt" (the ranks with the same
+    edge split). Without a communicator the tensors are returned as they
+    are."""
+    if comm is not None:
+        comm.sum(over, *xs)
+    return xs[0] if len(xs) == 1 else xs
+
+
+def schur_rows(comm):
+    """The points whose Schur products this rank adds (``comm.pt_rows``, a
+    slice of its points; all of them without a communicator)."""
+    return slice(None) if comm is None else comm.pt_rows
+
+
 def bundle_adjust(
     prob: BAProblem,
     n_iters: int = 10,
@@ -148,6 +171,7 @@ def bundle_adjust(
     rel_tol: float = 0.0,
     on_device: bool = False,
     cam_model: str = "pinhole",
+    comm=None,
 ) -> BAResult:
     """Run up to ``n_iters`` LM iterations of full BA on the problem
     (``cam_model``: the projection of its rows, pinhole | kb8).
@@ -158,7 +182,13 @@ def bundle_adjust(
     instead of leaving the loop on the host (see the module docstring);
     the results are the same to the bit. A Cholesky that fails (an
     indefinite Schur matrix) gives NaN, as ``cho_factor`` does in the JAX
-    package: the step's cost is NaN and the step is rejected."""
+    package: the step's cost is NaN and the step is rejected.
+
+    ``comm``: this rank's share of a sharded problem (see the module
+    docstring): the camera blocks, the Schur products, the cost and the
+    inlier count are summed over all ranks, the point blocks over the ranks
+    that hold the same points; each rank adds the Schur products of its
+    ``comm.pt_rows`` and back-substitutes all of its points."""
     K = prob.R.shape[0]
     P = prob.X.shape[0]
     dtype, dev = prob.R.dtype, prob.R.device
@@ -179,8 +209,8 @@ def bundle_adjust(
     def cost_of(R, t, X):
         chi2 = chi2_of(R, t, X)
         if use_robust:
-            return _robust_cost(chi2, prob.edge_valid, delta2)
-        return torch.sum(torch.where(prob.edge_valid, chi2, zero))
+            return reduce(comm, "world", _robust_cost(chi2, prob.edge_valid, delta2))
+        return reduce(comm, "world", torch.sum(torch.where(prob.edge_valid, chi2, zero)))
 
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -212,6 +242,8 @@ def bundle_adjust(
         Wcp = torch.zeros((K * P, 6, 3), dtype=dtype, device=dev).index_add_(
             0, wcp_row, JcW.transpose(1, 2) @ Jp
         ).reshape(K, P, 6, 3)
+        reduce(comm, "world", Hcc, gc)
+        reduce(comm, "obs", Hpp, gp, Wcp)
 
         # Damping (Marquardt: scale the diagonals).
         Hcc_d = Hcc + (lam * torch.diagonal(Hcc, dim1=-2, dim2=-1) + 1e-6)[..., :, None] * eye6
@@ -219,10 +251,13 @@ def bundle_adjust(
         Hpp_inv = inv3x3(Hpp_d)  # [P,3,3]
 
         # Schur reduction onto the cameras.
-        Y = torch.einsum("kpab,pbc->kpac", Wcp, Hpp_inv)  # [K,P,6,3]
-        S = -torch.einsum("kpac,lpbc->klab", Y, Wcp)  # [K,K,6,6]
+        rows = schur_rows(comm)
+        Y = torch.einsum("kpab,pbc->kpac", Wcp[:, rows], Hpp_inv[rows])  # [K,P,6,3]
+        S = -torch.einsum("kpac,lpbc->klab", Y, Wcp[:, rows])  # [K,K,6,6]
+        Yg = torch.einsum("kpab,pb->ka", Y, gp[rows])
+        reduce(comm, "world", S, Yg)
         S[diag, diag] += Hcc_d
-        rhs = gc - torch.einsum("kpab,pb->ka", Y, gp)  # [K,6]
+        rhs = gc - Yg  # [K,6]
 
         # Fixed / invalid cameras: identity rows and columns, zero rhs.
         S = S * free[:, None, None, None] * free[None, :, None, None]
@@ -281,5 +316,5 @@ def bundle_adjust(
     inlier = prob.edge_valid & (chi2 <= delta2)
     return BAResult(
         R=R, t=t, X=X, chi2=chi2, inlier=inlier, cost=cost,
-        n_inliers=torch.sum(inlier, dtype=torch.int32), iters=iters,
+        n_inliers=reduce(comm, "world", torch.sum(inlier, dtype=torch.int32)), iters=iters,
     )

@@ -15,6 +15,12 @@ loop of ``ba.bundle_adjust``): a solve reads nothing back to the host,
 and on the card it is one replay of a CUDA graph (``graphs.replay``).
 Scatter-adds sum in an order of their own, so results agree with the JAX
 package's to float32 round-off, not to the bit.
+
+With ``comm`` (a sharded problem, see ``ba.bundle_adjust``) the camera
+sums of every product, the cost and the inlier count are summed over all
+ranks and the point sums over the ranks that hold the same points; the CG
+vectors are camera vectors, the same on every rank. Such a solve runs
+eagerly: its collectives are not captured in a graph.
 """
 
 from __future__ import annotations
@@ -33,16 +39,20 @@ def bundle_adjust_pcg(
     use_robust: bool = True,
     lam0: float = 1e-3,
     cam_model: str = "pinhole",
+    comm=None,
 ) -> BAResult:
     """LM bundle adjustment with matrix-free Schur-PCG camera solves, the
     contract of ``ba.bundle_adjust`` with all ``n_iters`` iterations run.
-    ``cam_model``: the projection of the rows (pinhole | kb8)."""
+    ``cam_model``: the projection of the rows (pinhole | kb8); ``comm``: see
+    the module docstring."""
     cameras.check_model(cam_model)
+    if comm is not None:
+        return _solve(prob, n_iters, n_cg, chi2_th, use_robust, lam0, cam_model, comm)
     return graphs.replay(_solve, prob, n_iters, n_cg, chi2_th, use_robust, lam0, cam_model)
 
 
 def _solve(prob: BAProblem, n_iters: int, n_cg: int, chi2_th: float, use_robust: bool,
-           lam0: float, cam_model: str = "pinhole") -> BAResult:
+           lam0: float, cam_model: str = "pinhole", comm=None) -> BAResult:
     K, P = prob.R.shape[0], prob.X.shape[0]
     dtype, dev = prob.R.dtype, prob.R.device
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
@@ -57,14 +67,16 @@ def _solve(prob: BAProblem, n_iters: int, n_cg: int, chi2_th: float, use_robust:
     def cost_of(R, t, X):
         chi2 = chi2_of(R, t, X)
         if use_robust:
-            return ba._robust_cost(chi2, prob.edge_valid, delta2)
-        return torch.sum(torch.where(prob.edge_valid, chi2, zero))
+            return ba.reduce(comm, "world", ba._robust_cost(chi2, prob.edge_valid, delta2))
+        return ba.reduce(comm, "world", torch.sum(torch.where(prob.edge_valid, chi2, zero)))
 
     def to_cams(v):
-        return torch.zeros((K,) + v.shape[1:], dtype=dtype, device=dev).index_add_(0, cam, v)
+        out = torch.zeros((K,) + v.shape[1:], dtype=dtype, device=dev).index_add_(0, cam, v)
+        return ba.reduce(comm, "world", out)
 
     def to_pts(v):
-        return torch.zeros((P,) + v.shape[1:], dtype=dtype, device=dev).index_add_(0, pt, v)
+        out = torch.zeros((P,) + v.shape[1:], dtype=dtype, device=dev).index_add_(0, pt, v)
+        return ba.reduce(comm, "obs", out)
 
     free = (prob.cam_valid & ~prob.cam_fixed).to(dtype)  # [K]
     ptm = prob.pt_valid.to(dtype)  # [P]
@@ -151,5 +163,5 @@ def _solve(prob: BAProblem, n_iters: int, n_cg: int, chi2_th: float, use_robust:
     inlier = prob.edge_valid & (chi2 <= delta2)
     return BAResult(
         R=R, t=t, X=X, chi2=chi2, inlier=inlier, cost=cost,
-        n_inliers=torch.sum(inlier, dtype=torch.int32), iters=n_iters,
+        n_inliers=ba.reduce(comm, "world", torch.sum(inlier, dtype=torch.int32)), iters=n_iters,
     )

@@ -20,6 +20,10 @@ JAX package's ``jacfwd``.
 
 On the card a solve is one replay of a CUDA graph of all its iterations
 (``graphs.replay``); off the card the same function runs eagerly.
+
+With ``comm`` (``parallel.dist_ba``) the 7-dof solve runs over edge tables
+split across processes: J^T J, J^T r and the cost are summed over all ranks
+and every rank solves the same dense system. Such a solve runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from torch.func import jvp, vmap
 
 from . import graphs, lie, linalg
+from .ba import reduce
 
 
 class PGOProblem(NamedTuple):
@@ -74,9 +79,10 @@ def _res_and_jacs(res_fn, E: int, D: int, like: torch.Tensor):
     return r, J[..., :D], J[..., D:]
 
 
-def _lm_system(prob: PGOProblem, r, Ji, Jj, lam, free, w_e, D: int):
+def _lm_system(prob: PGOProblem, r, Ji, Jj, lam, free, w_e, D: int, comm=None):
     """The damped normal equations of one LM step, fixed keyframes pinned:
-    returns the step [K, D] (zero on fixed keyframes)."""
+    returns the step [K, D] (zero on fixed keyframes). With ``comm`` the
+    edge sums are summed over all ranks first."""
     K = prob.R.shape[0]
     ei, ej = prob.e_i.long(), prob.e_j.long()
     JiW = Ji * w_e[:, None, None]
@@ -90,6 +96,7 @@ def _lm_system(prob: PGOProblem, r, Ji, Jj, lam, free, w_e, D: int):
     g = torch.zeros((K, D), dtype=r.dtype, device=r.device)
     g.index_add_(0, ei, -torch.einsum("eia,ei->ea", JiW, r))
     g.index_add_(0, ej, -torch.einsum("eia,ei->ea", JjW, r))
+    reduce(comm, "world", H, g)
     eye = torch.eye(D, dtype=r.dtype, device=r.device)
     k = torch.arange(K, device=r.device)
     diagH = torch.diagonal(H[k, k], dim1=-2, dim2=-1)  # [K, D]
@@ -108,12 +115,16 @@ def _accept(better, new, old):
     return torch.where(better, new, old)
 
 
-def optimize_pose_graph(prob: PGOProblem, n_iters: int = 20, lam0: float = 1e-4) -> PGOResult:
-    """7-dof Sim(3) pose-graph LM over ``n_iters`` fixed iterations."""
+def optimize_pose_graph(prob: PGOProblem, n_iters: int = 20, lam0: float = 1e-4,
+                        comm=None) -> PGOResult:
+    """7-dof Sim(3) pose-graph LM over ``n_iters`` fixed iterations;
+    ``comm``: this rank's share of the edges (module docstring)."""
+    if comm is not None:
+        return _solve_7dof(prob, n_iters, lam0, comm)
     return graphs.replay(_solve_7dof, prob, n_iters, lam0)
 
 
-def _solve_7dof(prob: PGOProblem, n_iters: int, lam0: float) -> PGOResult:
+def _solve_7dof(prob: PGOProblem, n_iters: int, lam0: float, comm=None) -> PGOResult:
     dtype, dev = prob.R.dtype, prob.R.device
     E = prob.e_i.shape[0]
     ei, ej = prob.e_i.long(), prob.e_j.long()
@@ -128,14 +139,14 @@ def _solve_7dof(prob: PGOProblem, n_iters: int, lam0: float) -> PGOResult:
     def cost_of(R, t, s):
         z = torch.zeros((E, 7), dtype=dtype, device=dev)
         r = residual_fn(R, t, s)(z, z)
-        return torch.sum(w_e * torch.sum(r * r, -1))
+        return reduce(comm, "world", torch.sum(w_e * torch.sum(r * r, -1)))
 
     R, t, s = prob.R, prob.t, prob.s
     lam = torch.full((), lam0, dtype=dtype, device=dev)
     cost = cost_of(R, t, s)
     for _ in range(n_iters):
         r, Ji, Jj = _res_and_jacs(residual_fn(R, t, s), E, 7, R)
-        delta = _lm_system(prob, r, Ji, Jj, lam, free, w_e, 7)
+        delta = _lm_system(prob, r, Ji, Jj, lam, free, w_e, 7, comm)
         R2, t2, s2 = lie.sim3_mul(*lie.sim3_exp(delta), R, t, s)
         fb = free > 0
         R2 = torch.where(fb[:, None, None], lie.normalize_rotation(R2), R)

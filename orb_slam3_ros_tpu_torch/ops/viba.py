@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cameras, imu, lie, linalg, robust
-from .ba import inv3x3
+from .ba import inv3x3, reduce, schur_rows
 
 
 class VIStates(NamedTuple):
@@ -218,13 +218,19 @@ class VIBAGSResult(NamedTuple):
 
 
 def _vi_lm(
-    prob: VIBAProblem, Rwg0, free_g, n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0
+    prob: VIBAProblem, Rwg0, free_g, n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0,
+    comm=None,
 ):
     """The LM loop of both VI bundle adjustments: 15-dof body states, Schur-
     eliminated landmarks and a 3-dim border [dtheta_gx, dtheta_gy, dlog_s]
     (gravity direction about x/y, metric scale) whose free entries
     ``free_g`` selects. Returns (states, X, Rwg, s, lam, cost, chi2,
-    delta2)."""
+    delta2).
+
+    ``comm``: this rank's share of a sharded problem (``ba.bundle_adjust``):
+    the visual rows are summed as there; the states, the inertial chain and
+    the bias priors are the same on every rank, which each adds once after
+    the sums."""
     st = prob.states
     K = st.R_wb.shape[0]
     P = prob.X.shape[0]
@@ -271,7 +277,7 @@ def _vi_lm(
     def total_cost(st, X, Rwg, s):
         chi2 = visual_chi2(st, X)
         rho = _huber_rho(chi2, delta2) if use_robust else chi2
-        c_vis = torch.sum(rho * ev_w)
+        c_vis = reduce(comm, "world", torch.sum(rho * ev_w))
         r15 = inertial_res15(st, Rwg, s)
         c_in = torch.einsum("qi,qij,qj->", r15, infoW, r15)
         c_prior = bias_prior_g * torch.sum(st.bg * st.bg) + bias_prior_a * torch.sum(st.ba * st.ba)
@@ -325,6 +331,8 @@ def _vi_lm(
         Wcp = torch.zeros((K * P, 6, 3), dtype=dtype, device=dev).index_add_(
             0, wcp_row, JcW.transpose(1, 2) @ Jp
         ).reshape(K, P, 6, 3)
+        reduce(comm, "world", Hcc, gc)
+        reduce(comm, "obs", Hpp, gp, Wcp)
 
         # ---- inertial + bias-walk edges: 15 rows over 33 columns ----
         b_i = torch.cat([st.bg[ii], st.ba[ii]], dim=-1)
@@ -367,9 +375,13 @@ def _vi_lm(
         Hgg_d = Hgg + (lam * torch.diagonal(Hgg) + 1e-6) * eyeG
         Hpp_d = Hpp + (lam * torch.diagonal(Hpp, dim1=-2, dim2=-1) + 1e-6)[..., :, None] * eye3
         Hpp_inv = inv3x3(Hpp_d)
-        Y = torch.einsum("kpab,pbc->kpac", Wcp, Hpp_inv)  # [K,P,6,3]
-        H[:, :, :6, :6] -= torch.einsum("kpac,lpbc->klab", Y, Wcp)
-        g[:, :6] -= torch.einsum("kpab,pb->ka", Y, gp)
+        rows = schur_rows(comm)
+        Y = torch.einsum("kpab,pbc->kpac", Wcp[:, rows], Hpp_inv[rows])  # [K,P,6,3]
+        YW = torch.einsum("kpac,lpbc->klab", Y, Wcp[:, rows])
+        Yg = torch.einsum("kpab,pb->ka", Y, gp[rows])
+        reduce(comm, "world", YW, Yg)
+        H[:, :, :6, :6] -= YW
+        g[:, :6] -= Yg
 
         # ---- the bordered system [KD+3, KD+3]; fixed / padded unknowns
         # become identity rows and columns with a zero right-hand side ----
@@ -432,15 +444,17 @@ def vi_bundle_adjust(
     bias_prior_g: float = 0.0,
     bias_prior_a: float = 0.0,
     lam0: float | torch.Tensor = 1e-3,
+    comm=None,
 ) -> VIBAResult:
     """Joint visual-inertial LM with Schur-eliminated landmarks (the
     reference's ``LocalInertialBA`` / ``FullInertialBA``): ``n_iters``
     iterations, no early stop, no host read. ``bias_prior_*``: zero-mean
-    bias priors (the priorG / priorA schedule during IMU init)."""
+    bias priors (the priorG / priorA schedule during IMU init). ``comm``:
+    this rank's share of a sharded problem (``_vi_lm``)."""
     dev = prob.X.device
     st, X, _, _, lam, cost, chi2, inlier = _vi_lm(
         prob, torch.eye(3, dtype=prob.X.dtype, device=dev), torch.zeros(3, device=dev),
-        n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0,
+        n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0, comm,
     )
     return VIBAResult(states=st, X=X, cost=cost, chi2_visual=chi2, inlier=inlier, lam=lam)
 

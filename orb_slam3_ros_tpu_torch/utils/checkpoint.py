@@ -165,6 +165,7 @@ def load_atlas(path: str, slam) -> None:
     _check_capacities(m, slam)
     c = manifest["counters"]
     slam.map = m
+    slam._sync_replica()
     slam.n_kf = c["n_kf"]
     slam.n_pts = c["n_pts"]
     slam.frame_id = c["frame_id"]
@@ -233,6 +234,7 @@ def load_system(path: str, slam) -> None:
     m, counters = load_map(path, device=slam.device)
     _check_capacities(m, slam)
     slam.map = m
+    slam._sync_replica()
     slam.n_kf = counters["n_kf"]
     slam.n_pts = counters["n_pts"]
     slam.frame_id = counters["frame_id"]

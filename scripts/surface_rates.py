@@ -15,10 +15,13 @@ under the same instrumentation (``chip_smoke.SurfaceCounters``):
           (in a second process)
 
 and prints each run's frames/s over the whole run, the steady rate that
-phase 7 reports and the median frame rate phase 17 (b) is held to; per
-kind the mean, min and max; and for each ``server`` or ``socket`` run its
-ratio to the mean of the ``feed`` runs just before and after it, as phase
-17 holds (b). First it measures how many lines of (b)'s event mix a
+phase 7 reports, the median frame rate, the host's speed over the run's
+frames (``chip_smoke.HostProbe``, a second process) and the median rate
+over it, which phase 17 (b) is held to, and the CPU seconds of the run's
+process, of its SLAM thread and of the clients' process; per kind the
+mean, min and max;
+and for each ``server`` or ``socket`` run its ratio to the mean of the
+``feed`` runs just before and after it, as phase 17 holds (b). First it measures how many lines of (b)'s event mix a
 subscriber that never reads takes before the server drops it. Long output
 goes to ``chiprun_out/surface_rates.json``.
 
@@ -29,6 +32,7 @@ Usage (on the card, from the repo root):
 from __future__ import annotations
 
 import argparse
+import resource
 import json
 import os
 import platform
@@ -77,6 +81,15 @@ def stuck_capacity() -> dict:
     return out
 
 
+def _cpu_of(ru) -> float:
+    return ru.ru_utime + ru.ru_stime
+
+
+def _cpu(who) -> float:
+    """User + system CPU seconds of ``who`` (``resource.RUSAGE_*``)."""
+    return _cpu_of(resource.getrusage(who))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=3)
@@ -91,6 +104,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card)
+    print(f"host: {os.cpu_count()} CPUs, torch threads {torch.get_num_threads()}")
     wmem = open("/proc/sys/net/core/wmem_default").read().strip() \
         if os.path.exists("/proc/sys/net/core/wmem_default") else "unreadable"
     caps = stuck_capacity()
@@ -101,32 +115,41 @@ def main(argv=None) -> int:
     runs = []
     root = tempfile.mkdtemp(prefix="surface-rates-")
     try:
-        for r in range(args.rounds):
-            for k, kind in enumerate(kinds):
-                tmp = os.path.join(root, f"{kind}{r}-{k}")
-                os.makedirs(tmp)
-                argv_k = cs.surface_args(tmp, kind in ("server", "socket"))
-                if kind in ("plain", "stream"):
-                    argv_k.remove("--native-feed")
-                if kind == "plain":
-                    i = argv_k.index("--stream")
-                    del argv_k[i:i + 4]  # --stream FILE --verbose 1
-                slam, _, summary, cnt, box = cs.surface_replay(project_match, tmp,
-                                                               kind == "socket", argv_k)
-                cnt.check_launches(kind)
-                run = dict(round=r, kind=kind, fps=summary["fps"], steady_fps=cnt.steady_fps(),
-                           median_fps=cnt.median_fps(), tracked=summary["tracked"],
-                           keyframes=slam.n_kf,
-                           dropped=summary.get("control", {}).get("dropped"),
-                           subscriber_frames=box.get("frame_events"),
-                           per_stage_ms=summary["per_stage_ms"])
-                runs.append(run)
-                print(json.dumps(run))
+        with cs.HostProbe(os.path.join(root, "probe.txt")) as probe:
+            for r in range(args.rounds):
+                for k, kind in enumerate(kinds):
+                    tmp = os.path.join(root, f"{kind}{r}-{k}")
+                    os.makedirs(tmp)
+                    argv_k = cs.surface_args(tmp, kind in ("server", "socket"))
+                    if kind in ("plain", "stream"):
+                        argv_k.remove("--native-feed")
+                    if kind == "plain":
+                        i = argv_k.index("--stream")
+                        del argv_k[i:i + 4]  # --stream FILE --verbose 1
+                    cpu0, thr0 = time.process_time(), time.thread_time()
+                    kids0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+                    slam, _, summary, cnt, box = cs.surface_replay(project_match, tmp,
+                                                                   kind == "socket", argv_k)
+                    cnt.check_launches(kind)
+                    run = dict(round=r, kind=kind, fps=summary["fps"], steady_fps=cnt.steady_fps(),
+                               median_fps=cnt.median_fps(), tracked=summary["tracked"],
+                               keyframes=slam.n_kf,
+                               dropped=summary.get("control", {}).get("dropped"),
+                               subscriber_frames=box.get("frame_events"),
+                               per_stage_ms=summary["per_stage_ms"],
+                               cpu_s=time.process_time() - cpu0, wall_s=summary["wall_s"],
+                               slam_thread_cpu_s=time.thread_time() - thr0,
+                               clients_cpu_s=_cpu(resource.RUSAGE_CHILDREN) - _cpu_of(kids0),
+                               host_rate=probe.rate(*cnt.steady_window()))
+                    run["per_rate"] = run["median_fps"] / run["host_rate"] * 1e6
+                    print(json.dumps(run))
+                    run["frame_ms"] = cnt.steady_ms()  # the JSON file only
+                    runs.append(run)
     finally:
         shutil.rmtree(root)
     print(f"phase 7 (plain loop, no instrumentation): {mp['frames_per_s']:.3f} frames/s steady")
     for kind in dict.fromkeys(kinds):
-        for key in ("fps", "steady_fps", "median_fps"):
+        for key in ("fps", "steady_fps", "median_fps", "host_rate", "per_rate"):
             v = [x[key] for x in runs if x["kind"] == kind]
             print(f"{kind:7s} {key:10s} mean {sum(v) / len(v):.3f} min {min(v):.3f} "
                   f"max {max(v):.3f} over {len(v)}")
@@ -137,7 +160,7 @@ def main(argv=None) -> int:
         a1, a2 = runs[i - 1], runs[i + 1]
         if a1["kind"] != "feed" or a2["kind"] != "feed":
             continue
-        for key in ("median_fps", "fps"):
+        for key in ("median_fps", "per_rate", "fps"):
             ratios.setdefault(f"{x['kind']} {key}", []).append(x[key] / ((a1[key] + a2[key]) / 2))
     for name, v in ratios.items():
         print(f"{name} / mean of the feed runs around it, by round: {[round(y, 4) for y in v]}, "

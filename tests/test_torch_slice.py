@@ -80,9 +80,13 @@ def test_unported_states_raise():
     # against, and the frame stays LOST.
     slam.state = tsys.LOST
     assert slam.process_frame(img, 0.1) is None and slam.state == tsys.LOST
-    for kw in ({"pipelined": True}, {"devices": (0, 1)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, "pipelined": True})
+    # The test keeps its name from when ``devices`` raised too: the two-device
+    # split is ported now, and ``devices`` builds a split system (its tests:
+    # tests/test_torch_two_device*.py).
+    split = tsys.MonoSlam(cam_params=cam, devices=("cpu", "cpu"), **SLAM_KW)
+    assert split._tmap() is not split.map and split.track_device == split.device
     # the observation hooks are ported (tests/test_torch_events.py)
     assert tsys.MonoSlam(cam_params=cam, device="cpu", points_every=1, **SLAM_KW).points_every == 1
     # the Atlas is ported (tests/test_torch_atlas.py)
