@@ -15,6 +15,12 @@ transformed and copied into the older one's free slots. A system split over two
 devices keeps every active map on its map device and refreshes tracking's
 replica after an archive, a switch or a weld.
 
+Every projection goes through the system's camera (``slam.cam_model``,
+which an archived map keeps as ``ArchivedMap.cam_model``): tracking against
+an archived map, the weld's Sim(3) solves and SearchBySim3, the welding
+VI-BA. The JAX package projects the weld's through the pinhole model
+whatever the camera (atlas.py:342, ROADMAP "Known faults").
+
 Three faults of the JAX package are not copied (each pinned by a test in
 ``tests/test_torch_atlas.py``):
 
@@ -57,6 +63,8 @@ class ArchivedMap:
     # Inertial side-state (None for visual maps): per-keyframe IMU blocks,
     # initialization flags, chain-break set (see InertialSlam).
     imu: Optional[dict] = None
+    # the camera its keyframes were taken with (the system's ``cam_model``)
+    cam_model: str = "pinhole"
 
 
 @dataclass
@@ -92,7 +100,7 @@ class Atlas:
                 )
             self.maps.append(ArchivedMap(
                 m=MapState(*(x.clone() for x in slam.map)), n_kf=slam.n_kf, n_pts=slam.n_pts,
-                sigs=sigs, imu=imu,
+                sigs=sigs, imu=imu, cam_model=slam.cam_model,
             ))
         if inertial:
             # A fresh map starts un-initialized on a fresh IMU chain; the
@@ -143,7 +151,7 @@ class Atlas:
                     continue
                 res = tracking.track_against_map(
                     am.m, feats, am.m.kf_R[int(c)], am.m.kf_t[int(c)], slam.cam_params,
-                    slam.width, slam.height,
+                    slam.width, slam.height, cam_model=am.cam_model,
                 )
                 buf = torch.cat([res.n_inliers.reshape(1).to(res.t.dtype), res.R.reshape(9),
                                  res.t]).cpu().numpy()
@@ -198,9 +206,12 @@ class Atlas:
         welding VI-BA runs over the newest window (MergeLocal2 /
         MergeInertialBA, LoopClosing.cc:3114, Optimizer.cc:4093). The
         current pose and velocity move with the transform. The RANSAC
-        hypotheses are drawn from ``slam.generator``."""
+        hypotheses are drawn from ``slam.generator``. The Sim(3) solves, the
+        SearchBySim3 and the welding VI-BA project through the system's camera
+        (``slam.cam_model``)."""
         slam.flush()
         gen = slam.generator
+        cam = slam.cam_model
         am = self.maps[archived_idx]
         cur = slam.map
         inertial = hasattr(slam, "kf_imu_acc")
@@ -220,15 +231,15 @@ class Atlas:
             if int(pr.ok.sum()) < 8:
                 continue
             cand = sim3solver.solve_sim3(pr.X1, pr.X2, pr.ok, slam.cam_params, gen, min_inliers=8,
-                                         fix_scale=both_metric)
+                                         fix_scale=both_metric, cam_model=cam)
             if not bool(cand.ok):
                 continue
             self.grow_searches += 1
             gr = search_by_sim3(cur, kc, am.m, ka, cand.s, cand.R, cand.t, slam.cam_params,
-                                slam.width, slam.height, MERGE_RADIUS, "merge")
+                                slam.width, slam.height, MERGE_RADIUS, "merge", cam)
             ref = sim3solver.refine_sim3(
                 gr.X1, gr.X2, gr.ok, slam.cam_params, cand.s, cand.R, cand.t, fix_scale=both_metric,
-                min_inliers=15, sigma2_1=gr.sig1, sigma2_2=gr.sig2,
+                min_inliers=15, sigma2_1=gr.sig1, sigma2_2=gr.sig2, cam_model=cam,
             )
             if bool(ref.ok):
                 res = ref

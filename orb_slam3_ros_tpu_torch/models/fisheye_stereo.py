@@ -18,8 +18,11 @@ cross-camera triangulation: the map starts metric at the first frame with
 60 cross points, and every keyframe admits its cross points as landmarks.
 The cross points' depths also become a ``StereoMatch`` with a virtual u_r
 = u - bf / z (the RGB-D mechanism, Frame.cc:984), which the keyframes and
-the inertial keyframe work read; under KB8 every BA zeroes the u_r rows,
-as the JAX package does (ROADMAP "Known faults").
+the inertial keyframe work read; under KB8 every BA and VI-BA zeroes the
+u_r rows (the relation u_r = u - bf / z holds only for a rectified pair;
+the JAX package's VI-BA keeps them, projected through the pinhole model:
+ROADMAP "Known faults"), so the right view constrains the map through the
+cross-camera landmarks and the two-camera pose refinement.
 
 Frames run one at a time and eagerly, as RGB-D does (the chunk gate does
 not admit a system with bf > 0 and no stereo chunk branch):
@@ -217,10 +220,10 @@ class FisheyeStereoInertialSlam(InertialSlam, FisheyeStereoSlam):
     prediction, staged initialization (with the scale fixed: the
     cross-camera triangulation observes it) and the VI keyframe BA;
     ``FisheyeStereoSlam`` the two-camera frames, the instant metric
-    initialization and the cross-camera landmarks. The KB8 camera (the
-    default of ``FisheyeStereoSlam``) raises here, as it does for every
-    inertial system (ROADMAP "Known faults"): pass
-    ``cam_model="pinhole"``."""
+    initialization and the cross-camera landmarks. It runs at
+    ``FisheyeStereoSlam``'s default camera, KB8, whose model reaches the
+    15-dof refinement and every VI-BA (``InertialSlam``); ``cam_model=
+    "pinhole"`` gives the JAX package's tested configuration."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)

@@ -69,10 +69,16 @@ initialization stages and the global BA run on the map device, and the
 replica is refreshed after each keyframe and at once after an
 initialization stage, a fold-in or a reset. No VI chunk runs while split.
 
-Not ported (it raises, naming ROADMAP "Known faults"): the KB8 camera
-(``cam_model="kb8"``), whose visual rows the JAX package's VI-BA and VI
-tracking project through the pinhole model. ``cam_model`` reaches the
-keyframe's triangulation and fusion.
+``cam_model="kb8"`` runs the whole pipeline on raw fisheye frames: the
+camera model reaches VI tracking, the 15-dof refinement
+(``viba.pose_inertial_optimization``), the keyframe's triangulation and
+fusion, every VI-BA (the temporal window, the initialization stages' full
+inertial BAs, the global BA, the Atlas's welding BA: ``viba``'s
+``cam_model``) and the VI chunk's graphs
+(``VIChunkConfig.cam_model``). The JAX package threads the camera into VI
+tracking but projects every VI-BA row and the 15-dof refinement's rows
+through the pinhole model whatever the camera (ROADMAP "Known faults");
+the port projects them through the system's camera.
 """
 
 from __future__ import annotations
@@ -120,7 +126,7 @@ def _vi_kf_work(
         m, window_ids, fixed, imu_blocks[..., 0:3], imu_blocks[..., 3:6], imu_blocks[..., 6],
         edge_ok, calib, cam_params, bf=bf,
     )
-    res = viba.vi_bundle_adjust(prob, n_iters=n_iters)
+    res = viba.vi_bundle_adjust(prob, n_iters=n_iters, cam_model=cam_model)
     m = local_mapping.apply_vi_ba(m, window_ids, res, calib)
     m = map_updates.cull_points(m, kf_id + 1)
     if do_stats:
@@ -138,11 +144,13 @@ def _pack_kf_state(m, kf: int) -> torch.Tensor:
 def _vi_refine(
     m, feats, feat_pt, R_cw0, t_cw0, v0, bg0, ba0,
     R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, cam_params, R_bc, t_bc,
+    cam_model="pinhole",
 ):
     """Gather the tracker's per-feature landmark bindings into visual edges
     and run the 15-dof VI motion-only solve (the per-frame
-    PoseInertialOptimizationLast* stage). ``anc_Sigma``: the anchor state's
-    posterior covariance (zeros = exact anchor)."""
+    PoseInertialOptimizationLast* stage) under ``cam_model``.
+    ``anc_Sigma``: the anchor state's posterior covariance (zeros = exact
+    anchor)."""
     pt = torch.clamp(feat_pt, 0, m.P - 1).long()
     valid = (feat_pt >= 0) & m.pt_valid[pt] & feats.valid
     inv_sigma2 = 1.2 ** (-2.0 * feats.level.to(torch.float32))
@@ -150,6 +158,7 @@ def _vi_refine(
     res = viba.pose_inertial_optimization(
         R_wb0, p_wb0, v0, bg0, ba0, m.pt_X[pt], feats.xy, inv_sigma2, valid,
         R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, cam_params, R_bc, t_bc,
+        cam_model=cam_model,
     )
     R_cw, t_cw = viba.cam_from_body(res.R_wb, res.p_wb, R_bc, t_bc)
     return res, R_cw, t_cw
@@ -172,12 +181,6 @@ class InertialSlam(MonoSlam):
         **kw,
     ):
         super().__init__(*args, **kw)
-        if self.cam_model == "kb8":
-            raise NotImplementedError(
-                "the inertial pipelines with the KB8 camera: the JAX package's visual-inertial "
-                "BA and VI tracking project every visual row through the pinhole model "
-                "(ROADMAP \"Known faults\")"
-            )
         # Per-frame VI motion-only optimization once the IMU is initialized
         # and the RECENTLY_LOST dead-reckoning window it enables.
         self.vi_tracking = vi_tracking
@@ -309,7 +312,8 @@ class InertialSlam(MonoSlam):
         if g.get("kind") != "vi":
             return super()._dispatch_gba_chunk()
         it = min(g["chunk"], g["target"] - g["done"])
-        res = viba.vi_bundle_adjust(g["prob"], n_iters=it, lam0=g["lam"])
+        res = viba.vi_bundle_adjust(g["prob"], n_iters=it, lam0=g["lam"],
+                                    cam_model=self.cam_model)
         g["prob"] = g["prob"]._replace(states=res.states, X=res.X)
         g["lam"] = res.lam
         g["res"] = res
@@ -474,12 +478,12 @@ class InertialSlam(MonoSlam):
             self._replica.note_frame()
         res = tracking.track_against_map(
             tm, feats, R_pred, t_pred, self._track_cam, self.width, self.height,
-            schedule=self._current_schedule(), track_cap=self.track_cap,
+            schedule=self._current_schedule(), track_cap=self.track_cap, cam_model=self.cam_model,
         )
         vires, R_cw, t_cw = _vi_refine(
             tm, feats, res.feat_pt, res.R, res.t, v_anc, bg_anc, ba_anc,
             R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self._track_cam,
-            cal.R_bc, cal.t_bc,
+            cal.R_bc, cal.t_bc, self.cam_model,
         )
         # The frame's one host read.
         buf = torch.cat([
@@ -510,7 +514,7 @@ class InertialSlam(MonoSlam):
             self.map, feats, res.feat_pt, res.R, res.t,
             torch.as_tensor(self.v_cur, dtype=torch.float32, device=dev), bg_anc, ba_anc,
             R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self.cam_params,
-            self.calib.R_bc, self.calib.t_bc,
+            self.calib.R_bc, self.calib.t_bc, self.cam_model,
         )
         buf = torch.cat([
             vires.n_inliers.reshape(1).to(torch.float32), R_cw.reshape(9), t_cw,
@@ -842,6 +846,7 @@ class InertialSlam(MonoSlam):
         res = viba.vi_bundle_adjust_gs(
             prob, torch.eye(3, dtype=torch.float32, device=self.device), n_iters=n_iters,
             bias_prior_g=bias_prior_g, bias_prior_a=bias_prior_a, fix_scale=self.imu_fix_scale,
+            cam_model=self.cam_model,
         )
         self.map = local_mapping.apply_vi_ba(self.map, window_ids, res, self.calib)
         buf = torch.cat([res.scale.reshape(1), res.Rwg.reshape(9)]).cpu().numpy()
@@ -895,7 +900,7 @@ class InertialSlam(MonoSlam):
             return
         self._vi_dev_valid = False  # a host-side VI solve: the chunk state is stale
         prob, window_ids = built
-        res = viba.vi_bundle_adjust(prob, n_iters=n_iters)
+        res = viba.vi_bundle_adjust(prob, n_iters=n_iters, cam_model=self.cam_model)
         self.map = local_mapping.apply_vi_ba(self.map, window_ids, res, self.calib)
         # Sync the host's bias / velocity and the ref-pose cache with the
         # newest keyframe (one host read). The tracker's current pose stays.
@@ -940,7 +945,7 @@ class InertialSlam(MonoSlam):
             imu_cap_kf=self.imu_cap_kf, track_cap=self.track_cap, bf=float(self.bf),
             baseline=float(getattr(self, "baseline", 0.0)),
             max_depth=float(getattr(self, "max_depth", 0.0)), stereo=self._chunk_stereo(),
-            fx=float(getattr(self, "fx", 0.0)),
+            fx=float(getattr(self, "fx", 0.0)), cam_model=self.cam_model,
         )
 
     def _fresh_vi_dev_state(self) -> vi_device_loop.VIDevState:

@@ -26,6 +26,12 @@ pose-graph problem before and after the correction
 (``closure_<kf>_pre`` / ``_post``, ``utils/optdump.py``'s format), which
 ``reoptimize`` re-solves offline.
 
+Every projection goes through the system's camera (``slam.cam_model``:
+the Sim(3) solver's inlier test, SearchBySim3 before K1's "sim3" launch,
+and the global BA), as the reference projects through the keyframe's
+camera object; the JAX package projects them through the pinhole model
+whatever the camera (loop_closing.py:105, ROADMAP "Known faults").
+
 A known fault of the JAX package is not copied: its batched verification
 (``_verify_pending_scan``, loop_closing.py:600) never resets the miss count
 on a hit; here, as in its sequential path and LoopClosing.cc:1415, a hit
@@ -94,17 +100,19 @@ def match_points_across(m1: MapState, kf1: int, m2: MapState, kf2: int) -> Sim3P
 
 
 def search_by_sim3(m1: MapState, kf1: int, m2: MapState, kf2: int, s21, R21, t21, cam_params,
-                   width: int, height: int, radius: float, site: str) -> Sim3Pairs:
+                   width: int, height: int, radius: float, site: str,
+                   cam_model: str = "pinhole") -> Sim3Pairs:
     """Widen the pairs under a Sim(3) hypothesis (``ORBmatcher::SearchBySim3``,
     ORBmatcher.cc:1457): map 1 keyframe kf1's landmarks projected through
-    S21 into map 2 keyframe kf2's image and matched against its
-    landmark-bound features within ``radius`` * 1.2^level, TH_HIGH, no
-    ratio test. One K1 search at launch site ``site``, P = N."""
+    S21 into map 2 keyframe kf2's image, through its camera ``cam_model``,
+    and matched against its landmark-bound features within ``radius`` *
+    1.2^level, TH_HIGH, no ratio test. One K1 search at launch site
+    ``site``, P = N."""
     pt1 = m1.kf_obs[kf1]
     p1c = torch.clamp(pt1, 0, m1.P - 1).long()
     X1 = _in_cam(m1, kf1, m1.pt_X[p1c])
     X1in2 = s21 * (X1 @ R21.T) + t21
-    uv2 = cameras.pinhole_project_nodist(cam_params, X1in2)
+    uv2 = cameras.project_model(cam_params, X1in2, cam_model)
     src_ok = ((pt1 >= 0) & m1.kf_feat_valid[kf1] & m1.pt_valid[p1c] & (X1in2[:, 2] > 0.05)
               & cameras.in_image(uv2, width, height, 2.0))
     f2 = kf_features(m2, kf2)
@@ -325,19 +333,20 @@ def _detect_candidates_fused(m: MapState, new_kf: int, n_kf: int, vocab, min_gap
 
 
 def _verify_pending_fused(m: MapState, new_kf: int, cand: int, S_cw, cam_params, width: int,
-                          height: int, min_inliers: int, fix_scale: bool = False):
+                          height: int, min_inliers: int, fix_scale: bool = False,
+                          cam_model: str = "pinhole"):
     """One guided verification of a pending hypothesis on ``new_kf``
     (DetectAndReffineSim3FromLastKF, LoopClosing.cc:1553): the stored
     world -> candidate Sim(3) propagated through the keyframe's pose, the
-    pairs grown by SearchBySim3, the Sim(3) refined. Returns (result, the
-    re-propagated S_cw, the pairs)."""
+    pairs grown by SearchBySim3, the Sim(3) refined, both through
+    ``cam_model``. Returns (result, the re-propagated S_cw, the pairs)."""
     one = torch.ones((), dtype=m.kf_t.dtype, device=m.kf_t.device)
     Rcj, tcj, scj = lie.sim3_mul(*S_cw, *lie.sim3_inv(m.kf_R[new_kf], m.kf_t[new_kf], one))
     pr = search_by_sim3(m, new_kf, m, cand, scj, Rcj, tcj, cam_params, width, height, SIM3_RADIUS,
-                        "sim3")
+                        "sim3", cam_model)
     res = sim3solver.refine_sim3(pr.X1, pr.X2, pr.ok, cam_params, scj, Rcj, tcj,
                                  min_inliers=min_inliers, sigma2_1=pr.sig1, sigma2_2=pr.sig2,
-                                 fix_scale=fix_scale)
+                                 fix_scale=fix_scale, cam_model=cam_model)
     S_cw_new = lie.sim3_mul(res.R, res.t, res.s, m.kf_R[new_kf], m.kf_t[new_kf], one)
     return res, S_cw_new, pr
 
@@ -355,7 +364,7 @@ class PendingScan(NamedTuple):
 
 def _verify_pending_scan(m: MapState, kfs, cand: int, S_cw, cam_params, width: int, height: int,
                          min_inliers: int, count0: int, miss0: int, required: int,
-                         fix_scale: bool = False) -> PendingScan:
+                         fix_scale: bool = False, cam_model: str = "pinhole") -> PendingScan:
     """Every pending-verification round for a chunk's new keyframes ``kfs``
     (host ints), each ``_verify_pending_fused``'s flow, with (S_cw, count,
     miss, state) carried on the device and one host read at the end. The
@@ -377,7 +386,7 @@ def _verify_pending_scan(m: MapState, kfs, cand: int, S_cw, cam_params, width: i
     for kf in kfs:
         run = state == 0
         res, S_new, pr = _verify_pending_fused(m, kf, cand, (R_cw, t_cw, s_cw), cam_params,
-                                               width, height, min_inliers, fix_scale)
+                                               width, height, min_inliers, fix_scale, cam_model)
         hit = run & res.ok
         miss_round = run & ~res.ok
         count = torch.where(hit, count + 1, count)
@@ -523,7 +532,7 @@ class LoopCloser:
     def _grow(self, m, kf1, kf2, s, R, t, slam) -> Sim3Pairs:
         self.sim3_searches += 1
         return search_by_sim3(m, kf1, m, kf2, s, R, t, slam.cam_params, slam.width, slam.height,
-                              SIM3_RADIUS, "sim3")
+                              SIM3_RADIUS, "sim3", slam.cam_model)
 
     def try_close(self, slam, new_kf: int, generator: torch.Generator | None = None) -> bool:
         """Attempt a closure on keyframe ``new_kf`` (NewDetectCommonRegions'
@@ -551,7 +560,7 @@ class LoopCloser:
         m = slam.map
         gen = slam.generator if generator is None else generator
         fs = bool(getattr(slam, "imu_initialized", False))
-        kw = dict(min_inliers=self.min_sim3_inliers, fix_scale=fs)
+        kw = dict(min_inliers=self.min_sim3_inliers, fix_scale=fs, cam_model=slam.cam_model)
         tried = set()
         for c in cand_ids:
             c = int(c)
@@ -630,7 +639,7 @@ class LoopCloser:
         scan = _verify_pending_scan(
             slam.map, new_kfs, p["cand"], p["S_cw"], slam.cam_params, slam.width, slam.height,
             self.min_sim3_inliers, p["count"], p["miss"], self.required_consistency,
-            fix_scale=bool(getattr(slam, "imu_initialized", False)),
+            fix_scale=bool(getattr(slam, "imu_initialized", False)), cam_model=slam.cam_model,
         )
         self.sim3_searches += len(new_kfs)
         if scan.state == 1:
@@ -654,6 +663,7 @@ class LoopCloser:
         res, S_cw_new, pr = _verify_pending_fused(
             slam.map, new_kf, p["cand"], p["S_cw"], slam.cam_params, slam.width, slam.height,
             self.min_sim3_inliers, fix_scale=bool(getattr(slam, "imu_initialized", False)),
+            cam_model=slam.cam_model,
         )
         self.sim3_searches += 1
         ok, n_inl = read_host(res.ok, res.n_inliers)

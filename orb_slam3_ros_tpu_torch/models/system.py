@@ -53,11 +53,14 @@ gives every BA the (u, v, u_r) rows of their keyframes, and
 ``cam_model="kb8"`` tracks raw Kannala-Brandt-8 fisheye frames natively,
 per frame and in chunks: KB8 projection in tracking, fusion and every BA,
 triangulation gated on bearings, two-view initialization and
-relocalization's PnP on fx-scaled bearings (a centred virtual pinhole).
-Loop closing and the Atlas project through the pinhole model in the JAX
-package whatever the camera (ROADMAP "Known faults"), so with KB8 they
-raise. The two-camera fisheye rig is ``fisheye_stereo``; the rectified
-route is ``ops.rectify`` into the pinhole system.
+relocalization's PnP on fx-scaled bearings (a centred virtual pinhole),
+and in loop closing and the Atlas: the Sim(3) solves, SearchBySim3 (K1's
+"sim3" and "merge" sites), tracking against an archived map and the
+global BA. The JAX package projects loop closing's and the Atlas's rows
+through the pinhole model whatever the camera (ROADMAP "Known faults");
+the port projects them through the system's camera. The two-camera
+fisheye rig is ``fisheye_stereo``; the rectified route is
+``ops.rectify`` into the pinhole system.
 
 ``on_frame`` (a callable, e.g. ``utils.obslog.FrameStreamer`` or a
 ``utils.control.ControlServer``'s hook) receives the JAX package's events
@@ -243,12 +246,6 @@ class MonoSlam:
                 "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
             )
         cameras.check_model(cam_model)
-        if cam_model == "kb8" and (enable_loop_closing or enable_atlas):
-            what = "loop closing" if enable_loop_closing else "the Atlas"
-            raise NotImplementedError(
-                f"{what} with the KB8 camera: the JAX package projects its "
-                "Sim(3) and weld searches through the pinhole model (ROADMAP \"Known faults\")"
-            )
         if devices is not None:
             track_device, map_device = (torch.device(d) for d in devices)
             if track_device.type != map_device.type or (

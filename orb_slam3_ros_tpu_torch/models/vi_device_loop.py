@@ -29,6 +29,12 @@ landmarks from stereo depth before triangulating, and its VI-BA builds
 (u, v, u_r) rows with ``bf``. The 15-dof refinement stays monocular, as on
 the per-frame path once the IMU gives metric scale.
 
+``VIChunkConfig.cam_model`` "kb8" runs the same graphs on raw fisheye
+frames: KB8 projection in tracking, the 15-dof refinement, admission,
+fusion and the window's VI-BA. A runner belongs to one system, so its
+graphs are captured per (tracking schedule, camera model), as the JAX
+package caches its chunk program per (schedule, cam_model).
+
 Not ported (ROADMAP "Do not port"): the tunnel's packing
 (``unpack_vi_dev_state``, ``pack_vi_chunk_result``) and the
 ``ORB_BATCH_EXTRACT`` branch.
@@ -104,6 +110,9 @@ class VIChunkConfig(NamedTuple):
     max_depth: float = 0.0
     stereo: bool = False
     fx: float = 0.0
+    # the camera (``device_loop.ChunkConfig.cam_model``): a runner, and so
+    # its graphs, belongs to one system and so to one camera model
+    cam_model: str = "pinhole"
 
 
 def need_keyframe(ok, n_vis, since, ref_inl, n_kf, *, K_cap, kf_every, kf_min_inliers,
@@ -162,12 +171,12 @@ def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
     feats, ur, depth = prep_frame(img, cfg)
     res = tracking.track_against_map(
         c.m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
-        schedule=schedule, track_cap=cfg.track_cap,
+        schedule=schedule, track_cap=cfg.track_cap, cam_model=cfg.cam_model,
     )
     vires, R_cw, t_cw = _vi_refine(
         c.m, feats, res.feat_pt, res.R, res.t, st.v, st.bg, st.ba,
         st.R_wb, st.p_wb, st.v, st.bg, st.ba, pre, st.Sigma, cfg.cam_params,
-        calib.R_bc, calib.t_bc,
+        calib.R_bc, calib.t_bc, cfg.cam_model,
     )
     n_vis = vires.n_inliers
     ok = c.alive & (n_vis >= 15)
@@ -239,7 +248,7 @@ def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     m, n_new = admit_keyframe_points(
         m, kf_id, fr["kf_R"], fr["kf_t"], fr["f_xy"], fr["f_valid"],
         fr["f_depth"] if cfg.stereo else None, c.n_pts, m.P - c.n_pts, cfg.cam_params,
-        cfg.max_depth,
+        cfg.max_depth, cfg.cam_model,
     )
     return c._replace(m=m, n_pts=c.n_pts + n_new)
 
@@ -247,7 +256,8 @@ def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
 def kf_fuse(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     """Keyframe segment 2: landmark fusion with the most covisible keyframes."""
     m, _ = map_updates.fuse_in_neighbors(
-        c.m, fr["kf_id"], cfg.cam_params, cfg.width, cfg.height, n_neighbors=cfg.fuse_neighbors
+        c.m, fr["kf_id"], cfg.cam_params, cfg.width, cfg.height, n_neighbors=cfg.fuse_neighbors,
+        cam_model=cfg.cam_model,
     )
     return c._replace(m=m)
 
@@ -268,7 +278,7 @@ def kf_ba(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
         m, ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
         st.kf_edge_ok.index_select(0, edge), cfg.calib, cfg.cam_params, bf=cfg.bf,
     )
-    res = viba.vi_bundle_adjust(prob, n_iters=cfg.local_ba_iters)
+    res = viba.vi_bundle_adjust(prob, n_iters=cfg.local_ba_iters, cam_model=cfg.cam_model)
     m = local_mapping.apply_vi_ba(m, ids, res, cfg.calib)
     return c._replace(m=map_updates.cull_points(m, last))
 

@@ -9,6 +9,11 @@ inliers. The draw is split from the solve: ``sample_sim3`` draws the
 hypotheses' samples with a ``torch.Generator``, ``solve_sim3_from_samples``
 solves from given samples (so a test can hand both packages the same
 draws), ``solve_sim3`` does both. Nothing reads back to the host.
+
+The two-way reprojections go through the keyframes' camera (``cam_model``:
+pinhole or KB8, as Sim3Solver projects through the keyframe's camera
+object); the JAX package projects them through the pinhole model whatever
+the camera (sim3solver.py:101-157, ROADMAP "Known faults").
 """
 
 from __future__ import annotations
@@ -69,16 +74,20 @@ def _gates(X1, sigma2_1, sigma2_2, chi2_th):
     return th1, th2, 1.0 / torch.sqrt((th1 / chi2_th) * (th2 / chi2_th))
 
 
-def _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2):
+def _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2,
+                     cam_model: str = "pinhole"):
     """Inliers [..., N] of S21 = (s, R, t) (batched over leading dims):
     X1 projected through S21 into image 2 and X2 through its inverse into
-    image 1, each within its gate."""
+    image 1, each within its gate, through the keyframes' camera
+    ``cam_model`` (Sim3Solver::Project uses the keyframe's camera
+    object)."""
+    def proj(X):
+        return cameras.project_model(cam_params, X, cam_model)
+
     X1in2 = s[..., None, None] * torch.einsum("...ij,nj->...ni", R, X1) + t[..., None, :]
-    e2 = torch.sum((cameras.pinhole_project_nodist(cam_params, X1in2)
-                    - cameras.pinhole_project_nodist(cam_params, X2)) ** 2, -1)
+    e2 = torch.sum((proj(X1in2) - proj(X2)) ** 2, -1)
     X2in1 = torch.einsum("...ji,...nj->...ni", R, X2 - t[..., None, :]) / s[..., None, None]
-    e1 = torch.sum((cameras.pinhole_project_nodist(cam_params, X2in1)
-                    - cameras.pinhole_project_nodist(cam_params, X1)) ** 2, -1)
+    e1 = torch.sum((proj(X2in1) - proj(X1)) ** 2, -1)
     return (e1 < th1) & (e2 < th2) & match_valid
 
 
@@ -103,21 +112,23 @@ def solve_sim3_from_samples(
     min_inliers: int = 20,
     sigma2_1: torch.Tensor | None = None,
     sigma2_2: torch.Tensor | None = None,
+    cam_model: str = "pinhole",
 ) -> Sim3Result:
     """S21 (X2 ~ s R X1 + t) from matched camera-frame points X1 / X2 [N, 3]
     by RANSAC over the hypotheses' samples [S, 3] (Sim3Solver::iterate +
     CheckInliers): every hypothesis's Umeyama fit and two-way inlier count
     at once, the most supported one refit on its inliers with information
-    weights, and its inliers counted again."""
+    weights, and its inliers counted again. ``cam_model``: the projection
+    of the inlier test (``_two_way_inliers``)."""
     th1, th2, info = _gates(X1, sigma2_1, sigma2_2, chi2_th)
     samples = samples.long()
     w3 = torch.ones(samples.shape, dtype=X1.dtype, device=X1.device)
     s, R, t = umeyama(X1[samples], X2[samples], w3, fix_scale=fix_scale)
-    inl_all = _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2)
+    inl_all = _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2, cam_model)
     best = torch.argmax(torch.sum(inl_all, dim=-1, dtype=torch.int32))  # the first maximum
     w_best = inl_all[best].to(X1.dtype) * info
     s_f, R_f, t_f = umeyama(X1, X2, w_best, fix_scale=fix_scale)
-    inl = _two_way_inliers(s_f, R_f, t_f, X1, X2, match_valid, cam_params, th1, th2)
+    inl = _two_way_inliers(s_f, R_f, t_f, X1, X2, match_valid, cam_params, th1, th2, cam_model)
     n_inl = torch.sum(inl, dtype=torch.int32)
     return Sim3Result(ok=n_inl >= min_inliers, s=s_f, R=R_f, t=t_f, inlier=inl, n_inliers=n_inl)
 
@@ -144,16 +155,17 @@ def refine_sim3(
     min_inliers: int = 20,
     sigma2_1: torch.Tensor | None = None,
     sigma2_2: torch.Tensor | None = None,
+    cam_model: str = "pinhole",
 ) -> Sim3Result:
     """IRLS refinement of S21 from (s0, R0, t0) over a (grown) match set
     (the role of ``OptimizeSim3`` after ``SearchBySim3``): gate by two-way
-    reprojection under the current estimate, refit Umeyama on the inliers,
-    ``iters`` times."""
+    reprojection under the current estimate (through ``cam_model``), refit
+    Umeyama on the inliers, ``iters`` times."""
     th1, th2, info = _gates(X1, sigma2_1, sigma2_2, chi2_th)
     s, R, t = s0, R0, t0
-    inl = _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2)
+    inl = _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2, cam_model)
     for _ in range(iters):
         s, R, t = umeyama(X1, X2, inl.to(X1.dtype) * info, fix_scale=fix_scale)
-        inl = _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2)
+        inl = _two_way_inliers(s, R, t, X1, X2, match_valid, cam_params, th1, th2, cam_model)
     n_inl = torch.sum(inl, dtype=torch.int32)
     return Sim3Result(ok=n_inl >= min_inliers, s=s, R=R, t=t, inlier=inl, n_inliers=n_inl)

@@ -23,6 +23,12 @@ Differences of form from the JAX package, none of result:
   raising (``ops/linalg.py``); the step's cost is then NaN and the step is
   rejected by ``cost_new < cost``, as in the JAX package. No solver reads
   anything back to the host.
+
+One difference of result: the visual rows project through the frame's
+camera (the solvers' ``cam_model``: pinhole or KB8, as ORB-SLAM3's
+EdgeMono projects through ``pCamera``); the JAX package projects them
+through the pinhole model whatever the camera (viba.py:88, :100; ROADMAP
+"Known faults"). The pinhole rows are unchanged.
 """
 
 from __future__ import annotations
@@ -135,14 +141,18 @@ def _apply_pert(R, p, v, bg, ba, eps):
     return R2, p2, v + eps[..., 6:9], bg + eps[..., 9:12], ba + eps[..., 12:15]
 
 
-def _visual_res(R, p, X, uv, cam_params, R_bc, t_bc, ur=None, rmask3=None, bf=None):
-    """Per-edge reprojection residual through the body pose: [E,2], or
-    [E,3] = (u, v, u_r) when ``ur`` is given, the third row multiplied by
-    ``rmask3`` (0 on mono edges). Also returns the point in the body and
+def _visual_res(R, p, X, uv, cam_params, R_bc, t_bc, ur=None, rmask3=None, bf=None,
+                cam_model="pinhole"):
+    """Per-edge reprojection residual through the body pose (EdgeMono with
+    ImuCamPose, G2oTypes.h:342, which projects through the frame's camera
+    object): [E,2], or [E,3] = (u, v, u_r) when ``ur`` is given, the third
+    row multiplied by ``rmask3`` (0 on mono edges; the caller zeroes it on
+    every edge of a KB8 camera). ``cam_model`` selects the projection
+    (``cameras.project_model``). Also returns the point in the body and
     camera frames."""
     Xb = torch.einsum("...ji,...j->...i", R, X - p)
     Xc = (Xb - t_bc) @ R_bc
-    r = cameras.pinhole_project_nodist(cam_params, Xc) - uv
+    r = cameras.project_model(cam_params, Xc, cam_model) - uv
     if ur is not None:
         z = torch.clamp(Xc[..., 2], min=1e-6)
         r3 = (r[..., 0] + uv[..., 0] - bf / z - ur) * rmask3
@@ -150,11 +160,14 @@ def _visual_res(R, p, X, uv, cam_params, R_bc, t_bc, ur=None, rmask3=None, bf=No
     return r, Xb, Xc
 
 
-def _visual_res_jac(R, p, X, uv, cam_params, R_bc, t_bc, ur=None, rmask3=None, bf=None):
+def _visual_res_jac(R, p, X, uv, cam_params, R_bc, t_bc, ur=None, rmask3=None, bf=None,
+                    cam_model="pinhole"):
     """``_visual_res`` with its Jacobians with respect to the body pose
-    perturbation [phi, dp] ([E,r,6]) and the point ([E,r,3])."""
-    r, Xb, Xc = _visual_res(R, p, X, uv, cam_params, R_bc, t_bc, ur, rmask3, bf)
-    Jproj = cameras.pinhole_project_jac(cam_params, Xc)  # [E,2,3]
+    perturbation [phi, dp] ([E,r,6]) and the point ([E,r,3]); the
+    projection's Jacobian is ``cameras.project_jac_model``'s (KB8's in
+    closed form)."""
+    r, Xb, Xc = _visual_res(R, p, X, uv, cam_params, R_bc, t_bc, ur, rmask3, bf, cam_model)
+    Jproj = cameras.project_jac_model(cam_params, Xc, cam_model)  # [E,2,3]
     if ur is not None:
         # d(u - bf/z)/dXc = du/dXc + (bf / z^2) e_z where z is not clamped
         zc = Xc[..., 2]
@@ -219,7 +232,7 @@ class VIBAGSResult(NamedTuple):
 
 def _vi_lm(
     prob: VIBAProblem, Rwg0, free_g, n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0,
-    comm=None,
+    comm=None, cam_model="pinhole",
 ):
     """The LM loop of both VI bundle adjustments: 15-dof body states, Schur-
     eliminated landmarks and a 3-dim border [dtheta_gx, dtheta_gy, dlog_s]
@@ -230,7 +243,7 @@ def _vi_lm(
     ``comm``: this rank's share of a sharded problem (``ba.bundle_adjust``):
     the visual rows are summed as there; the states, the inertial chain and
     the bias priors are the same on every rank, which each adds once after
-    the sums."""
+    the sums. ``cam_model``: the projection of the visual rows."""
     st = prob.states
     K = st.R_wb.shape[0]
     P = prob.X.shape[0]
@@ -244,10 +257,15 @@ def _vi_lm(
     pre = prob.ie_preint
 
     # Stereo rows: per-edge (u, v, u_r) with the third row masked on mono
-    # edges; stereo edges get the 3-dof chi2 gate.
+    # edges; stereo edges get the 3-dof chi2 gate. A KB8 camera is not
+    # rectified, so u_r = u - bf/z does not hold there: every edge of a KB8
+    # problem is a mono edge (third row masked, mono gate), the rule
+    # ``ba.py`` keeps for the KB8 BA.
     ur = prob.ur if prob.ur is not None else torch.full_like(prob.uv[:, 0], -1.0)
     bf = torch.as_tensor(prob.bf, dtype=dtype, device=dev)
     has_ur = (ur >= 0.0) & (bf > 0.0)
+    if cam_model == "kb8":
+        has_ur = torch.zeros_like(has_ur)
     rmask3 = has_ur.to(dtype)
     delta2 = torch.where(
         has_ur,
@@ -255,7 +273,7 @@ def _vi_lm(
         torch.full_like(ur, chi2_th),
     )
     ur_s = torch.where(has_ur, ur, torch.zeros_like(ur))
-    cal = (prob.cam_params, prob.R_bc, prob.t_bc, ur_s, rmask3, bf)
+    cal = (prob.cam_params, prob.R_bc, prob.t_bc, ur_s, rmask3, bf, cam_model)
 
     wq = prob.ie_valid.to(dtype)
     infoW = _edge_info15(pre.C) * wq[:, None, None]  # [Q,15,15]
@@ -445,16 +463,19 @@ def vi_bundle_adjust(
     bias_prior_a: float = 0.0,
     lam0: float | torch.Tensor = 1e-3,
     comm=None,
+    cam_model: str = "pinhole",
 ) -> VIBAResult:
     """Joint visual-inertial LM with Schur-eliminated landmarks (the
     reference's ``LocalInertialBA`` / ``FullInertialBA``): ``n_iters``
     iterations, no early stop, no host read. ``bias_prior_*``: zero-mean
     bias priors (the priorG / priorA schedule during IMU init). ``comm``:
-    this rank's share of a sharded problem (``_vi_lm``)."""
+    this rank's share of a sharded problem (``_vi_lm``). ``cam_model``: the
+    projection of the visual rows (pinhole or KB8; under KB8 every u_r row
+    is masked)."""
     dev = prob.X.device
     st, X, _, _, lam, cost, chi2, inlier = _vi_lm(
         prob, torch.eye(3, dtype=prob.X.dtype, device=dev), torch.zeros(3, device=dev),
-        n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0, comm,
+        n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0, comm, cam_model,
     )
     return VIBAResult(states=st, X=X, cost=cost, chi2_visual=chi2, inlier=inlier, lam=lam)
 
@@ -469,15 +490,18 @@ def vi_bundle_adjust_gs(
     bias_prior_a: float = 0.0,
     fix_scale: bool = False,
     lam0: float | torch.Tensor = 1e-3,
+    cam_model: str = "pinhole",
 ) -> VIBAGSResult:
     """Full inertial BA that co-optimizes the gravity direction (2-dof) and
     a global metric scale with all body states and landmarks (the
     reference's ``FullInertialBA(..., bInit=true)`` with EdgeInertialGS).
     The visual map stays in its own scale inside the solve; the caller
-    applies the returned (Rwg, scale) to the map afterwards."""
+    applies the returned (Rwg, scale) to the map afterwards. ``cam_model``
+    as in ``vi_bundle_adjust``."""
     free_g = torch.tensor([1.0, 1.0, 0.0 if fix_scale else 1.0], device=prob.X.device)
     st, X, Rwg, s, _, cost, chi2, inlier = _vi_lm(
-        prob, Rwg0, free_g, n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0
+        prob, Rwg0, free_g, n_iters, chi2_th, use_robust, bias_prior_g, bias_prior_a, lam0,
+        cam_model=cam_model,
     )
     return VIBAGSResult(
         states=st, X=X, Rwg=Rwg, scale=s, cost=cost, chi2_visual=chi2, inlier=inlier
@@ -653,10 +677,12 @@ def pose_inertial_optimization(
     rounds: int = 3,
     iters_per_round: int = 4,
     chi2_th: float = 5.991,
+    cam_model: str = "pinhole",
 ) -> PoseInertialResult:
     """``rounds`` rounds of ``iters_per_round`` LM steps with Huber weights;
     the inlier set is reclassified after each round. Fixed iteration
-    counts, acceptance by ``torch.where``: no host read."""
+    counts, acceptance by ``torch.where``: no host read. ``cam_model``: the
+    projection of the visual rows."""
     dtype, dev = R_wb0.dtype, R_wb0.device
     eye15 = torch.eye(15, dtype=dtype, device=dev)
 
@@ -686,14 +712,14 @@ def pose_inertial_optimization(
 
     def costf(R, p, v, bg, ba, active):
         """Residual-only cost (no Jacobians: the cheap accept check)."""
-        rv, _, _ = _visual_res(R, p, Xw, uv, *cal)
+        rv, _, _ = _visual_res(R, p, Xw, uv, *cal, cam_model=cam_model)
         b = torch.cat([bg, ba])
         ri = imu.inertial_residual(R_anc, p_anc, v_anc, b, R, p, v, preint)
         chi2 = torch.sum(rv * rv, dim=-1) * inv_sigma2
         return tail_cost(chi2, active, ri, b - b_anc), chi2
 
     def quad(R, p, v, bg, ba, active):
-        rv, Jv, _ = _visual_res_jac(R, p, Xw, uv, *cal)  # [N,2], [N,2,6]
+        rv, Jv, _ = _visual_res_jac(R, p, Xw, uv, *cal, cam_model=cam_model)  # [N,2], [N,2,6]
         b = torch.cat([bg, ba])
         ij = imu.inertial_residual_jac(R_anc, p_anc, v_anc, b, R, p, v, preint)
         Ji = torch.cat([ij.pose2, ij.v2, ij.bg, ij.ba], dim=-1)  # [9,15]

@@ -11,6 +11,14 @@ loop edges (``loop.*``) and the vocabulary (``vocab``), with the counters
 and per-map entries in its manifest. A file saved by either package loads
 in the other; a load onto a system of other capacities, or of a file whose
 md5 does not match its manifest, raises.
+
+The camera model: the JAX format does not record it. The port adds it to
+the manifest only, as ``counters["cam_model"]`` and each archived map's
+``cam_model`` entry (keys the JAX loader does not read, so its files stay
+readable both ways). A load checks it against the system's: a session
+saved under KB8 loads only into a KB8 system, and its archived maps keep
+their camera. A file without the key (the JAX package's) loads into
+either.
 """
 
 from __future__ import annotations
@@ -74,6 +82,14 @@ def load_map(path: str, device=None) -> tuple[MapState, dict]:
     return m, manifest["counters"]
 
 
+def _check_camera(recorded, slam, what: str) -> None:
+    """Raise when a checkpoint records another camera model than the
+    system's (None: not recorded, as in the JAX format)."""
+    if recorded is not None and recorded != slam.cam_model:
+        raise ValueError(f"{what} was saved under the {recorded!r} camera; this system's is "
+                         f"{slam.cam_model!r}")
+
+
 def _check_capacities(m: MapState, slam) -> None:
     if (m.K, m.P, m.N) != (slam.K_cap, slam.P_cap, slam.N):
         raise ValueError(
@@ -90,6 +106,7 @@ def _system_counters(slam) -> dict:
         "state": slam.state,
         "R_cur": np.asarray(slam.R_cur).tolist(),
         "t_cur": np.asarray(slam.t_cur).tolist(),
+        "cam_model": slam.cam_model,
     }
     if hasattr(slam, "kf_imu_acc"):
         c["imu"] = {
@@ -122,7 +139,7 @@ def save_atlas(path: str, slam) -> str:
         for f, a in map_state.to_numpy(am.m).items():
             arrays[f"arch{i}.{f}"] = a
         arrays[f"arch{i}.sigs"] = am.sigs.cpu().numpy()
-        entry = {"n_kf": am.n_kf, "n_pts": am.n_pts, "imu": None}
+        entry = {"n_kf": am.n_kf, "n_pts": am.n_pts, "imu": None, "cam_model": am.cam_model}
         if am.imu is not None:
             arrays[f"arch{i}.imu_acc"] = np.asarray(am.imu["acc"])
             arrays[f"arch{i}.imu_gyro"] = np.asarray(am.imu["gyro"])
@@ -158,6 +175,9 @@ def load_atlas(path: str, slam) -> None:
     device (``System::LoadAtlas``). Its capacities must match the
     checkpoint's."""
     manifest = _read_manifest(path, ATLAS_MAGIC, "an atlas")
+    _check_camera(manifest["counters"].get("cam_model"), slam, "the session")
+    for i, entry in enumerate(manifest["archived"]):
+        _check_camera(entry.get("cam_model"), slam, f"archived map {i}")
     dev = slam.device
     with np.load(_npz_path(path)) as npz:
         data = {k: npz[k] for k in npz.files}
@@ -206,6 +226,7 @@ def load_atlas(path: str, slam) -> None:
             atlas.maps.append(ArchivedMap(
                 m=am_m, n_kf=entry["n_kf"], n_pts=entry["n_pts"],
                 sigs=torch.from_numpy(data[f"arch{i}.sigs"].copy()).to(dev), imu=imu,
+                cam_model=slam.cam_model,
             ))
     lc = getattr(slam, "loop_closer", None)
     if lc is not None and "loop" in manifest:
@@ -232,6 +253,7 @@ def load_system(path: str, slam) -> None:
     """Restore a pipeline saved by ``save_system`` in place, onto its
     device (the capacities must match)."""
     m, counters = load_map(path, device=slam.device)
+    _check_camera(counters.get("cam_model"), slam, "the map")
     _check_capacities(m, slam)
     slam.map = m
     slam._sync_replica()

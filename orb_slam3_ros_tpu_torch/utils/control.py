@@ -24,6 +24,13 @@ the JAX package drops a subscriber whose send fails; the frames go on.
 (The JAX server sends on the SLAM thread with a blocking
 ``sendall``, so a subscriber that stops reading stalls ``process_frame``.)
 
+A frame's events go out together: the server collects the lines of the
+events a frame emits and hands them to each subscriber's queue as one item
+at the next "frame" event (with that event's own line) or at ``poll()``,
+whichever comes first; a writer thread is woken only when it is idle, and
+sends everything queued in one ``sendall``. So a frame costs each
+subscriber one or two wake-ups of its writer thread, not one a line.
+
 Commands:
   {"cmd": "status"}                                -> counters / state
   {"cmd": "save_map",  "path": p}                  -> whole-session checkpoint
@@ -52,37 +59,52 @@ REPLY_TIMEOUT_S = 60.0  # how long a command waits for the SLAM thread's poll()
 
 
 class _Conn:
-    """One client connection: its socket, its outgoing queue of lines and
-    the thread that writes them."""
+    """One client connection: its socket, its outgoing queue (byte chunks
+    of whole lines, at most ``QUEUE_LINES`` lines not yet taken by the
+    writer) and the thread that writes them."""
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
-        self.out: queue.Queue = queue.Queue(maxsize=QUEUE_LINES)
         self.dead = threading.Event()
         self._close_lock = threading.Lock()
+        self._cv = threading.Condition(threading.Lock())
+        self._chunks: list[bytes] = []
+        self._lines = 0  # lines in ``_chunks``
+        self._idle = False  # the writer waits on ``_cv``
         threading.Thread(target=self._write_loop, daemon=True).start()
 
-    def put(self, obj) -> bool:
-        """Queue one JSON line; False (and the connection closed) when the
-        queue is full or the connection is gone."""
-        line = obj if isinstance(obj, bytes) else (json.dumps(obj) + "\n").encode()
+    def put(self, obj, n_lines: int = 1) -> bool:
+        """Queue a JSON line (a dict), or ``n_lines`` encoded lines (bytes);
+        False (and the connection closed) when the queue would pass
+        ``QUEUE_LINES`` lines or the connection is gone."""
+        data = obj if isinstance(obj, bytes) else (json.dumps(obj) + "\n").encode()
         if self.dead.is_set():
             return False
-        try:
-            self.out.put_nowait(line)
-            return True
-        except queue.Full:
+        with self._cv:
+            full = self._lines + n_lines > QUEUE_LINES
+            if not full:
+                self._chunks.append(data)
+                self._lines += n_lines
+                if self._idle:
+                    self._cv.notify()
+        if full:
             self.close()
             return False
+        return True
 
     def _write_loop(self):
-        while not self.dead.is_set():
+        while True:
+            with self._cv:
+                while not self._chunks and not self.dead.is_set():
+                    self._idle = True
+                    self._cv.wait()
+                    self._idle = False
+                if self.dead.is_set():
+                    return
+                data = b"".join(self._chunks)
+                self._chunks, self._lines = [], 0
             try:
-                line = self.out.get(timeout=0.2)
-            except queue.Empty:
-                continue
-            try:
-                self.sock.sendall(line)
+                self.sock.sendall(data)
             except OSError:
                 self.close()
 
@@ -91,6 +113,8 @@ class _Conn:
             if self.dead.is_set():
                 return
             self.dead.set()
+        with self._cv:
+            self._cv.notify()  # an idle writer thread ends
         try:
             self.sock.shutdown(socket.SHUT_RDWR)
         except OSError:  # the peer already went
@@ -109,6 +133,9 @@ class ControlServer:
         self._cmds: queue.Queue = queue.Queue()
         self._subscribers: list[_Conn] = []
         self._conns: list[_Conn] = []
+        # lines of the current frame's events not yet handed to the
+        # subscribers (SLAM thread only)
+        self._pending: list[bytes] = []
         self._lock = threading.Lock()
         self._closing = False
         if os.path.exists(sock_path):
@@ -179,30 +206,44 @@ class ControlServer:
                 self._conns.remove(conn)
 
     def _publish(self, ev: dict):
-        """Queue an ``on_frame`` event to every subscriber, never blocking:
-        arrays of at most 16 values as lists, bulkier ones left out (the
-        reference publishes counts at frame rate, clouds at a slower
-        cadence)."""
+        """Collect an ``on_frame`` event for every subscriber, never
+        blocking: arrays of at most 16 values as lists, bulkier ones left
+        out (the reference publishes counts at frame rate, clouds at a
+        slower cadence). A "frame" event hands the collected lines over
+        (``_flush``), its own included."""
         with self._lock:
-            subs = list(self._subscribers)
-        if not subs:
-            return
+            if not self._subscribers:
+                self._pending = []
+                return
         out = {}
         for k, v in ev.items():
             if hasattr(v, "tolist"):
                 v = v.tolist() if getattr(v, "size", 0) <= 16 else None
             if v is not None:
                 out[k] = v
-        line = (json.dumps(out) + "\n").encode()
+        self._pending.append((json.dumps(out) + "\n").encode())
+        if ev.get("event") == "frame":
+            self._flush()
+
+    def _flush(self):
+        """Hand the collected lines to every subscriber's queue as one item."""
+        if not self._pending:
+            return
+        data, n = b"".join(self._pending), len(self._pending)
+        self._pending = []
+        with self._lock:
+            subs = list(self._subscribers)
         for s in subs:
-            if not s.put(line):
+            if not s.put(data, n):
                 self.dropped += 1
                 self._forget(s)
 
     # -- SLAM thread -----------------------------------------------------
     def poll(self):
-        """Execute the queued commands on the caller's (SLAM) thread. Call
+        """Send the events collected since the last frame event, then
+        execute the queued commands on the caller's (SLAM) thread. Call
         between frames."""
+        self._flush()
         while True:
             try:
                 cmd, box, done = self._cmds.get_nowait()
@@ -248,7 +289,9 @@ class ControlServer:
         return {"ok": False, "error": f"unknown cmd {name!r}"}
 
     def close(self):
-        """Stop accepting, close every connection and remove the socket file."""
+        """Hand over the events still collected, stop accepting, close every
+        connection and remove the socket file."""
+        self._flush()
         self._closing = True
         self._srv.close()
         self._thread.join(timeout=2.0)

@@ -18,15 +18,17 @@ and prints each run's frames/s over the whole run, the steady rate that
 phase 7 reports, the median frame rate, the host's speed over the run's
 frames (``chip_smoke.HostProbe``, a second process) and the median rate
 over it, which phase 17 (b) is held to, and the CPU seconds of the run's
-process, of its SLAM thread and of the clients' process; per kind the
-mean, min and max;
+process, of its SLAM thread and of the clients' process, and of the SLAM
+thread inside the control server (publishing, ``poll``, each command);
+per kind the mean, min and max;
 and for each ``server`` or ``socket`` run its ratio to the mean of the
-``feed`` runs just before and after it, as phase 17 holds (b). First it measures how many lines of (b)'s event mix a
+nearest ``feed`` runs before and after it, as phase 17 holds (b). First it measures how many lines of (b)'s event mix a
 subscriber that never reads takes before the server drops it. Long output
 goes to ``chiprun_out/surface_rates.json``.
 
 Usage (on the card, from the repo root):
   python3 scripts/surface_rates.py [--rounds 3] [--kinds plain,stream,feed,socket,feed]
+  python3 scripts/surface_rates.py --rounds 3 --kinds feed,server,socket,feed
 """
 
 from __future__ import annotations
@@ -81,6 +83,44 @@ def stuck_capacity() -> dict:
     return out
 
 
+class ServerClock:
+    """The SLAM thread's CPU seconds and calls inside the control server
+    (``ControlServer._publish``, ``poll`` and each command ``poll`` runs),
+    for the replays with the socket; the server's own threads are not in
+    it."""
+
+    def __init__(self):
+        from orb_slam3_ros_tpu_torch.utils import control
+
+        self.cls, self.spent = control.ControlServer, {}
+        self.orig = {n: getattr(self.cls, n) for n in ("_publish", "poll", "_execute")}
+
+    def __enter__(self):
+        spent = self.spent
+
+        def clocked(name, fn):
+            def run(server, arg=None, *a):
+                key = f"cmd {arg.get('cmd')}" if name == "_execute" else name
+                t0 = time.thread_time()
+                try:
+                    return fn(server, *((arg,) if arg is not None else ()), *a)
+                finally:
+                    n, sec = spent.get(key, (0, 0.0))
+                    spent[key] = (n + 1, sec + time.thread_time() - t0)
+            return run
+
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, clocked(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+    def report(self) -> dict:
+        return {k: dict(calls=n, thread_cpu_s=round(sec, 4)) for k, (n, sec) in self.spent.items()}
+
+
 def _cpu_of(ru) -> float:
     return ru.ru_utime + ru.ru_stime
 
@@ -128,8 +168,9 @@ def main(argv=None) -> int:
                         del argv_k[i:i + 4]  # --stream FILE --verbose 1
                     cpu0, thr0 = time.process_time(), time.thread_time()
                     kids0 = resource.getrusage(resource.RUSAGE_CHILDREN)
-                    slam, _, summary, cnt, box = cs.surface_replay(project_match, tmp,
-                                                                   kind == "socket", argv_k)
+                    with ServerClock() as clock:
+                        slam, _, summary, cnt, box = cs.surface_replay(project_match, tmp,
+                                                                       kind == "socket", argv_k)
                     cnt.check_launches(kind)
                     run = dict(round=r, kind=kind, fps=summary["fps"], steady_fps=cnt.steady_fps(),
                                median_fps=cnt.median_fps(), tracked=summary["tracked"],
@@ -140,6 +181,7 @@ def main(argv=None) -> int:
                                cpu_s=time.process_time() - cpu0, wall_s=summary["wall_s"],
                                slam_thread_cpu_s=time.thread_time() - thr0,
                                clients_cpu_s=_cpu(resource.RUSAGE_CHILDREN) - _cpu_of(kids0),
+                               server_thread=clock.report(),
                                host_rate=probe.rate(*cnt.steady_window()))
                     run["per_rate"] = run["median_fps"] / run["host_rate"] * 1e6
                     print(json.dumps(run))
@@ -154,12 +196,13 @@ def main(argv=None) -> int:
             print(f"{kind:7s} {key:10s} mean {sum(v) / len(v):.3f} min {min(v):.3f} "
                   f"max {max(v):.3f} over {len(v)}")
     ratios = {}
+    feeds = [i for i, x in enumerate(runs) if x["kind"] == "feed"]
     for i, x in enumerate(runs):
-        if x["kind"] not in ("server", "socket") or not 0 < i < len(runs) - 1:
+        before = [j for j in feeds if j < i]
+        after = [j for j in feeds if j > i]
+        if x["kind"] not in ("server", "socket") or not before or not after:
             continue
-        a1, a2 = runs[i - 1], runs[i + 1]
-        if a1["kind"] != "feed" or a2["kind"] != "feed":
-            continue
+        a1, a2 = runs[before[-1]], runs[after[0]]
         for key in ("median_fps", "per_rate", "fps"):
             ratios.setdefault(f"{x['kind']} {key}", []).append(x[key] / ((a1[key] + a2[key]) / 2))
     for name, v in ratios.items():

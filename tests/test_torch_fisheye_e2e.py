@@ -1,5 +1,5 @@
 """The port's two-camera systems against the JAX package's, end to end, and
-the refusals of what the JAX package projects through the wrong camera.
+the KB8 configurations the port once refused, constructed.
 
 ``tests/test_fisheye_stereo.py``'s two scenarios, cut in length:
 (a) ``FisheyeStereoSlam`` on raw KB8 pairs at 240x376 (the repo's test
@@ -172,12 +172,12 @@ def test_kb8_rig_keyframes_carry_cross_camera_points(runs):
     assert slam.bf == pytest.approx(150.0 * BASELINE, rel=1e-6)
 
 
-# ---- the refusals (ROADMAP "Known faults") ----------------------------------
+# ---- the KB8 options the port once refused ----------------------------------
 def _calib():
     return timu.ImuCalib(*(np.asarray(x) for x in make_calib(freq=100.0)))
 
 
-REFUSALS = {
+KB8_OPTIONS = {
     "inertial_kb8": lambda: InertialSlam(height=H, width=W, cam_params=KB8, cam_model="kb8",
                                          calib=_calib(), device="cpu"),
     "fisheye_inertial_default": lambda: tfs.FisheyeStereoInertialSlam(
@@ -192,10 +192,20 @@ REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("name", list(REFUSALS))
-def test_refuses_what_projects_through_the_pinhole(name):
-    with pytest.raises(NotImplementedError, match='ROADMAP "Known faults"'):
-        REFUSALS[name]()
+@pytest.mark.parametrize("name", list(KB8_OPTIONS))
+def test_kb8_options_construct(name):
+    """Each KB8 configuration the JAX package offers builds with the camera
+    it names, and with its loop closer, Atlas or IMU (the rigs fix the
+    scale); ``tests/test_torch_kb8_vi.py`` and ``tests/test_torch_kb8_loop.py``
+    run them."""
+    slam = KB8_OPTIONS[name]()
+    assert slam.cam_model == "kb8"
+    assert (slam.loop_closer is not None) == name.endswith("loop_closing")
+    assert (slam.atlas is not None) == (name == "kb8_atlas")
+    inertial = name in ("inertial_kb8", "fisheye_inertial_default")
+    assert hasattr(slam, "imu_fix_scale") == inertial
+    if inertial:
+        assert slam.imu_fix_scale == (name == "fisheye_inertial_default")
 
 
 def test_pinhole_options_stay_open():
