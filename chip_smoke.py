@@ -235,11 +235,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      keyframe behind, K1 launches equal to the tracking passes plus 2 for
      each fusing keyframe and K1 exact on the first tracking and fusion
      searches; prints frames/s beside phase 7's and the microseconds and
-     bytes of a refresh; (c) ``InertialSlam`` split on the first 60 frames
+     bytes of a refresh; (c) ``InertialSlam`` split on the first 45 frames
      of phase 8's sequence per frame: the map initialized by frame 20 (phase
      8's bound), the IMU initialized no later than in the same run on one
      device (its sixth keyframe, frame ~32) and the metric ATE within 2x
-     that run's.
+     that run's (cut for time: 45 frames, 60 until phase 20 came).
  19. the KB8 camera's inertial, loop-closing and Atlas paths at the TUM-VI
      shape (512x512, cam0's intrinsics, 1000 features a view; the views
      rendered KB8 by ``synth.render(cam_model="kb8")``): (a)
@@ -271,6 +271,23 @@ Phases (each raises on failure, so any failure exits non-zero):
      cross-map searches and, where a merge search ran, K1 exact against its
      plain version on it (timed). Cut for time: (b) runs 30 of phase 16
      (c)'s 45 frames (``KB8_RIG_FRAMES``); no width is cut.
+ 20. the pipelined per-frame mode: ``MonoSlam`` at its default
+     (``pipelined=True``) on phase 7's sequence and configuration, per
+     frame: each OK frame dispatched as one replay of the speculative frame
+     program's CUDA graph (predicted on the card from frames i-1 and i-2),
+     frame i-1 drained after it, each keyframe's work queued with no host
+     read and absorbed later. Requires initialization at phase 7's frame, a
+     pose for every frame after it, call i returning frame i-1's
+     trajectory entry and ``flush`` the last frame's, Sim(3) ATE <= 0.02 m
+     and within 2x phase 7's, every OK frame one replay of the frame graph,
+     one replay equal to the eager frame program (integers exact, floats
+     to 1e-4), K1 launches equal to the frames' tracking passes (plus the
+     captures' warm-ups) and 2 a fusing keyframe, and no synchronizing call
+     in any frame's dispatch (but a capturing one) or keyframe's queued
+     work. Prints frames/s beside phase 7's and phase 10's, host ms a call,
+     the frame graph's device ms (CUDA events) and nodes, the share of
+     drains whose copy had landed, capture seconds and peak memory, beside
+     the card's name and power limit.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -382,7 +399,7 @@ FE_KB8 = np.asarray([190.978, 190.973, 254.932, 256.897, 0.0034824, 0.00071503, 
 FE_FRAMES, FE_DT = 120, 0.05
 FE_SLAM_KW = dict(n_features=1000, max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3,
                   stats_every=3, cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
-                  transfer_uint8=True)
+                  transfer_uint8=True, pipelined=False)
 FE_BASE, FE_YAW = 0.101, 0.035
 FE_ST_FRAMES, FE_ST_DT, FE_ST_MAX_LOST = 60, 0.1, 8
 FE_ST_KW = dict(n_features=1000, max_keyframes=32, max_points=4096, kf_every=3,
@@ -391,7 +408,7 @@ FE_VI_FRAMES, FE_VI_SCALE_TOL = 45, 0.06
 FE_VI_KW = dict(n_features=1000, max_keyframes=32, max_points=4096, kf_every=3,
                 init_after_kf=6)
 FE_RECT_FRAMES, FE_RECT_UP = 25, 1.5
-FE_RECT_KW = dict(n_features=1000, max_keyframes=32, max_points=4096)
+FE_RECT_KW = dict(n_features=1000, max_keyframes=32, max_points=4096, pipelined=False)
 # The JAX package's runs of these protocols on the CPU
 # (tests/torch_fisheye_scenarios.py --package jax): the Sim(3) ATE (m) of
 # (a) and (d), the metric ATE of (b) and (c); the card is held to 2x each.
@@ -616,18 +633,20 @@ def ate(slam, seq, frames, with_scale=False) -> float:
     return rmse
 
 
+def mono_kw(seq, device) -> dict:
+    """bench.py's EuRoC-shape configuration (bench.py:60-66; phases 5-7 and
+    20 with the port's default lean schedule, phase 10 with bench.py's)."""
+    return dict(height=H, width=W, cam_params=seq.cam_params, n_features=N_FEATURES,
+                max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3, stats_every=3,
+                cull_every=3, lean_after_kf=4, track_cap=P_TRACK, device=device)
+
+
 def make_slam(seq, device, **kw):
+    """``MonoSlam`` at ``mono_kw``'s configuration, each frame tracked at once
+    (``pipelined=False``), with ``kw`` over it."""
     from orb_slam3_ros_tpu_torch.models.system import MonoSlam
 
-    # bench.py's EuRoC-shape configuration (bench.py:60-66; phases 5-7 with
-    # the port's default lean schedule, phase 10 with bench.py's).
-    return MonoSlam(**{
-        **dict(height=H, width=W, cam_params=seq.cam_params, n_features=N_FEATURES,
-               max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3,
-               stats_every=3, cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
-               pipelined=False, device=device),
-        **kw,
-    })
+    return MonoSlam(**{**mono_kw(seq, device), "pipelined": False, **kw})
 
 
 def reset_launches(project_match) -> None:
@@ -874,16 +893,21 @@ def stage_cost(torch, fn, runs: int = 5, profile: bool = True) -> dict:
 def sync_calls(torch, fn) -> int:
     """Synchronizing calls (host reads among them) that ``fn()`` makes, by
     torch's sync debug mode, which warns at each."""
+    return counting_syncs(torch, fn)[1]
+
+
+def counting_syncs(torch, fn, *args):
+    """(``fn(*args)``, the synchronizing calls it made: ``sync_calls``)."""
     import warnings
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            fn()
+            out = fn(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def phase_vi(torch, project_match) -> tuple:
@@ -1180,13 +1204,14 @@ def check_vi_accuracy(acc: dict, what: str) -> None:
     check(acc["bg_err"] <= VI_BG_TOL, f"{what}: gyro bias off by {acc['bg_err']:.5f}")
 
 
-def graph_vs_eager(torch, runner, schedule) -> float:
-    """One step from the runner's buffers twice: eagerly on a copy of them,
-    and as a replay of the captured step graph on them. Returns the largest
-    float difference; raises on any integer or bool difference."""
+def graph_vs_eager(torch, runner, schedule, kind: str = "step") -> float:
+    """One region (``(kind, schedule)``: a chunk's step, or the pipelined
+    frame program's frame) from the runner's buffers twice: eagerly on a
+    copy of them, and as a replay of its captured graph on them. Returns the
+    largest float difference; raises on any integer or bool difference."""
     scratch = {k: v.clone() for k, v in runner.buf.items()}
-    runner.region(("step", schedule))(scratch)
-    runner._run(("step", schedule))
+    runner.region((kind, schedule))(scratch)
+    runner._run((kind, schedule))
     torch.cuda.synchronize()
     worst = 0.0
     for k, eager in scratch.items():
@@ -2974,7 +2999,7 @@ def surface_kw() -> dict:
     """Phase 7's configuration (``make_slam``'s) and the point cadence."""
     return dict(max_keyframes=64, max_points=4096, kf_every=8, fuse_every=3, stats_every=3,
                 cull_every=3, lean_after_kf=4, track_cap=P_TRACK,
-                points_every=SURF_POINTS_EVERY)
+                points_every=SURF_POINTS_EVERY, pipelined=False)
 
 
 def check_stream(path: str, summary: dict, n_kf_work: int, tss) -> dict:
@@ -3398,7 +3423,7 @@ def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
 
 SCALE_SHAPE = (64, 8192, 65536)  # K, P, E: the global-BA shape (scripts/bench_dist.py)
 SCALE_TIMEOUT = 240  # seconds for a group of worker processes
-SPLIT_VI_FRAMES = 60
+SPLIT_VI_FRAMES = 45  # 60 until phase 20 was added (cut for time)
 REFRESH_TIMED = 20  # replica refreshes timed alone after phase 18 (b)'s run
 
 
@@ -3766,7 +3791,7 @@ def kb8_loop_run(torch, imgs, ts, close: bool, times=None):
 
     slam = MonoSlam(height=FE_H, width=FE_W, cam_params=FE_KB8, cam_model="kb8",
                     n_features=N_FEATURES, max_keyframes=64, max_points=LOOP_MAX_POINTS,
-                    kf_every=3, track_window=8, enable_loop_closing=close)
+                    kf_every=3, track_window=8, enable_loop_closing=close, pipelined=False)
     pgo_fn = loop_closing._essential_graph_pgo
     if close:
         slam.loop_closer.min_gap = 8
@@ -3943,6 +3968,134 @@ def phase_scale(torch, project_match, mp: dict, seq) -> dict:
     return dict(out, launches=launches)
 
 
+def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) -> dict:
+    """Phase 20: ``MonoSlam`` at its default, the pipelined one-frame lag,
+    per frame over phase 7's sequence and configuration: each OK frame one
+    replay of the frame graph, frame i-1 drained after frame i's dispatch,
+    the keyframe work queued with its results deferred. Counts the
+    synchronizing calls of every frame's dispatch and every keyframe's
+    queued work, in the run; CUDA events around every replay."""
+    from orb_slam3_ros_tpu_torch.models import kf_work, system
+
+    t0 = time.perf_counter()
+    slam = system.MonoSlam(**mono_kw(seq, "cuda"))
+    check(slam.pipelined, "MonoSlam's default is not the pipelined mode")
+    prog = slam._frame_program()
+    prog.timing = True
+    syncs = {"dispatch": [], "keyframe": []}
+    dispatch, queue, work = slam._dispatch, slam._queue_keyframe, kf_work.keyframe_work
+    passes = fusing = 0
+
+    def counted_dispatch(img, ts, schedule, prev):
+        nonlocal passes
+        graphs = prog.n_graphs
+        out, n = counting_syncs(torch, dispatch, img, ts, schedule, prev)
+        passes += len(schedule)
+        if prog.n_graphs == graphs:  # a capture synchronizes its side stream
+            syncs["dispatch"].append(n)
+        return out
+
+    def counted_queue(*args):
+        syncs["keyframe"].append(counting_syncs(torch, queue, *args)[1])
+
+    def counted_work(*args, **kw):
+        nonlocal fusing
+        fusing += bool(kw["do_fuse"])
+        return work(*args, **kw)
+
+    slam._dispatch, slam._queue_keyframe, kf_work.keyframe_work = (counted_dispatch,
+                                                                   counted_queue, counted_work)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(project_match)
+    outs, call_ms, ok_calls, init_at = [], [], 0, None
+    try:
+        for i in range(MAP_FRAMES):
+            ok_calls += slam.state == system.OK
+            t_call = time.perf_counter()
+            outs.append(slam.process_frame(seq.images[i], float(seq.timestamps[i])))
+            call_ms.append((time.perf_counter() - t_call) * 1e3)
+            if init_at is None and outs[-1] is not None:
+                init_at = i
+            check(init_at is not None or i < MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
+        t_flush = time.perf_counter()
+        last = slam.flush()
+        flush_ms = (time.perf_counter() - t_flush) * 1e3
+    finally:
+        slam._dispatch, slam._queue_keyframe, kf_work.keyframe_work = dispatch, queue, work
+    torch.cuda.synchronize()
+    launches = dict(project_match.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(slam.pipe_counts)
+    traj = list(slam.trajectory)
+    check(init_at == mp["init_frame"], f"initialized at frame {init_at}, phase 7 at "
+          f"{mp['init_frame']}")
+    check(len(traj) == MAP_FRAMES - init_at and slam.state == system.OK,
+          f"{len(traj)} poses of {MAP_FRAMES - init_at} frames after initialization")
+    # call i returns frame i-1's entry (the first call after initialization
+    # has nothing in flight; the flush returns the last frame's)
+    check(outs[init_at + 1] is None and all(o is not None for o in outs[init_at + 2:]),
+          "a call after initialization returned no pose")
+    for i in range(init_at + 2, MAP_FRAMES):
+        ts_i, T_i = traj[i - 1 - init_at]
+        check(abs(ts_i - float(seq.timestamps[i - 1])) < 1e-6 and np.array_equal(outs[i], T_i),
+              f"call {i} did not return frame {i - 1}'s pose")
+    check(last is not None and np.array_equal(last, traj[-1][1]), f"flush did not drain frame {MAP_FRAMES - 1}")
+    rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
+    check(rmse <= MAP_ATE_LIMIT and rmse <= 2 * mp["ate_sim3_m"],
+          f"pipelined ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m or 2x phase 7's "
+          f"{mp['ate_sim3_m']:.5f} m")
+    runs = sum(prog.runs.values())
+    check(prog.graphs and runs == counts["dispatches"] == ok_calls,
+          f"{runs} frame-graph replays, {counts['dispatches']} dispatches, {ok_calls} OK frames")
+    fuse_pred = 2 * fusing + prog.warmup_launches["fuse"]
+    track_pred = passes + prog.warmup_launches["track"]
+    check(launches == {"track": track_pred, "fuse": fuse_pred, "sim3": 0, "merge": 0},
+          f"K1 launches {launches}, expected {track_pred} from the frame graphs (passes {passes} "
+          f"+ {prog.warmup_launches['track']} warm-up) and {fuse_pred} from fusion")
+    check(syncs["dispatch"] and not any(syncs["dispatch"]) and syncs["keyframe"]
+          and not any(syncs["keyframe"]),
+          f"synchronizing calls: dispatches {sorted(set(syncs['dispatch']))}, keyframes "
+          f"{syncs['keyframe']}")
+    label = {slam._sched_dense: "dense", slam._sched_lean: "lean"}
+    by_schedule = {label[name[1]]: n for name, n in prog.runs.items()}
+    worst = graph_vs_eager(torch, prog, slam._current_schedule(), "frame")
+    steady = call_ms[init_at + WARM + 1:]
+    fps = len(steady) / (sum(steady) / 1e3)
+    lat = np.percentile(steady, [50, 80])
+    graph_ms = [a.elapsed_time(b) for _, a, b in prog.spans]
+    nodes = {label[name[1]]: graph_nodes(g) for name, (g, _) in prog._graph.items()}
+    ready = counts["ready"] / max(1, counts["drains"])
+    stages = {k: round(v[0] * 1e3, 3) for k, v in slam.timing_summary().items()}
+    print(f"pipelined ({card}): MonoSlam() at its default over phase 7's {MAP_FRAMES} frames: "
+          f"initialized at frame {init_at}, {len(traj)} poses, Sim(3) ATE {rmse:.5f} m (phase 7: "
+          f"{mp['ate_sim3_m']:.5f}); {fps:.2f} frames/s steady over {len(steady)} frames (phase 7 "
+          f"per frame {mp['frames_per_s']:.2f}, phase 10 chunks {mc['frames_per_s']:.2f}); host ms "
+          f"a call median {lat[0]:.2f}, p80 {lat[1]:.2f}, flush {flush_ms:.2f}; stages {stages}")
+    print(f"pipelined ({card}): {counts['dispatches']} dispatches = OK frames = frame-graph "
+          f"replays ({by_schedule}), graph device ms median "
+          f"{np.median(graph_ms):.3f} (min {min(graph_ms):.3f}, max {max(graph_ms):.3f}), nodes "
+          f"{nodes}, captured in {prog.capture_s:.2f} s; drains whose copy had landed "
+          f"{counts['ready']}/{counts['drains']} ({ready:.3f}); keyframes deferred "
+          f"{counts['kf_deferred']}; map copies {prog.map_copies}; syncs in a dispatch 0 over "
+          f"{len(syncs['dispatch'])}, in a keyframe's queued work 0 over {len(syncs['keyframe'])}; "
+          f"graph = eager to {worst:.3g}; K1 {launches} (passes {passes}, fusing keyframes "
+          f"{fusing}, warm-up {prog.warmup_launches}); peak device memory {peak / 2**20:.1f} MiB; "
+          f"phase 20 {time.perf_counter() - t0:.1f} s")
+    return dict(init_frame=init_at, poses=len(traj), ate_sim3_m=rmse, frames_per_s=fps,
+                phase7_frames_per_s=mp["frames_per_s"], chunk_frames_per_s=mc["frames_per_s"],
+                call_ms_p50=float(lat[0]), call_ms_p80=float(lat[1]), flush_ms=flush_ms,
+                stages_ms=stages, dispatches=counts["dispatches"], replays=runs,
+                graph_ms_p50=float(np.median(graph_ms)), graph_nodes=nodes,
+                capture_s=prog.capture_s, drains=counts["drains"], drains_ready=counts["ready"],
+                ready_share=ready, kf_deferred=counts["kf_deferred"], map_copies=prog.map_copies,
+                sync_free_dispatches=len(syncs["dispatch"]),
+                sync_free_keyframes=len(syncs["keyframe"]),
+                graph_vs_eager=worst, launches=launches, passes=passes, fusing_keyframes=fusing,
+                warmup_launches=dict(prog.warmup_launches), peak_mem_mib=peak / 2**20,
+                phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -4025,11 +4178,14 @@ def main() -> int:
     lap("18 scale-out and split")
     k8 = phase_kb8(torch, project_match, vc)
     lap("19 KB8 paths")
+    pp = phase_pipelined(torch, project_match, mp, mc, map_seq, smi[0])
+    lap("20 pipelined")
     print(f"seconds by phase: {laps}")
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
                       "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "stereo": st,
-                      "fisheye": fe, "surface": su, "scale": sc, "kb8": k8, "phase_s": laps,
+                      "fisheye": fe, "surface": su, "scale": sc, "kb8": k8, "pipelined": pp,
+                      "phase_s": laps,
                       "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
         "name": "project_match",
@@ -4042,11 +4198,12 @@ def main() -> int:
         # VI loop closing (phase 13), the Atlas (phase 14 (a), (b), (c)),
         # stereo and RGB-D (phase 15 (a), (c), (d)) and the fisheye paths
         # (phase 16 (a) to (d)), the native-feed replay (phase 17 (a)), the
-        # two-device split (phase 18 (b), (c)) and the KB8 paths (phase 19
-        # (a) to (d)), the counts set to 0 before each and read after it
+        # two-device split (phase 18 (b), (c)), the KB8 paths (phase 19
+        # (a) to (d)) and the pipelined per-frame mode (phase 20), the
+        # counts set to 0 before each and read after it
         "launches": sum(sum(x["launches"].values())
                         for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"],
-                                  st, fe, su["a"], sc, k8)),
+                                  st, fe, su["a"], sc, k8, pp)),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
@@ -4093,6 +4250,8 @@ def main() -> int:
         "launches_kb8_sim3": k8["c"]["launches"]["sim3"],
         "launches_kb8_atlas_track": k8["d"]["launches"]["track"],
         "launches_kb8_merge": k8["d"]["launches"]["merge"],
+        "launches_pipelined_track": pp["launches"]["track"],
+        "launches_pipelined_fuse": pp["launches"]["fuse"],
         "merge_ms": at["merge_ms"],
         "merge_plain_ms": at["merge_plain_ms"],
         "merge_device_us": at["merge_device_us"],

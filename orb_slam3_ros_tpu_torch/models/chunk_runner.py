@@ -4,6 +4,9 @@ static buffers, one CUDA graph per region, the replay loop with its two-word
 host read a frame, the frame's output row, and the stereo branch's frame
 preparation and keyframe point creation.
 
+``GraphRegions``, the capture and replay of named regions on static
+buffers, is also the pipelined per-frame mode's (``frame_program``).
+
 Where the JAX package compiles a chunk into one XLA program (``lax.scan``
 over the frames, the keyframe work under ``lax.cond``), a runner captures
 CUDA graphs: one of the frame step per tracking schedule and one of each
@@ -138,32 +141,23 @@ def kf_segments(cfg, kf_id: int) -> tuple:
     return tuple(seg)
 
 
-class ChunkRunner:
-    """Runs chunks of a steady state on one set of static buffers (``buf``:
-    the carry's leaves, the frame's inputs and what a keyframe needs of the
-    frame). A subclass names its carry (``CARRY``, with ``NESTED``: the
-    NamedTuple class of each field that holds a tuple of leaves), its frame
-    step (``step``), its keyframe segments (``SEGMENTS``) and the length of
-    a frame's input row (``x_len``).
+class GraphRegions:
+    """Named regions of work on one set of static buffers (``buf``), each
+    run as a CUDA graph on the card: what the chunk runners and the
+    pipelined frame program (``frame_program.FrameProgram``) share. A
+    subclass gives ``region(name)``: the region's function on a buffer set.
 
-    On CUDA (``graphs``), each region (the step per schedule, each keyframe
-    segment) is captured once as a CUDA graph on a side stream, after a
-    warm-up run of it on a scratch copy of the buffers on that stream
-    (library handles, matcher workspaces and device tables then exist
-    before capture), each graph in its own memory pool, and then replayed;
-    a failed capture or replay raises, nothing falls back to the eager
-    path. Off the card the regions run eagerly on the same buffers;
-    ``region`` gives any region's eager function on the card too. Each
-    region ends by copying every leaf it rebinds back into its buffer, so
-    the buffers are the state from one replay to the next.
+    On CUDA (``graphs``), each region is captured once as a CUDA graph on a
+    side stream, after a warm-up run of it on a scratch copy of the buffers
+    on that stream (library handles, matcher workspaces and device tables
+    then exist before capture), each graph in its own memory pool, and then
+    replayed; a failed capture or replay raises, nothing falls back to the
+    eager path. Off the card the regions run eagerly on the same buffers;
+    ``region`` gives any region's eager function on the card too.
 
     K1 launches: a capture queues none, so ``project_match.LAUNCHES`` gets
     the graph's launches on every replay; the warm-ups launch for real and
     are counted there too, and in ``warmup_launches``."""
-
-    CARRY: type
-    NESTED: dict = {}
-    SEGMENTS: dict = {}
 
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg
@@ -181,6 +175,74 @@ class ChunkRunner:
         self.timing = False
         self.spans = []  # (region, start event, end event)
         self.gaps_s = []
+
+    def region(self, name):
+        """The function of region ``name`` on a buffer set: it reads its
+        inputs there and writes its results back there."""
+        raise NotImplementedError
+
+    def _run(self, name) -> None:
+        self.runs[name] += 1
+        fn = self.region(name)
+        if not self.graphs:
+            fn(self.buf)
+            return
+        entry = self._graph.get(name)
+        if entry is None:
+            entry = self._graph[name] = self._capture(fn)
+        g, launches = entry
+        if self.timing:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            self.spans.append((name, a, b))
+        else:
+            g.replay()
+        project_match.count_replay(launches)
+
+    def _capture(self, fn):
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        s = self._stream
+        s.wait_stream(torch.cuda.current_stream(self.device))
+        before = dict(project_match.LAUNCHES)
+        with torch.cuda.stream(s):
+            fn({k: v.clone() for k, v in self.buf.items()})
+        for site, n in project_match.LAUNCHES.items():
+            self.warmup_launches[site] += n - before[site]
+        s.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)  # its node list stays readable
+        with project_match.captured_launches() as launches:
+            with torch.cuda.graph(g, stream=s):
+                fn(self.buf)
+        # A graph holds the addresses of the matcher workspaces of its
+        # stream: keep them alive whatever the cache evicts.
+        for ws in project_match.stream_workspaces(s.cuda_stream):
+            self._workspaces[ws.data_ptr()] = ws
+        self.capture_s += time.perf_counter() - t0
+        return g, launches
+
+    @property
+    def n_graphs(self) -> int:
+        return len(self._graph)
+
+
+class ChunkRunner(GraphRegions):
+    """Runs chunks of a steady state on ``GraphRegions``' machinery: one
+    region of the frame step per schedule (``("step", schedule)``) and one
+    of each keyframe segment. The buffers hold the carry's leaves, the
+    frame's inputs and what a keyframe needs of the frame. A subclass names
+    its carry (``CARRY``, with ``NESTED``: the NamedTuple class of each
+    field that holds a tuple of leaves), its frame step (``step``), its
+    keyframe segments (``SEGMENTS``) and the length of a frame's input row
+    (``x_len``). Each region ends by copying every leaf it rebinds back into
+    its buffer, so the buffers are the state from one replay to the next."""
+
+    CARRY: type
+    NESTED: dict = {}
+    SEGMENTS: dict = {}
 
     @staticmethod
     def step(c, img, x_in, cfg, schedule):
@@ -294,53 +356,6 @@ class ChunkRunner:
             self._commit(buf, c, None if fr2 is None else {"row": fr2["row"]})
 
         return kf
-
-    def _run(self, name) -> None:
-        self.runs[name] += 1
-        fn = self.region(name)
-        if not self.graphs:
-            fn(self.buf)
-            return
-        entry = self._graph.get(name)
-        if entry is None:
-            entry = self._graph[name] = self._capture(fn)
-        g, launches = entry
-        if self.timing:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            g.replay()
-            b.record()
-            self.spans.append((name, a, b))
-        else:
-            g.replay()
-        project_match.count_replay(launches)
-
-    def _capture(self, fn):
-        t0 = time.perf_counter()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=self.device)
-        s = self._stream
-        s.wait_stream(torch.cuda.current_stream(self.device))
-        before = dict(project_match.LAUNCHES)
-        with torch.cuda.stream(s):
-            fn({k: v.clone() for k, v in self.buf.items()})
-        for site, n in project_match.LAUNCHES.items():
-            self.warmup_launches[site] += n - before[site]
-        s.synchronize()
-        g = torch.cuda.CUDAGraph(keep_graph=True)  # its node list stays readable
-        with project_match.captured_launches() as launches:
-            with torch.cuda.graph(g, stream=s):
-                fn(self.buf)
-        # A graph holds the addresses of the matcher workspaces of its
-        # stream: keep them alive whatever the cache evicts.
-        for ws in project_match.stream_workspaces(s.cuda_stream):
-            self._workspaces[ws.data_ptr()] = ws
-        self.capture_s += time.perf_counter() - t0
-        return g, launches
-
-    @property
-    def n_graphs(self) -> int:
-        return len(self._graph)
 
     # ---- a chunk -----------------------------------------------------
     def run_chunk(self, stack, off: int, xs: torch.Tensor, schedule: tuple, n_kf: int):

@@ -80,6 +80,9 @@ class FisheyeStereoSlam(MonoSlam):
         if kw.get("devices") is not None:
             raise ValueError(SPLIT_REFUSED.format(type(self).__name__))
         kw.setdefault("cam_model", "kb8")
+        # Its own per-frame flow and keyframe insertion, both synchronous: an
+        # explicit pipelined=True changes nothing, as in the JAX package.
+        kw.setdefault("pipelined", False)
         super().__init__(*args, **kw)
         R_rl = np.eye(3, dtype=np.float32) if R_rl is None else np.asarray(R_rl, np.float32)
         t_rl = np.zeros(3, np.float32) if t_rl is None else np.asarray(t_rl, np.float32)

@@ -180,6 +180,16 @@ class InertialSlam(MonoSlam):
         vi_tracking: bool = True,
         **kw,
     ):
+        # The JAX package's default (its IMU prediction is host-driven). Its
+        # explicit pipelined=True runs the visual frames before the IMU's
+        # initialization one frame behind and then hands a frame in flight
+        # to the VI frame, whose own one-frame lag is not ported yet (ROADMAP
+        # Queue 1): refused here.
+        kw.setdefault("pipelined", False)
+        if kw["pipelined"]:
+            raise NotImplementedError(
+                f"{type(self).__name__}(pipelined=True): the inertial frame's one-frame lag is "
+                "not ported (ROADMAP Queue 1)")
         super().__init__(*args, **kw)
         # Per-frame VI motion-only optimization once the IMU is initialized
         # and the RECENTLY_LOST dead-reckoning window it enables.

@@ -43,14 +43,18 @@ def keyframe_work(
     height: int,
     window: tuple | None = None,
     cam_model: str = "pinhole",
-) -> tuple[MapState, torch.Tensor, int]:
+    on_device: bool = False,
+) -> tuple[MapState, torch.Tensor, int | torch.Tensor]:
     """One keyframe's full mapping work on ``m`` (whose tensors it updates
     in place where the stages do). ``window``: the local-BA window as
     (window_ids, fixed_mask, entry_valid or None); None selects the
     covisibility window of ``w_free`` + ``w_fixed`` entries. ``cam_model``:
     the camera of triangulation, fusion and the BA rows (pinhole | kb8).
-    Returns (map, n_new_points as a 0-d int32 tensor, local-BA iterations
-    run)."""
+    ``on_device``: the local BA in ``ba.bundle_adjust``'s device form, so
+    that the whole work is queued with no host read (the pipelined mode's
+    deferred keyframe; the results are the same to the bit). Returns (map,
+    n_new_points as a 0-d int32 tensor, local-BA iterations run: an int, or
+    a 0-d int32 tensor with ``on_device``)."""
     m = map_updates.insert_keyframe(m, kf_id, R_cur, t_cur, ts, feats, feat_pt)
     tri = tracking.triangulate_with_ref(m, kf_id, kf_id - 1, cam_params, cam_model=cam_model)
     m, n_new = map_updates.admit_new_points(m, kf_id, kf_id - 1, tri, n_pts, free_cap)
@@ -61,7 +65,8 @@ def keyframe_work(
         )
     if window is None:
         window = local_mapping.select_covis_window(m, kf_id, w_free, w_fixed)
-    m, iters = local_mapping.local_ba(m, window, cam_params, n_iters, bf, cam_model)
+    m, iters = local_mapping.local_ba(m, window, cam_params, n_iters, bf, cam_model,
+                                      on_device=on_device)
     m = map_updates.cull_points(m, kf_id + 1)
     if do_stats:
         m = map_updates.refresh_point_stats(m, n_levels=n_levels)

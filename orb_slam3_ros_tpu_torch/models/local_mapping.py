@@ -177,14 +177,17 @@ def apply_local_ba(
 
 
 def local_ba(m: MapState, window, cam_params: torch.Tensor, n_iters: int, bf: float = 0.0,
-             cam_model: str = "pinhole"):
+             cam_model: str = "pinhole", on_device: bool = False):
     """One local BA over ``window`` = (window_ids, fixed_mask, entry_valid
     or None): build the problem, solve it under ``cam_model`` (stopping at
-    rel_tol 1e-3), write the poses and points back, unbind the outlier
-    observations. Returns (map, LM iterations run)."""
+    rel_tol 1e-3; with ``on_device`` in ``ba.bundle_adjust``'s device form,
+    no host read), write the poses and points back, unbind the outlier
+    observations. Returns (map, LM iterations run: an int, or a 0-d int32
+    tensor with ``on_device``)."""
     window_ids, fixed_mask, entry_valid = window
     prob, sel = build_local_ba(m, window_ids, fixed_mask, cam_params, bf=bf, entry_valid=entry_valid)
-    res = ba.bundle_adjust(prob, n_iters=n_iters, rel_tol=1e-3, cam_model=cam_model)
+    res = ba.bundle_adjust(prob, n_iters=n_iters, rel_tol=1e-3, on_device=on_device,
+                           cam_model=cam_model)
     m = apply_local_ba(m, window_ids, sel, res, entry_valid)
     return drop_ba_outlier_obs(m, window_ids, res, entry_valid), res.iters
 

@@ -66,6 +66,9 @@ class StereoSlam(MonoSlam):
     def __init__(self, *args, baseline: float = 0.1, depth_factor_far: float = 40.0, **kw):
         if kw.get("devices") is not None:
             raise ValueError(SPLIT_REFUSED.format(type(self).__name__))
+        # Its own per-frame flow and keyframe insertion, both synchronous: an
+        # explicit pipelined=True changes nothing, as in the JAX package.
+        kw.setdefault("pipelined", False)
         super().__init__(*args, **kw)
         self.baseline = baseline
         self.fx = float(self.cam_params[0])  # one read at construction

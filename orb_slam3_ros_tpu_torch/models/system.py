@@ -4,14 +4,38 @@ synchronous per-keyframe ``LocalMapping`` body).
 
 State machine: NOT_INITIALIZED -> (two-view initialization) -> OK ->
 (tracking loss) -> LOST -> (relocalization) -> OK. Per frame:
-constant-velocity pose prediction on the host, ORB extraction and
-coarse-to-fine tracking on ``device``, one host read of (inliers, R, t);
-then the keyframe decision, and on a keyframe the mapping work
+constant-velocity pose prediction, ORB extraction and coarse-to-fine
+tracking on ``device``, one host read of (inliers, R, t); then the
+keyframe decision, and on a keyframe the mapping work
 (``kf_work.keyframe_work``) and one host read of (admitted points, refined
-pose). At capacity, culled keyframe slots
-are recycled by compaction. A map can also be loaded and tracked in
-localization mode (``set_map`` / ``load_map`` +
-``activate_localization_mode``).
+pose). At capacity, culled keyframe slots are recycled by compaction.
+
+By default (``pipelined=True``, the JAX package's default) tracking runs
+one frame behind: ``process_frame`` dispatches frame i, then drains frame
+i-1's result and returns frame i-1's pose (None for the first OK frame
+after initialization or relocalization); ``flush`` (and ``get_trajectory``,
+which flushes) drains the last frame. Frame i's prediction is made on the
+device from the poses of frames i-1 and i-2, which may still be in flight
+(``frame_program``: on the card one CUDA graph replay a frame), and its
+(inliers, R, t) come back through pinned memory behind a CUDA event, so the
+host's keyframe decision, keyframe work and events for frame i-1 overlap
+the device's frame i: the shape of the reference's tracking / mapping
+thread overlap (System.cc:178). A keyframe's work is queued with no host
+read (the local BA in its device form) and its (admitted points, refined
+pose) are absorbed at a later frame once they have landed, or at once when
+something needs them (``n_pts``, the next keyframe, relocalization,
+compaction, ``flush``): the reference's rule that LocalMapping never stalls
+Tracking (LocalMapping.cc:64). Until then the tracked pose stands for the
+keyframe's in the reference-pose cache. The loop closer checks a deferred
+keyframe when its result is absorbed (the reference's keyframe queue to the
+loop thread). With an Atlas the keyframe work stays synchronous, as in the
+JAX package. A frame that is not OK drains first and then recovers: a
+frame that finds tracking OK again is tracked at once on the dense
+schedule; otherwise it initializes or relocalizes. ``pipelined=False``
+tracks every frame at once and returns its own pose.
+
+A map can also be loaded and tracked in localization mode (``set_map`` /
+``load_map`` + ``activate_localization_mode``).
 
 ``process_frames`` runs the steady state in chunks (``device_loop``): on
 the card each frame is one replay of a captured CUDA graph of the frame
@@ -87,7 +111,8 @@ per-frame path adopts it only at the next keyframe; ROADMAP "Known
 faults"). No chunk runs while split, as in the JAX package. Both devices
 may be one card (or the CPU): the replica is still a copy of its own.
 
-The pipelined one-frame-lag mode is not ported by design.
+With ``devices``, the speculative frame runs on the track device against
+the replica.
 """
 
 from __future__ import annotations
@@ -104,6 +129,7 @@ from ..ops import ba_pcg, cameras, matching, orb, pnp, ransac, retrieval
 from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
 from .atlas import Atlas
 from .chunk_runner import read_host, read_rows
+from .frame_program import FrameConfig, FrameProgram, HostCopy
 from .loop_closing import LoopCloser
 from .replica import MapReplica
 
@@ -203,7 +229,8 @@ class MonoSlam:
     ``cam_model`` the camera ("pinhole", or "kb8": ``cam_params`` then
     holds the eight KB8 parameters and frames are raw fisheye images);
     ``devices`` = (track_device, map_device) the two-device split (module
-    docstring), in place of ``device``."""
+    docstring), in place of ``device``; ``pipelined`` (default True) the
+    one-frame lag (module docstring)."""
 
     def __init__(
         self,
@@ -223,7 +250,7 @@ class MonoSlam:
         enable_atlas: bool = False,
         lost_patience: int = 10,
         track_window: Optional[int] = None,
-        pipelined: bool = False,
+        pipelined: bool = True,
         fuse_neighbors: int = 1,
         kf_culling: bool = True,
         fuse_every: int = 1,
@@ -241,10 +268,6 @@ class MonoSlam:
         seed: int = 0,
         device: str | torch.device | None = None,
     ):
-        if pipelined:
-            raise NotImplementedError(
-                "the pipelined one-frame-lag mode is not ported (ROADMAP \"Do not port\")"
-            )
         cameras.check_model(cam_model)
         if devices is not None:
             track_device, map_device = (torch.device(d) for d in devices)
@@ -285,6 +308,16 @@ class MonoSlam:
         self._sched_lean = track_schedule or tracking.SCHEDULE_LEAN
         self.lean_after_kf = lean_after_kf
         self.localization_only = False
+        # The one-frame lag: the frame in flight (a dict: its FrameOut, ts,
+        # frame id) and the deferred keyframe results ((kf_id, HostCopy) of
+        # (admitted points, kf R, kf t, BA iterations)); with the frame
+        # program, made at the first dispatch, and counts of the dispatches,
+        # the drains and the drains whose copy had landed already.
+        self.pipelined = pipelined
+        self._pending = None
+        self._kf_async = None
+        self._frame_prog = None
+        self.pipe_counts = {"dispatches": 0, "drains": 0, "ready": 0, "kf_deferred": 0}
         # fx * baseline of the stereo / RGB-D residuals (0: monocular, no u_r rows)
         self.bf = 0.0
         # Hypothesis draws of two-view initialization, on ``device``.
@@ -337,6 +370,19 @@ class MonoSlam:
         # keyframe corrections (the reference's mlRelativeFramePoses).
         self.rel_traj = []
         self.frozen_traj = []  # absolute poses of frames whose ref keyframe or map went
+
+    # ------------------------------------------------------------------
+    @property
+    def n_pts(self) -> int:
+        """Live landmark count. Absorbs deferred keyframe results first, so
+        a reader always sees the settled count."""
+        if self._kf_async is not None:
+            self._apply_kf_async(force=True)
+        return self._n_pts
+
+    @n_pts.setter
+    def n_pts(self, v: int) -> None:
+        self._n_pts = v
 
     # ------------------------------------------------------------------
     def set_map(self, m: map_state.MapState, n_kf: int, n_pts: int, R_cw, t_cw) -> None:
@@ -500,7 +546,10 @@ class MonoSlam:
     def get_trajectory(self):
         """[(ts, Twc 4x4)] of the tracked frames, recomposed against the
         current keyframe poses (the reference's SaveTrajectoryEuRoC): every
-        later BA correction of a frame's reference keyframe applies."""
+        later BA correction of a frame's reference keyframe applies. Flushes
+        first: the frame in flight, deferred keyframe results and a global
+        BA in flight are in it."""
+        self.flush()
         if not self.rel_traj and not self.frozen_traj:
             return list(self.trajectory)
         return list(self.frozen_traj) + self._compose_rel()
@@ -532,9 +581,13 @@ class MonoSlam:
     def process_frame(self, img, ts: float):
         """Process one grayscale frame ([H, W], numpy or a tensor, values in
         [0, 255]). Returns Twc [4, 4] (numpy), or None while initializing
-        or when tracking is lost."""
+        or when tracking is lost. Pipelined (the default), the pose returned
+        is the previous frame's: call ``flush`` (or ``get_trajectory``) to
+        drain the last one."""
         self._poll_replica()
         self._check_ts_jump(ts)
+        if self.pipelined:
+            return self._process_frame_pipelined(img, ts)
         t0 = time.perf_counter()
         feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=self.track_device),
                             self.config)
@@ -572,7 +625,11 @@ class MonoSlam:
         views' extraction and their match), then "track". The port's eager
         path splits differently from the JAX package's programs in one
         place: its extraction runs before the state test, so "extract" and
-        "extract+track" both start at the frame's upload. The inertial
+        "extract+track" both start at the frame's upload. Pipelined (the
+        default): "dispatch" (frame i's upload, map copy and program, with no
+        wait), then "frame" (frame i-1's drain: the wait for its copy, the
+        keyframe decision, queued keyframe work, events), or "extract" and
+        "frame" for a frame that initializes or relocalizes. The inertial
         frame once the IMU is initialized and the chunk loop add no stage,
         as in the JAX package."""
         t1 = time.perf_counter()
@@ -617,6 +674,92 @@ class MonoSlam:
             cam_model=self.cam_model,
         )
 
+    # ------------------------------------------------------------------
+    # The pipelined one-frame lag (the JAX package's _process_frame_pipelined
+    # and _drain_pending, system.py:661-723 and :988-1010).
+    def _process_frame_pipelined(self, img, ts: float):
+        t0 = time.perf_counter()
+        dispatched = None
+        if self.state == OK:
+            dispatched = self._dispatch(img, ts, self._current_schedule(), self._pending)
+            t0 = self._tic("dispatch", t0)
+            out = self._drain_pending()
+        else:
+            self._drain_pending()  # may recover through relocalization
+            if self.state == OK:
+                # Just recovered: this frame at once, on the dense schedule.
+                f = self._dispatch(img, ts, self._sched_dense, None)["out"]
+                out = self._track_post(f.feats, f.res, ts, fetched=f.host.get())
+            else:
+                img = torch.as_tensor(img, dtype=torch.float32, device=self.track_device)
+                feats = self._to_map_dev(orb.extract(img, self.config))
+                t0 = self._tic("extract", t0)
+                if self.state == NOT_INITIALIZED:
+                    out = self._try_initialize(feats, ts)
+                else:
+                    out = self._try_relocalize(feats, ts)
+        self._pending = dispatched
+        self._tic("frame", t0)
+        self.frame_id += 1
+        return out
+
+    def _frame_program(self) -> FrameProgram:
+        if self._frame_prog is None:
+            m = self.map
+            self._frame_prog = FrameProgram(FrameConfig(
+                config=self.config, cam_params=self._track_cam, width=self.width,
+                height=self.height, track_window=self.track_window, track_cap=self.track_cap,
+                cam_model=self.cam_model, uint8=self.transfer_uint8, K=m.K, N=m.N, P=m.P,
+            ), self.track_device)
+        return self._frame_prog
+
+    def _dispatch(self, img, ts: float, schedule: tuple, prev) -> dict:
+        """Frame ``img`` through the frame program on the track device, with
+        no host read: predicted on the device from the pending frame ``prev``
+        (a dispatched dict), or from the host's motion model when there is
+        none. Returns the dispatched frame (its ``FrameOut``, ts, frame id)."""
+        if self._replica is not None:
+            self._replica.note_frame()
+        prog = self._frame_program()
+        if prev is not None:
+            out = prog.dispatch(img, self._tmap(), self.n_kf, schedule, prev=prev["out"])
+        else:
+            self._predict_motion(ts)
+            R_pred = self.vel_R @ self.R_cur
+            t_pred = self.vel_R @ self.t_cur + self.vel_t
+            out = prog.dispatch(img, self._tmap(), self.n_kf, schedule,
+                                host=(R_pred, t_pred, self.R_cur, self.t_cur))
+        self.pipe_counts["dispatches"] += 1
+        return dict(out=out, ts=ts, idx=self.frame_id)
+
+    def _drain_pending(self):
+        """The previous call's frame through ``_track_post`` (its keyframe
+        decision at its own frame id); first the deferred keyframe results
+        that have landed are absorbed, a global BA in flight is advanced and
+        a landed replica refresh adopted. Returns the frame's pose, or None.
+        A frame drained after tracking was lost at the frame before it
+        relocalizes instead."""
+        self._apply_kf_async()
+        self._poll_gba()
+        self._poll_replica()
+        p = self._pending
+        if p is None:
+            return None
+        self._pending = None
+        out = p["out"]
+        if self.state != OK:
+            if self.state == LOST:
+                return self._try_relocalize(self._to_map_dev(out.feats), p["ts"])
+            return None
+        self.pipe_counts["drains"] += 1
+        self.pipe_counts["ready"] += out.host.ready()
+        fetched = out.host.get()
+        saved, self.frame_id = self.frame_id, p["idx"]
+        try:
+            return self._track_post(out.feats, out.res, p["ts"], fetched=fetched)
+        finally:
+            self.frame_id = saved
+
     def _fallback_frame(self, img, ts: float):
         """One frame of a chunk that runs per frame (a gate that does not
         hold, a dead tail): ``process_frame``; the stereo system splits its
@@ -627,11 +770,16 @@ class MonoSlam:
     # The chunk loop (device_loop.py): the steady state on the device, one
     # graph replay a frame on the card.
     def flush(self):
-        """Fold in a global BA still in flight (end of a sequence, before
-        bulk map reads). A chunk is absorbed when ``process_frames``
-        returns (the JAX package drains its last chunk here)."""
+        """Drain the frame in flight (pipelined: its pose is returned),
+        absorb deferred keyframe results and fold in a global BA still in
+        flight (end of a sequence, before bulk map reads). A chunk is
+        absorbed when ``process_frames`` returns (the JAX package drains its
+        last chunk here)."""
+        out = self._drain_pending()
+        self._apply_kf_async(force=True)
         while self._gba is not None:
             self._poll_gba(force=True)
+        return out
 
     # ------------------------------------------------------------------
     # The chunked, abortable global BA (the reference's background GBA
@@ -692,13 +840,14 @@ class MonoSlam:
             self._dispatch_gba_chunk()
 
     def _poll_between_chunks(self) -> None:
-        """Advance a global BA in flight at a chunk boundary: two polls, as
-        the JAX package makes there (``process_frames`` and its
-        ``_drain_pending``). Off the card each dispatches; on the card the
+        """At a chunk boundary: advance a global BA in flight with two
+        polls, as the JAX package makes there (``process_frames`` and its
+        ``_drain_pending``; off the card each dispatches, on the card the
         second finds the first's dispatch still queued unless the card is
-        idle."""
+        idle), and settle the frame in flight before the chunk gate: its
+        drain can change the state."""
         self._poll_gba()
-        self._poll_gba()
+        self._drain_pending()
 
     def _finish_gba(self) -> None:
         g, self._gba = self._gba, None
@@ -775,6 +924,7 @@ class MonoSlam:
             for i in range(C):
                 self._fallback_frame(frames[i], float(tss_np[i]))
             return
+        self._apply_kf_async(force=True)
         # The weak-tracking rule can make a keyframe every 2 frames: reserve
         # for that, so that the chunk's capacity guard never drops one.
         if not self.localization_only and self.n_kf >= self.K_cap - 1 - (C + 1) // 2:
@@ -813,6 +963,8 @@ class MonoSlam:
         # to densify keyframes into weak-parallax windows).
         runner.load(self.map, up[:24], n_kf0, self.n_pts, lkf, -1)
         rows, kf_ids = runner.run_chunk(stack, off, up[24:].reshape(C, 2), self._sched_lean, n_kf0)
+        if self._frame_prog is not None:
+            self._frame_prog.forget_map()  # the step graphs wrote the map in place
         c = runner.carry()
         self.map = c.m
         # The chunk's one read: its rows, the end pose and motion model, the counters.
@@ -897,6 +1049,7 @@ class MonoSlam:
         fails tries the archived maps next (a switch), and after
         ``lost_patience`` such frames the map is archived and a fresh one
         started (Tracking.cc:2050-2068). Returns Twc, or None while lost."""
+        self._apply_kf_async(force=True)
         if self.n_kf < 2:
             return None
         cand_ids = _reloc_detect(self.map, feats.desc_sign, feats.valid, self.vocab).cpu().numpy()
@@ -966,6 +1119,10 @@ class MonoSlam:
         self._init_fail_count = 0
         self._create_initial_map(feats, ts, idx.cpu().numpy(), res)
         self.state = OK
+        if self.pipelined:
+            # the frame graph of each schedule now, not at a live frame
+            self._frame_program().warm((self._sched_dense, self._sched_lean), self._tmap(),
+                                       self.n_kf, self.R_cur, self.t_cur)
         self._log_pose(ts)
         return self._pose_mat()
 
@@ -1017,10 +1174,15 @@ class MonoSlam:
         self._sync_replica()
 
     # ------------------------------------------------------------------
-    def _track_post(self, feats, res, ts):
-        # One host read per frame: inlier count + pose together.
-        packed = torch.cat([res.n_inliers.reshape(1).to(res.t.dtype), res.R.reshape(-1), res.t])
-        packed = packed.cpu().numpy()
+    def _track_post(self, feats, res, ts, fetched=None):
+        """A tracked frame's host side: the motion model, the counters, the
+        logs and events, the keyframe decision. ``fetched``: its (inliers,
+        R, t) already on the host (the pipelined drain's), else read here:
+        one host read a frame."""
+        packed = fetched
+        if packed is None:
+            packed = torch.cat([res.n_inliers.reshape(1).to(res.t.dtype), res.R.reshape(-1),
+                                res.t]).cpu().numpy()
         n_inl = int(packed[0])
         if n_inl < 15:
             self.state = LOST
@@ -1148,28 +1310,30 @@ class MonoSlam:
     def _insert_keyframe(self, feats, ts, track_res):
         """Insert the current frame as keyframe ``n_kf`` and run its mapping
         work, then read back (admitted points, BA-refined pose) at once;
-        then the loop-closure check of the new keyframe. A new keyframe stops
-        a global BA in flight after its current dispatch (the JAX package's
+        then the loop-closure check of the new keyframe. Pipelined without
+        an Atlas the work is queued instead (``_queue_keyframe``) and its
+        results absorbed later (``_apply_kf_async``). Deferred results of
+        the keyframe before are absorbed first. A new keyframe stops a
+        global BA in flight after its current dispatch (the JAX package's
         bound on the staleness of the snapshot). When split, the replica's
         refresh starts after all of it."""
+        self._apply_kf_async(force=True)
         self.abort_gba()
         kf_id = self.n_kf
         self._emit_keyframe(ts, kf_id)
+        if self.pipelined and self.atlas is None:
+            self._queue_keyframe(kf_id, ts, feats, track_res)
+            self.n_kf += 1
+            self.last_kf_frame = self.frame_id
+            # the tracked pose stands for the keyframe's until its result lands
+            self._set_ref_cache(kf_id, self.R_cur, self.t_cur)
+            self._start_replica_copy()
+            return
         dev = self.device
         feats, feat_pt = self._to_map_dev((feats, track_res.feat_pt))
-        self.map, n_new, iters = kf_work.keyframe_work(
-            self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
-            torch.as_tensor(self.t_cur, device=dev), ts, feats, feat_pt,
-            self.n_pts, self.P_cap - self.n_pts, self.cam_params, self.bf,
-            w_free=self.ba_window, w_fixed=self.ba_fixed,
-            n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
-            fuse_neighbors=self.fuse_neighbors,
-            do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
-            do_stats=kf_id % self.stats_every == 0,
-            do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
-            width=self.width, height=self.height,
-            window=None if self.covis_ba else self._temporal_window(kf_id + 1),
-            cam_model=self.cam_model,
+        self.map, n_new, iters = self._keyframe_work(
+            kf_id, ts, feats, feat_pt, torch.as_tensor(self.R_cur, device=dev),
+            torch.as_tensor(self.t_cur, device=dev), on_device=False,
         )
         self.ba_iters.append(iters)
         self.n_kf += 1
@@ -1189,6 +1353,64 @@ class MonoSlam:
         # the (possibly loop-corrected or welded) pose of the newest keyframe
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
         self._start_replica_copy()
+
+    def _keyframe_work(self, kf_id: int, ts: float, feats, feat_pt, R, t, on_device: bool):
+        """``kf_work.keyframe_work`` of keyframe ``kf_id`` at pose (R, t) on
+        the map device, at this system's settings."""
+        return kf_work.keyframe_work(
+            self.map, kf_id, R, t, ts, feats, feat_pt,
+            self.n_pts, self.P_cap - self.n_pts, self.cam_params, self.bf,
+            w_free=self.ba_window, w_fixed=self.ba_fixed,
+            n_iters=self.local_ba_iters, n_levels=self.config.n_levels,
+            fuse_neighbors=self.fuse_neighbors,
+            do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
+            do_stats=kf_id % self.stats_every == 0,
+            do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
+            width=self.width, height=self.height,
+            window=None if self.covis_ba else self._temporal_window(kf_id + 1),
+            cam_model=self.cam_model, on_device=on_device,
+        )
+
+    def _queue_keyframe(self, kf_id: int, ts: float, feats, track_res) -> None:
+        """The deferred keyframe (the JAX package's pipelined branch,
+        system.py:1589-1606): its work queued with no host read (the local
+        BA in its device form; the pose is the frame's tracked pose on the
+        device, the same values as the host's copy), then (admitted points,
+        refined pose, BA iterations) copied to the host without a wait."""
+        # No host read may hide in here (an ``int()`` of a tensor, a ``.cpu()``,
+        # an upload from pageable memory): the pose is the device copy, not
+        # the host's R_cur / t_cur, and the counts stay 0-d tensors.
+        feats, feat_pt, R, t = self._to_map_dev((feats, track_res.feat_pt, track_res.R,
+                                                 track_res.t))
+        self.map, n_new, iters = self._keyframe_work(kf_id, ts, feats, feat_pt, R, t,
+                                                     on_device=True)
+        f32 = torch.float32
+        self._kf_async = (kf_id, HostCopy(torch.cat([
+            n_new.to(f32).reshape(1), self.map.kf_R[kf_id].reshape(9), self.map.kf_t[kf_id],
+            iters.to(f32).reshape(1),
+        ])))
+        self.pipe_counts["kf_deferred"] += 1
+
+    def _apply_kf_async(self, force: bool = False) -> None:
+        """Absorb a deferred keyframe's results (the JAX package's
+        ``_apply_kf_async``): the admitted points, the refined pose into the
+        reference-pose cache while that keyframe is still the newest, the
+        BA's iterations, then the loop closer's check of the keyframe.
+        Unforced, only once its copy has landed: the frame loop never waits
+        for it."""
+        d = self._kf_async
+        if d is None:
+            return
+        kf_id, host = d
+        if not force and not host.ready():
+            return
+        self._kf_async = None
+        v = host.get()
+        self._n_pts += int(v[0])
+        self.ba_iters.append(int(v[13]))
+        if self.n_kf - 1 == kf_id and (self._ref_cache is None or self._ref_cache[0] == kf_id):
+            self._set_ref_cache(kf_id, v[1:10].reshape(3, 3).copy(), v[10:13].copy())
+        self._close_loop(kf_id)
 
     def _temporal_window(self, n_kf: int):
         """The local-BA window of ``covis_ba=False`` over keyframe slots

@@ -12,9 +12,9 @@ goes LOST and the frames from there are replayed one at a time through
 relocalization. Prints one JSON line: the frame at which relocalization
 first succeeded, how many frames after the first good one (63) that was,
 every relocalization call's frame and outcome, keyframes, the state at the
-end and the frames without a pose after the blackout. The JAX package runs
-with ``pipelined=False`` (the port has no pipelined mode); the chunk loop
-is the same either way.
+end and the frames without a pose after the blackout. Both packages run
+with ``pipelined=False`` (each frame tracked at once); the chunk loop is the
+same either way.
 """
 
 from __future__ import annotations

@@ -313,7 +313,7 @@ def _systems(ma, na, mc, nc, inertial=False, loop_closing=False):
         ts = InertialSlam(calib=torch_calib(make_calib()), device="cpu", **kw)
     else:
         js = jsys.MonoSlam(pipelined=False, **kw)
-        ts = tsys.MonoSlam(device="cpu", **kw)
+        ts = tsys.MonoSlam(device="cpu", pipelined=False, **kw)
     js.map, js.n_kf, js.n_pts, js.state = ma, N_KF_A, na, jsys.OK
     ts.map, ts.n_kf, ts.n_pts, ts.state = torch_map(ma), N_KF_A, na, tsys.OK
     if inertial:
@@ -493,7 +493,7 @@ def test_archive_current_matches_jax(maps, inertial, n_kf):
         js, ts = JaxVI(calib=make_calib(), **kw), InertialSlam(calib=torch_calib(make_calib()),
                                                                device="cpu", **kw)
     else:
-        js, ts = jsys.MonoSlam(pipelined=False, **kw), tsys.MonoSlam(device="cpu", **kw)
+        js, ts = jsys.MonoSlam(pipelined=False, **kw), tsys.MonoSlam(device="cpu", pipelined=False, **kw)
     js.map, js.n_kf, js.n_pts, js.state = ma, n_kf, na, jsys.OK
     ts.map, ts.n_kf, ts.n_pts, ts.state = torch_map(ma), n_kf, na, tsys.OK
     if inertial:
@@ -587,7 +587,7 @@ def test_timestamp_jump_archives_as_jax(maps, gap):
     NOT_INITIALIZED), a shorter one changes nothing."""
     ma, na, _, _ = maps
     kw = dict(enable_atlas=True, **SLAM_KW)
-    js, ts = jsys.MonoSlam(pipelined=False, **kw), tsys.MonoSlam(device="cpu", **kw)
+    js, ts = jsys.MonoSlam(pipelined=False, **kw), tsys.MonoSlam(device="cpu", pipelined=False, **kw)
     for s, m in ((js, ma), (ts, torch_map(ma))):
         s.map, s.n_kf, s.n_pts, s.state, s._last_frame_ts = m, N_KF_A, na, tsys.OK, 3.0
         s._check_ts_jump(3.0 + gap)
@@ -601,7 +601,7 @@ def test_set_and_train_vocabulary_reach_the_atlas_as_jax(maps):
     map's descriptors and installs them in the Atlas too."""
     ma, na, _, _ = maps
     kw = dict(enable_atlas=True, **SLAM_KW)
-    js, ts = jsys.MonoSlam(pipelined=False, **kw), tsys.MonoSlam(device="cpu", **kw)
+    js, ts = jsys.MonoSlam(pipelined=False, **kw), tsys.MonoSlam(device="cpu", pipelined=False, **kw)
     js.map, js.n_kf = ma, N_KF_A
     ts.map, ts.n_kf = torch_map(ma), N_KF_A
     want = js.train_vocabulary_from_map(n_words=64)

@@ -216,7 +216,7 @@ def _runs(path):
     jlog = _drive(js, seq["images"], blank, jev, on_step=capture)
     out["jax"] = dict(slam=js, log=jlog, events=jev)
 
-    ts_ = MonoSlam(cam_params=seq["cam"], device="cpu", **SLAM_KW)
+    ts_ = MonoSlam(cam_params=seq["cam"], device="cpu", pipelined=False, **SLAM_KW)
     tev = {}
     _instrument(ts_, tev)
 

@@ -19,7 +19,7 @@ N_FRAMES, K_CAP = 50, 8
 def test_keyframes_recycle_at_capacity():
     seq = synth.make_sequence(n_frames=N_FRAMES, height=240, width=376, dt=0.1, seed=3, device="cpu")
     slam = tsys.MonoSlam(
-        device="cpu",
+        device="cpu", pipelined=False,
         height=240, width=376, cam_params=seq.cam_params, n_features=1200,
         max_keyframes=K_CAP, max_points=4096,
     )
@@ -48,7 +48,7 @@ def test_temporal_window_options():
     # tracking of the points of the last track_window keyframes.
     seq = synth.make_sequence(n_frames=20, height=240, width=376, dt=0.1, seed=3, device="cpu")
     slam = tsys.MonoSlam(
-        device="cpu",
+        device="cpu", pipelined=False,
         height=240, width=376, cam_params=seq.cam_params, n_features=1200,
         max_keyframes=16, max_points=4096, kf_every=3, ba_window=2, ba_fixed=1,
         covis_ba=False, track_window=4,

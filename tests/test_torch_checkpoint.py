@@ -60,7 +60,7 @@ def _make(package, inertial):
     if package == "jax":
         return JaxVI(calib=make_calib(), **KW) if inertial else JaxSlam(pipelined=False, **KW)
     kw = dict(KW, device="cpu")
-    return InertialSlam(calib=torch_calib(make_calib()), **kw) if inertial else MonoSlam(**kw)
+    return InertialSlam(calib=torch_calib(make_calib()), **kw) if inertial else MonoSlam(pipelined=False, **kw)
 
 
 def _fill(slam, package, inertial, seed=0):

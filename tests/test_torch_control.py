@@ -67,7 +67,7 @@ def _serve(server, fn):
 def session(tmp_path_factory):
     d = tmp_path_factory.mktemp("control")
     seq = synth.make_sequence(n_frames=N, height=H, width=W, dt=0.1, seed=3, device="cpu")
-    slam = tsys.MonoSlam(cam_params=seq.cam_params, device="cpu", **KW)
+    slam = tsys.MonoSlam(cam_params=seq.cam_params, device="cpu", pipelined=False, **KW)
     server = ControlServer(slam, str(d / "slam.sock"))
     sub = ControlClient(server.sock_path, timeout=WAIT)
     events = []
@@ -130,7 +130,7 @@ def test_save_map_loads_in_both_packages(session):
     r = _serve(server, lambda: client.call("save_map", path=path))
     assert r["ok"] and len(r["md5"]) == 32
     kw = dict(cam_params=session["seq"].cam_params, **KW)
-    t = tsys.MonoSlam(device="cpu", **kw)
+    t = tsys.MonoSlam(device="cpu", pipelined=False, **kw)
     tck.load_atlas(path, t)
     j = JaxSlam(pipelined=False, **kw)
     jck.load_atlas(path, j)

@@ -71,7 +71,8 @@ def localization(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("events") / "map.npz")
     jckpt.save_map(path, m, counters)
     jckpt.load_system(path, jslam)
-    tslam = tsys.MonoSlam(cam_params=seq.cam_params, points_every=EVERY, device="cpu", **SLAM_KW)
+    tslam = tsys.MonoSlam(cam_params=seq.cam_params, points_every=EVERY, device="cpu",
+                         pipelined=False, **SLAM_KW)
     tslam.load_map(path)
     out = {}
     for name, slam in (("jax", jslam), ("port", tslam)):
@@ -139,7 +140,7 @@ def chunk_runs():
     slam = tsys.MonoSlam(cam_params=seq.cam_params, device="cpu", n_features=800,
                          max_keyframes=32, max_points=4096, kf_every=3, kf_min_inliers=20,
                          kf_ref_ratio=0.0, lean_after_kf=3, track_cap=768, height=H, width=W,
-                         points_every=EVERY)
+                         points_every=EVERY, pipelined=False)
     i = 0
     while not slam._chunkable():
         slam.process_frame(seq.images[i], float(seq.timestamps[i]))
@@ -250,13 +251,16 @@ def _cli(main, argv):
 
 
 def test_run_synth_stage_keys_equal_jax(monkeypatch):
-    # The JAX CLI's system runs in the pipelined one-frame-lag mode by
-    # default, which the port leaves out by design (ROADMAP "Do not port"):
-    # its stage names are compared on the JAX system's synchronous path.
+    # Both CLIs' systems run in the pipelined one-frame-lag mode by default:
+    # the stage names of each package's synchronous path are compared here,
+    # the pipelined path's in tests/test_torch_pipelined.py.
     from orb_slam3_ros_tpu.models import system as jsys
 
+    port_slam = tsys.MonoSlam
     monkeypatch.setattr(jsys, "MonoSlam",
                         lambda *a, **kw: JaxSlam(*a, pipelined=False, **kw))
+    monkeypatch.setattr(tsys, "MonoSlam",
+                        lambda *a, **kw: port_slam(*a, pipelined=False, **kw))
     argv = ["--frames", "6", "--features", "800", "--json"]
     want = _cli(jrun.main, argv + ["--platform", "cpu"])
     got = _cli(trun.main, argv + ["--device", "cpu"])

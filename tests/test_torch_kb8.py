@@ -207,7 +207,7 @@ def runs():
     jslam = jsys.MonoSlam(pipelined=False, **SLAM_KW)
     jslam._warm_schedules = lambda: None  # compiles ahead only
     jfirst = _run(jslam, imgs)
-    tslam = tsys.MonoSlam(device="cpu", **SLAM_KW)
+    tslam = tsys.MonoSlam(device="cpu", pipelined=False, **SLAM_KW)
     snaps = []
 
     def snap_when_chunkable(i, slam):

@@ -43,7 +43,7 @@ KB8 = np.asarray([260.0, 260.0, 319.5, 239.5, 0.02, 0.001, -0.002, 0.0002], np.f
 CAND, REVISIT = 2, (11, 12, 13)
 N_PLACE = ta.N_PLACE
 SLAM_KW = dict(height=H, width=W, cam_params=KB8, cam_model="kb8", n_features=250,
-               max_keyframes=K, max_points=P, device="cpu")
+               max_keyframes=K, max_points=P, device="cpu", pipelined=False)
 
 
 def T(a):

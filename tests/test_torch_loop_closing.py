@@ -326,7 +326,7 @@ def _slams(tm, m, inertial=False, **closer_kw):
         js.imu_initialized = ts.imu_initialized = True
     else:
         js = JaxSlam(enable_loop_closing=True, pipelined=False, **SLAM_KW)
-        ts = MonoSlam(enable_loop_closing=True, device="cpu", **SLAM_KW)
+        ts = MonoSlam(enable_loop_closing=True, device="cpu", pipelined=False, **SLAM_KW)
     js.map, js.n_kf, js.n_pts, js.state = m, K - 1, int(np.asarray(m.pt_valid).sum()), OK
     ts.map, ts.n_kf, ts.n_pts, ts.state = copy.deepcopy(tm), K - 1, js.n_pts, OK
     for s in (js, ts):
@@ -573,7 +573,7 @@ def test_a_gba_started_between_chunks_solves_a_snapshot():
     seq = tsynth.make_sequence(n_frames=40, height=240, width=376, dt=0.1, seed=3, device="cpu")
     slam = MonoSlam(height=240, width=376, cam_params=seq.cam_params, n_features=1000,
                     max_keyframes=16, max_points=3072, kf_every=3, lean_after_kf=4, track_cap=768,
-                    device="cpu")
+                    device="cpu", pipelined=False)
     stack = torch.clamp(seq.images, 0, 255).to(torch.uint8)
     i = 0
     while not slam._chunkable():

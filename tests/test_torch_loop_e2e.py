@@ -58,7 +58,8 @@ def _record_closures(slam, to_np):
 
 def _port_from_jax(js) -> MonoSlam:
     """A port MonoSlam in the JAX system's state (between chunks, drained)."""
-    ts = _closer(MonoSlam(cam_params=np.asarray(js.cam_params), device="cpu", **SLAM_KW))
+    ts = _closer(MonoSlam(cam_params=np.asarray(js.cam_params), device="cpu", pipelined=False,
+                          **SLAM_KW))
     ts.map = tms.from_numpy(np_tree(js.map), "cpu")
     for f in ("n_kf", "n_pts", "frame_id", "last_kf_frame", "_ref_kf_inl", "_last_frame_ts",
               "state"):

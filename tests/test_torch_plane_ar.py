@@ -129,7 +129,7 @@ def seeded():
     seq = synth.make_sequence(n_frames=13, height=240, width=376, dt=0.1, seed=3, with_depth=True,
                               device="cpu")
     slam = tsys.MonoSlam(height=240, width=376, cam_params=seq.cam_params, n_features=800,
-                         max_keyframes=16, max_points=4096, device="cpu")
+                         max_keyframes=16, max_points=4096, device="cpu", pipelined=False)
     m, n_kf, n_pts = synth.seed_map_from_depth(seq, 6, slam)
     R0 = seq.R_wc[-1].T
     slam.set_map(m, n_kf, n_pts, R0, -R0 @ seq.t_wc[-1])

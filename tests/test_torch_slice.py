@@ -80,8 +80,10 @@ def test_unported_states_raise():
     # against, and the frame stays LOST.
     slam.state = tsys.LOST
     assert slam.process_frame(img, 0.1) is None and slam.state == tsys.LOST
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.MonoSlam(cam_params=cam, device="cpu", **{**SLAM_KW, "pipelined": True})
+    # The pipelined one-frame lag once raised here; it is ported, and the
+    # default, as in the JAX package (tests/test_torch_pipelined.py).
+    kw = {k: v for k, v in SLAM_KW.items() if k != "pipelined"}
+    assert tsys.MonoSlam(cam_params=cam, device="cpu", **kw).pipelined
     # The test keeps its name from when ``devices`` raised too: the two-device
     # split is ported now, and ``devices`` builds a split system (its tests:
     # tests/test_torch_two_device*.py).

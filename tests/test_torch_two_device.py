@@ -72,7 +72,7 @@ def tracked_maps(slam, log: list):
 
 def run(seq, devices, monkeypatch_ctx):
     kw = dict(devices=devices) if devices else dict(device="cpu")
-    slam = tsys.MonoSlam(cam_params=seq.cam_params, **SLAM_KW, **kw)
+    slam = tsys.MonoSlam(cam_params=seq.cam_params, pipelined=False, **SLAM_KW, **kw)
     log = []
     monkeypatch_ctx.setattr(tracking, "track_against_map", tracked_maps(slam, log))
     for i in range(N_FRAMES):
@@ -168,7 +168,7 @@ def test_jax_per_frame_replica_stays_one_keyframe_behind():
     jslam._start_replica_copy()
     assert int(jnp.sum(jslam._tmap().kf_valid)) == 1
 
-    tslam = tsys.MonoSlam(cam_params=cam, devices=SPLIT, **SLAM_KW)
+    tslam = tsys.MonoSlam(cam_params=cam, devices=SPLIT, pipelined=False, **SLAM_KW)
 
     def port_track(feats):
         seen["port"] = int(tslam._tmap().kf_valid.sum())
@@ -235,7 +235,7 @@ def test_loop_closure_syncs_the_replica(inertial, monkeypatch):
         slam.imu_initialized = True
         monkeypatch.setattr(tis, "_vi_kf_work", lambda mp, *a, **k: (mp, torch.tensor(0)))
     else:
-        slam = tsys.MonoSlam(enable_loop_closing=True, devices=SPLIT, **LC_KW)
+        slam = tsys.MonoSlam(enable_loop_closing=True, devices=SPLIT, pipelined=False, **LC_KW)
         monkeypatch.setattr(kf_work, "keyframe_work", lambda mp, *a, **k: (mp, torch.tensor(0), 0))
     for k, v in dict(CLOSER_KW, required_consistency=1).items():
         setattr(slam.loop_closer, k, v)

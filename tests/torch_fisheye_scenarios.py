@@ -108,7 +108,7 @@ class _Package:
         return {} if self.name == "jax" else dict(device=self.device)
 
     def system(self, cls, **kw):
-        slam = cls(**kw, **self.kw()) if self.name != "jax" else cls(pipelined=False, **kw)
+        slam = cls(pipelined=False, **kw, **self.kw()) if self.name != "jax" else cls(pipelined=False, **kw)
         if self.name == "jax":
             slam._warm_schedules = lambda: None  # compiles ahead only
         return slam
