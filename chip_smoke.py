@@ -37,12 +37,22 @@ Phases (each raises on failure, so any failure exits non-zero):
      configuration (``utils/profile_keyframe.py`` holds it, for its ``--vi``
      profile too): IMU preintegration, the three initialization stages,
      the 15-dof refinement of every frame, the temporal-window VI-BA of
-     every keyframe. Requires the IMU initialized and all three stages
-     done, no bad-IMU reset, no frame lost after map initialization, state
-     OK at the end, metric ATE (no scale alignment, first 12 poses skipped)
-     <= 0.015 m, Umeyama scale within 1% of 1, the alignment's R[2,2] >
-     0.999 (gravity), the gyro bias within 3e-3 of the truth, and kernel
-     launches equal to the tracking passes plus 2 for each fusing keyframe.
+     every keyframe; once the IMU is initialized each frame one frame
+     behind, as one replay of the VI frame program's CUDA graph (drained
+     at the next call). Requires the IMU initialized and all three stages
+     done, no bad-IMU reset, no frame lost after map initialization (one
+     pose a frame, posted once each in order; None returned only at the
+     first VI frame), state OK at the end, metric ATE (no scale alignment,
+     first 12 poses skipped) <= 0.015 m, Umeyama scale within 1% of 1, the
+     alignment's R[2,2] > 0.999 (gravity), the gyro bias within 3e-3 of
+     the truth, every VI frame one replay of the VI frame graph, no
+     synchronizing call in a steady VI dispatch, one replay equal to the
+     eager program (integers exact, floats to 1e-4), and kernel launches
+     equal to the visual frames' tracking passes plus the VI graph replays'
+     passes (plus the captures' warm-ups) plus 2 for each fusing keyframe.
+     Prints frames/s and latency beside the eager VI frame's, the VI
+     graph's device ms (CUDA events) and nodes, and the share of drains
+     whose copy had landed.
      Then (after phase 9, so that phase 9's device times are taken before
      the profiler is first used) times the inertial stages alone on inputs
      captured from the run (host ms and the CUDA-event span, and launches
@@ -187,7 +197,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      prints the remap's time a frame.
  17. the system surface: (a) the dataset-replay entry point
      (``run_synth.run`` with ``--native-feed --stream --verbose 1 --json``)
-     at phase 7's sequence and configuration, per frame, fed by the C++
+     at phase 7's configuration and the first 90 frames of its sequence
+     (``SURF_FRAMES``, cut for time), per frame, fed by the C++
      measurement sync (``native.py``, built from ``native/measurement_sync
      .cpp`` with g++ in this run) from a producer thread, the JSONL event
      stream and the stage timer live, ``points_every`` 1: requires
@@ -288,6 +299,20 @@ Phases (each raises on failure, so any failure exits non-zero):
      the frame graph's device ms (CUDA events) and nodes, the share of
      drains whose copy had landed, capture seconds and peak memory, beside
      the card's name and power limit.
+ 21. the pipelined mono-inertial system: ``InertialSlam(pipelined=True)``
+     on phase 8's configuration and the first 120 of its 165 frames
+     (``VI_PIPE_FRAMES``, cut for time), per frame: the
+     visual frames through the mono frame graph with their keyframe work
+     deferred, the handoff (the visual frame in flight when the IMU
+     initializes runs again through the VI frame graph and is posted
+     first), then the VI frames one frame behind. Requires phase 8's
+     accuracy limits, the IMU's three stages, one pose a frame posted once
+     each in order, None returned only at the visual frames' lag and the
+     first VI frame, every dispatch one graph replay with no synchronizing
+     call (but a capturing one), K1 launches equal to the replays' tracking
+     passes (plus warm-ups) and 2 a fusing keyframe, and K1 exact against
+     its plain version on the run's first tracking search of a frame with
+     features.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -437,6 +462,8 @@ KB8_RIG_FRAMES = 30
 # (a), the reoptimization's card-vs-CPU pose bound and its iterations.
 SURF_POINTS_EVERY, SURF_FPS_RATIO, SURF_REOPT_TOL, SURF_REOPT_ITERS = 1, 0.9, 1e-4, 30
 SURF_B_RUNS = 2  # (b) runs, each between two runs of (a)
+VI_PIPE_FRAMES = 120  # phase 21's frames: phase 8's first 120 of 165 (cut for time)
+SURF_FRAMES = 90  # each replay's frames: phase 7's first 90 (120 before phase 21, cut for time)
 PROBE_LOOP = 100_000  # interpreter iterations a host-probe sample (8-10 ms on the card's host)
 
 
@@ -910,13 +937,38 @@ def counting_syncs(torch, fn, *args):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_vi(torch, project_match) -> tuple:
+COUNTED = ("_track_res", "_dispatch_vi", "_log_pose")  # phase 8's wrappers of its system
+
+
+_VI_SEQ = []  # (SynthSequence, imu dict) of ``vi_sequence``, made once
+
+
+def vi_sequence(n_frames: int) -> tuple:
+    """The first ``n_frames`` of the sequence of phases 8, 13, 14 (c), 18 (c)
+    and 21 (``VI_SEQ_KW`` at phase 13's length, rendered once on the card):
+    the same frames and IMU samples, sample for sample, as
+    ``make_vi_sequence`` at that length. Returns (SynthSequence, imu dict)."""
+    from orb_slam3_ros_tpu_torch.utils import synth
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW
+
+    if not _VI_SEQ:
+        _VI_SEQ.append(synth.make_vi_sequence(**{**VI_SEQ_KW, "n_frames": VI_LC_FRAMES[0]}))
+    seq, im = _VI_SEQ[0]
+    check(n_frames <= len(seq.timestamps), f"vi_sequence: {n_frames} frames asked for")
+    per_frame = ("acc", "gyro", "dts", "vel")
+    return (seq._replace(images=seq.images[:n_frames], R_wc=seq.R_wc[:n_frames],
+                         t_wc=seq.t_wc[:n_frames], timestamps=seq.timestamps[:n_frames]),
+            {k: v[:n_frames] if k in per_frame else v for k, v in im.items()})
+
+
+def phase_vi(torch, project_match, card: str) -> tuple:
     """``InertialSlam`` over a rendered 165-frame sequence with IMU samples
-    on the card at ``bench.py``'s ``main_vi`` shape. Returns (result, phase
-    9's start, what ``phase_vi_stages`` replays)."""
+    on the card at ``bench.py``'s ``main_vi`` shape, the VI frames one
+    frame behind through the VI frame graph. Returns (result, phase 9's
+    start, (the system and what ``phase_vi_stages`` replays, the sequence
+    and its IMU samples))."""
     from orb_slam3_ros_tpu_torch.models import inertial_system, local_mapping, system
     from orb_slam3_ros_tpu_torch.ops import viba
-    from orb_slam3_ros_tpu_torch.utils import synth
     from orb_slam3_ros_tpu_torch.utils.evaluate_ate import align_umeyama, ate_rmse
     from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_IMU_HZ, VI_SEQ_KW, VI_SLAM_KW, vi_calib
 
@@ -925,12 +977,12 @@ def phase_vi(torch, project_match) -> tuple:
           == (H, W, N_FEATURES, P_TRACK, P_FUSE),
           "the mono-inertial configuration is not at the shapes the kernel was held at")
     t0 = time.perf_counter()
-    seq, im = synth.make_vi_sequence(**VI_SEQ_KW)
+    seq, im = vi_sequence(n_frames)
     slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(), **VI_SLAM_KW)
     check(slam.device.type == "cuda", "InertialSlam without a device argument is not on the card")
     torch.cuda.synchronize()
-    print(f"vi setup: rendered {n_frames} frames at {W}x{H} with {int(VI_IMU_HZ)} Hz IMU in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"vi setup: rendered {VI_LC_FRAMES[0]} frames at {W}x{H} with {int(VI_IMU_HZ)} Hz IMU "
+          f"(this phase's first {n_frames}, phase 13's all) in {time.perf_counter() - t0:.1f} s")
 
     kf_ms, n_fusing = [], 0
     caps = {
@@ -962,11 +1014,35 @@ def phase_vi(torch, project_match) -> tuple:
         n_fusing += self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0
         return mono_work(self, feats, ts, track_res)
 
+    track_res, dispatch_vi = slam._track_res, slam._dispatch_vi
+    mono_passes, vi_syncs, vi_calls, posted = 0, [], 0, []
+    log_pose = slam._log_pose
+
+    def counted_track_res(feats):
+        # the visual frames before the IMU initializes track eagerly
+        nonlocal mono_passes
+        mono_passes += len(slam._current_schedule())
+        return track_res(feats)
+
+    def counted_dispatch_vi(*args):
+        prog = slam._vi_prog
+        graphs = 0 if prog is None else prog.n_graphs
+        out, n = counting_syncs(torch, dispatch_vi, *args)
+        if graphs == slam._vi_prog.n_graphs:  # a capture synchronizes its side stream
+            vi_syncs.append(n)
+        slam._vi_prog.timing = True  # CUDA events around each later replay
+        return out
+
+    def logged(ts):
+        posted.append(ts)
+        log_pose(ts)
+
     inertial_system._vi_kf_work = timed_work
     inertial_system.MonoSlam._insert_keyframe = counted_mono_kf
+    slam._track_res, slam._dispatch_vi, slam._log_pose = counted_track_res, counted_dispatch_vi, logged
     torch.cuda.reset_peak_memory_stats()
     reset_launches(project_match)
-    passes, init_at, stage_at, frame_ms, syncs = 0, None, {}, [], []
+    init_at, stage_at, frame_ms, syncs, nones = None, {}, [], [], []
     start = None
     try:
         for i in range(n_frames):
@@ -974,10 +1050,11 @@ def phase_vi(torch, project_match) -> tuple:
                 # Phase 9 goes on from here: where bench.py's main_vi stops
                 # going frame by frame.
                 start = (i, chunk_snapshot(slam), seq, im)
-            if slam.state in (system.OK, system.RECENTLY_LOST):
-                passes += len(slam._current_schedule())
+                for k in COUNTED:  # this run's counting wrappers stay with it
+                    del vars(start[1])[k]
             stage0 = slam.imu_stage
             n_kf0 = slam.n_kf
+            vi_calls += slam.imu_initialized and slam.state in (system.OK, system.RECENTLY_LOST)
             args = (seq.images[i], float(seq.timestamps[i]))
             kw = dict(acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i])
             t_frame = time.perf_counter()
@@ -993,21 +1070,37 @@ def phase_vi(torch, project_match) -> tuple:
             if init_at is None and out is not None:
                 init_at = i
             elif init_at is not None:
-                check(out is not None, f"vi run lost frame {i}")
+                # a VI call returns the frame before it: None at the first one
+                if out is None:
+                    nones.append(i)
                 check(slam.state == system.OK, f"vi run left state OK at frame {i}: {slam.state}")
             check(init_at is not None or i < VI_INIT_BY, f"vi map not initialized by frame {VI_INIT_BY}")
             if slam.imu_stage != stage0:
                 stage_at[slam.imu_stage] = i
             elif slam.imu_stage == 3 and i < n_frames - 10:
                 frame_ms.append(dt)
+        t_flush = time.perf_counter()
+        slam.flush()
+        flush_ms = (time.perf_counter() - t_flush) * 1e3
+        torch.cuda.synchronize()
+        launches = dict(project_match.LAUNCHES)
+        prog = slam._vi_prog
+        # The refinement's arguments for phase_vi_stages: inside the graph
+        # _vi_refine runs only at capture, on the graph's buffers, so the VI
+        # frame program runs once more eagerly on a copy of its buffers (the
+        # last frame's inputs), which Captured records.
+        sched = slam._current_schedule()
+        prog.region(("frame", sched))({k: v.clone() for k, v in prog.buf.items()})
     finally:
         inertial_system._vi_kf_work = work
         inertial_system.MonoSlam._insert_keyframe = mono_work
         for c in caps.values():
             c.restore()
+        for k in COUNTED:
+            del vars(slam)[k]
     torch.cuda.synchronize()
-    launches = dict(project_match.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    counts = dict(slam.pipe_counts)
 
     check(slam.imu_initialized and slam.imu_stage == 3,
           f"IMU initialization stopped at stage {slam.imu_stage}")
@@ -1016,6 +1109,10 @@ def phase_vi(torch, project_match) -> tuple:
     check(slam.n_kf >= VI_MIN_KF, f"only {slam.n_kf} keyframes")
     traj = slam.get_trajectory()
     check(len(traj) == n_frames - init_at, f"{len(traj)} poses for {n_frames - init_at} frames")
+    check(posted == [float(t) for t in seq.timestamps[init_at:]],
+          "the frames were not posted once each, in order")
+    check(len(nones) == 1, f"calls after initialization returned None at frames {nones}, the "
+          "first VI frame's only expected")
     ts = np.asarray([t for t, _ in traj])[VI_SKIP:]
     est = np.stack([T[:3, 3] for _, T in traj])[VI_SKIP:]
     gt_ts = seq.timestamps.astype(np.float64)
@@ -1027,33 +1124,61 @@ def phase_vi(torch, project_match) -> tuple:
     lat = np.percentile(frame_ms, [50, 80])
     fps = len(frame_ms) / (sum(frame_ms) / 1e3)
     kf_med, kf_max = float(np.median(kf_ms)), float(max(kf_ms))
+    label = {slam._sched_dense: "dense", slam._sched_lean: "lean"}
+    runs = {label[name[1]]: n for name, n in prog.runs.items()}
+    vi_passes = sum(len(name[1]) * n for name, n in prog.runs.items())
+    passes = mono_passes + vi_passes
+    warm = dict(prog.warmup_launches)
+    graph_ms = [a.elapsed_time(b) for _, a, b in prog.spans]
+    nodes = {label[name[1]]: graph_nodes(g) for name, (g, _) in prog._graph.items()}
+    ready = counts["vi_ready"] / max(1, counts["vi_drains"])
     print(f"vi: map initialized at frame {init_at}; IMU stages done at frames {stage_at} in "
           f"{ {k: round(v, 1) for k, v in slam.init_stage_ms.items()} } ms (wall, each ended by a "
           f"host read); {len(traj)}/{n_frames - init_at} frames tracked; {slam.n_kf} keyframes, "
           f"{slam.n_pts} points; metric ATE {rmse_m:.5f} m over {n_m} poses, Umeyama scale "
           f"{scale:.5f}, alignment R[2,2] {R_align[2, 2]:.5f}; bg {slam.bg_cur} (truth {im['bg']}), "
           f"ba {slam.ba_cur}; {fps:.2f} frames/s steady over {len(frame_ms)} frames after stage 3 "
-          f"(keyframe frames included); latency median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; VI "
+          f"(keyframe frames included; the eager VI frame before the VI frame graph: 2.36-2.75 "
+          f"frames/s, median 346.50 ms, PERF.md); latency median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; flush {flush_ms:.2f} ms; VI "
           f"keyframe work median {kf_med:.2f} ms, max {kf_max:.2f} ms over {len(kf_ms)}; kernel "
-          f"launches {launches} (tracking passes {passes}, fusing keyframes {n_fusing}); "
+          f"launches {launches} (tracking passes {passes}: {mono_passes} visual, {vi_passes} in "
+          f"the VI frame graphs' replays {runs}, warm-ups {warm}; fusing keyframes {n_fusing}); "
           f"synchronizing calls of a steady frame without a keyframe {sorted(set(syncs))}; peak "
           f"device memory {peak / 2**20:.1f} MiB")
+    print(f"vi frame graph ({card}): {counts['vi_dispatches']} dispatches = {vi_calls} VI frames = "
+          f"replays {runs}; device ms median {np.median(graph_ms):.3f} (min {min(graph_ms):.3f}, "
+          f"max {max(graph_ms):.3f}) over {len(graph_ms)} replays; nodes {nodes}; captured in "
+          f"{prog.capture_s:.2f} s; drains whose copy had landed {counts['vi_ready']}/"
+          f"{counts['vi_drains']} ({ready:.3f}); anchors {dict(prog.anchors)}; map copies "
+          f"{prog.map_copies}; syncs in a steady dispatch {sorted(set(vi_syncs))} over "
+          f"{len(vi_syncs)}")
     check(n_m == len(ts), f"ATE matched {n_m} of {len(ts)} poses")
     check(rmse_m <= VI_ATE_LIMIT, f"metric ATE {rmse_m:.5f} m above {VI_ATE_LIMIT} m")
     check(abs(scale - 1.0) <= VI_SCALE_TOL, f"Umeyama scale {scale:.5f} not within {VI_SCALE_TOL:.0%} of 1")
     check(R_align[2, 2] > VI_MIN_R22, f"gravity misaligned: alignment R[2,2] {R_align[2, 2]:.5f}")
     check(bg_err <= VI_BG_TOL, f"gyro bias off by {bg_err:.5f}")
-    check(launches == {"track": passes, "fuse": 2 * n_fusing, "sim3": 0, "merge": 0},
-          f"matcher launches {launches}, expected {passes} from tracking and "
-          f"{2 * n_fusing} from fusion")
+    check(prog.graphs and sum(prog.runs.values()) == counts["vi_dispatches"] == vi_calls,
+          f"{sum(prog.runs.values())} VI frame graph replays, {counts['vi_dispatches']} dispatches, "
+          f"{vi_calls} VI frames")
+    check(vi_syncs and not any(vi_syncs),
+          f"synchronizing calls in a steady VI dispatch: {sorted(set(vi_syncs))}")
+    want = {"track": passes + warm["track"], "fuse": 2 * n_fusing + warm["fuse"], "sim3": 0,
+            "merge": 0}
+    check(launches == want, f"matcher launches {launches}, expected {want}: {mono_passes} visual "
+          f"passes, {vi_passes} in the VI frame graphs, {2 * n_fusing} from fusion, warm-ups {warm}")
+    worst = graph_vs_eager(torch, prog, sched, "frame")
+    print(f"vi frame graph: one replay = the eager program to {worst:.3g}")
     return dict(
         init_frame=init_at, stage_frames=stage_at, init_stage_ms=slam.init_stage_ms,
         keyframes=slam.n_kf, ate_metric_m=rmse_m, scale=scale, r22=float(R_align[2, 2]),
         bg_err=bg_err, frames_per_s=fps, steady_frames=len(frame_ms), frame_ms_p50=float(lat[0]),
-        frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
-        launches=launches, passes=passes, fusing_keyframes=n_fusing,
+        frame_ms_p80=float(lat[1]), flush_ms=flush_ms, kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
+        launches=launches, passes=passes, mono_passes=mono_passes, vi_passes=vi_passes,
+        vi_graph_runs=runs, warmup_launches=warm, fusing_keyframes=n_fusing,
+        graph_ms_p50=float(np.median(graph_ms)), graph_nodes=nodes, capture_s=prog.capture_s,
+        ready_share=ready, graph_vs_eager=worst, sync_free_dispatches=len(vi_syncs),
         sync_calls_per_frame=sorted(set(syncs)), peak_mem_mib=peak / 2**20,
-    ), start, (slam, caps)
+    ), start, (slam, caps, seq, im)
 
 
 def phase_vi_stages(torch, slam, caps) -> dict:
@@ -1120,17 +1245,24 @@ def phase_vi_stages(torch, slam, caps) -> dict:
     return costs
 
 
+SHARED = ("generator", "_mono_runner", "_frame_prog", "_vi_prog")
+
+
 def chunk_snapshot(slam):
     """A deep copy of a system on the card that shares, not copies, its CUDA
-    generator and its mono chunk runner (graphs cannot be copied; each chunk
-    loads its own state into the runner's buffers)."""
-    gen, runner = slam.generator, slam._mono_runner
-    slam.generator = slam._mono_runner = None
+    generator, its mono chunk runner and its frame programs (graphs cannot
+    be copied; each chunk or frame loads its own inputs into the buffers).
+    A frame in flight is copied with its host copy landed."""
+    held = {k: getattr(slam, k, None) for k in SHARED}
+    for k in held:
+        setattr(slam, k, None)
     try:
         snap = copy.deepcopy(slam)
     finally:
-        slam.generator, slam._mono_runner = gen, runner
-    snap.generator, snap._mono_runner = gen, runner
+        for k, v in held.items():
+            setattr(slam, k, v)
+    for k, v in held.items():
+        setattr(snap, k, v)
     return snap
 
 
@@ -1654,15 +1786,17 @@ def phase_reloc(torch, project_match, snap, seq, stack) -> dict:
 class SearchRecorder:
     """Wraps ``project_match.project_match_cuda`` (the kernel's launching
     wrapper, which counts each launch) to keep a copy of the inputs of the
-    first search at launch site ``site``; counts nothing itself."""
+    first search at launch site ``site`` for which ``keep(args)`` holds
+    (default: any); counts nothing itself."""
 
-    def __init__(self, project_match, site: str):
+    def __init__(self, project_match, site: str, keep=None):
         self.pm, self.site, self.fn = project_match, site, project_match.project_match_cuda
+        self.keep = keep or (lambda args: True)
         self.args = self.kw = None
 
     def __enter__(self):
         def recorded(*args, **kw):
-            if kw.get("site") == self.site and self.args is None:
+            if kw.get("site") == self.site and self.args is None and self.keep(args):
                 self.args = [a.clone() for a in args]
                 self.kw = {k: v for k, v in kw.items() if k != "site"}
             return self.fn(*args, **kw)
@@ -1917,11 +2051,10 @@ def phase_loop_vi(torch, project_match, vc: dict) -> dict:
     covisibility exclusion off, per frame to the gate and chunks of 15 to
     frame 150, then the timed chunks."""
     from orb_slam3_ros_tpu_torch.models import inertial_system, system
-    from orb_slam3_ros_tpu_torch.utils import synth
-    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SLAM_KW, vi_calib
 
     n_frames, warm = VI_LC_FRAMES
-    seq, im = synth.make_vi_sequence(**{**VI_SEQ_KW, "n_frames": n_frames})
+    seq, im = vi_sequence(n_frames)
     slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
                                         enable_loop_closing=True, **VI_SLAM_KW)
     slam.loop_closer.use_covisibility = False
@@ -2172,11 +2305,10 @@ def phase_atlas_vi(torch, project_match) -> dict:
     configuration."""
     from orb_slam3_ros_tpu_torch.models import atlas as atlas_mod
     from orb_slam3_ros_tpu_torch.models import inertial_system, system
-    from orb_slam3_ros_tpu_torch.utils import synth
     from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
     from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
 
-    seq, im = synth.make_vi_sequence(**VI_SEQ_KW)
+    seq, im = vi_sequence(VI_SEQ_KW["n_frames"])
     slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
                                         enable_atlas=True, **VI_SLAM_KW)
 
@@ -2988,7 +3120,7 @@ def phase_fisheye(torch, project_match) -> dict:
 def surface_args(tmp: str, control: bool) -> list:
     """Phase 17's ``run_synth`` flags: phase 7's sequence at the EuRoC
     shape through the native feed, the event stream and the log level on."""
-    argv = ["--frames", str(MAP_FRAMES), "--height", str(H), "--width", str(W),
+    argv = ["--frames", str(SURF_FRAMES), "--height", str(H), "--width", str(W),
             "--features", str(N_FEATURES), "--seed", "3", "--dt", "0.1", "--device", "cuda",
             "--native-feed", "--stream", os.path.join(tmp, "events.jsonl"), "--verbose", "1",
             "--json"]
@@ -3283,10 +3415,10 @@ def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
         slam, seq, sa, ca, _ = surface_replay(project_match, tmp, False)
         launches = ca.launches
         init_at = int(np.argmin(np.abs(seq.timestamps - slam.trajectory[0][0])))
-        rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
+        rmse = ate(slam, seq, SURF_FRAMES - init_at, with_scale=True)
         stream = check_stream(os.path.join(tmp, "events.jsonl"), sa, ca.n_work, seq.timestamps)
         steady_a = ca.steady_fps()
-        print(f"surface (a): native feed, {MAP_FRAMES} frames at {W}x{H}: {sa['fps']} frames/s over "
+        print(f"surface (a): native feed, {SURF_FRAMES} frames at {W}x{H}: {sa['fps']} frames/s over "
               f"the run, {steady_a:.2f} steady as phase 7 counts (phase 7: "
               f"{mp['frames_per_s']:.2f}), initialized at frame {init_at}, tracked {sa['tracked']}, "
               f"{slam.n_kf} keyframes, Sim(3) ATE {rmse:.5f} m; producer waits {sa['native_feed']}; "
@@ -3294,8 +3426,8 @@ def phase_surface(torch, project_match, loop_slam, mp: dict) -> dict:
               f"keyframes {ca.n_fusing})")
         slam.print_time_stats(file=sys.stdout)
         check(init_at <= MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
-        check(sa["tracked"] == MAP_FRAMES - init_at and slam.state == system.OK,
-              f"{sa['tracked']} frames tracked of {MAP_FRAMES - init_at} after initialization")
+        check(sa["tracked"] == SURF_FRAMES - init_at and slam.state == system.OK,
+              f"{sa['tracked']} frames tracked of {SURF_FRAMES - init_at} after initialization")
         check(rmse <= MAP_ATE_LIMIT, f"native-feed ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
         ca.check_launches("surface (a)")
         check(ca.rec_t.args is not None and ca.rec_f.args is not None, "no search was recorded")
@@ -3593,14 +3725,13 @@ def phase_split_vi(torch, project_match) -> dict:
     """Phase 18 (c): ``InertialSlam`` split on the first frames of phase 8's
     sequence, per frame, against the same run on one device."""
     from orb_slam3_ros_tpu_torch.models import inertial_system, system
-    from orb_slam3_ros_tpu_torch.utils import synth
     from orb_slam3_ros_tpu_torch.utils.evaluate_ate import ate_rmse
-    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SEQ_KW, VI_SLAM_KW, vi_calib
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SLAM_KW, vi_calib
 
     devices = ("cuda:0", "cuda:1") if torch.cuda.device_count() >= 2 else ("cuda:0", "cuda:0")
     t0 = time.perf_counter()
     n = SPLIT_VI_FRAMES
-    seq, im = synth.make_vi_sequence(**{**VI_SEQ_KW, "n_frames": n})
+    seq, im = vi_sequence(n)
     res = {}
     for tag, kw in (("split", dict(devices=devices)), ("one", {})):
         slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
@@ -3672,15 +3803,19 @@ def phase_kb8_vi(torch, project_match, vc: dict) -> dict:
                             gyro=im["gyro"][i : i + k], dts=im["dts"][i : i + k])
 
     t0 = time.perf_counter()
-    first, lost, imu_at, i = [], [], None, 0
+    first, lost, imu_at, i, first_vi = [], [], None, 0, None
     while i < CHUNK_WARM - 2 * CHUNK and not slam._vi_chunkable():
         per_frame_run(lambda j: slam.process_frame(seq.images[j], float(seq.timestamps[j]),
                                                    acc=im["acc"][j], gyro=im["gyro"][j],
                                                    dts=im["dts"][j]), [i], first, lost)
         if slam.imu_initialized and imu_at is None:
             imu_at = i
+        if first_vi is None and slam.pipe_counts["vi_dispatches"]:
+            first_vi = i
         i += 1
     gate = i
+    # a VI call returns the frame before it: the first one returns None
+    lost = [j for j in lost if j != first_vi]
     check(slam._vi_chunkable(), f"kb8 vi: the chunk gate not passed by frame {gate} (IMU stage "
           f"{slam.imu_stage}, state {slam.state})")
     while i + CHUNK <= CHUNK_WARM:
@@ -3935,6 +4070,9 @@ def site_kernel(torch, project_match, rec, what: str) -> dict:
     bound."""
     check(rec.args is not None, f"{what}: no search input was recorded")
     err, n_match = kernel_vs_plain(torch, project_match, rec.args, rec.kw, what)
+    # an empty search (no candidates, say a warm-up's blank frame) agrees
+    # with any kernel
+    check(n_match > 0, f"{what}: the recorded search has no matches")
     kernel = lambda: project_match.project_match(*rec.args, **rec.kw)  # noqa: E731
     out = dict(max_abs_err=err, matches=n_match, P=int(rec.args[0].shape[0]),
                N=int(rec.args[5].shape[0]), ms=cuda_ms(kernel, 100),
@@ -4096,6 +4234,140 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
                 phase_s=time.perf_counter() - t0)
 
 
+def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> dict:
+    """Phase 21: ``InertialSlam(pipelined=True)`` over phase 8's sequence
+    and configuration, per frame: the visual frames through the mono frame
+    graph with their keyframe work deferred, the handoff (the visual frame
+    in flight when the IMU initializes is run again through the VI frame
+    graph and posted first), then the VI frames through the VI frame graph,
+    one frame behind. Counts each dispatch's synchronizing calls and K1's
+    launches by replay; keeps the run's first tracking search for K1 against
+    its plain version."""
+    from orb_slam3_ros_tpu_torch.models import inertial_system, kf_work, system
+    from orb_slam3_ros_tpu_torch.utils.profile_keyframe import VI_SLAM_KW, vi_calib
+
+    t0 = time.perf_counter()
+    n_frames = VI_PIPE_FRAMES
+    slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(),
+                                        pipelined=True, **VI_SLAM_KW)
+    syncs = {"visual": [], "vi": []}
+    posted, fusing = [], 0
+    dispatch, dispatch_vi, log_pose = slam._dispatch, slam._dispatch_vi, slam._log_pose
+    work, vi_work = kf_work.keyframe_work, inertial_system._vi_kf_work
+
+    def counted(fn, kind, prog_of):
+        def run(*args):
+            prog = prog_of()
+            graphs = 0 if prog is None else prog.n_graphs
+            out, n = counting_syncs(torch, fn, *args)
+            if graphs == prog_of().n_graphs:  # a capture synchronizes its side stream
+                syncs[kind].append(n)
+            return out
+        return run
+
+    def logged(ts):
+        posted.append(ts)
+        log_pose(ts)
+
+    def counted_work(*args, **kw):
+        nonlocal fusing
+        fusing += bool(kw["do_fuse"])
+        return work(*args, **kw)
+
+    def counted_vi_work(*args, **kw):
+        nonlocal fusing
+        fusing += bool(kw["do_fuse"])
+        return vi_work(*args, **kw)
+
+    slam._dispatch = counted(dispatch, "visual", lambda: slam._frame_prog)
+    slam._dispatch_vi = counted(dispatch_vi, "vi", lambda: slam._vi_prog)
+    slam._log_pose = logged
+    kf_work.keyframe_work, inertial_system._vi_kf_work = counted_work, counted_vi_work
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(project_match)
+    outs, call_ms, init_at, imu_at, stage3_at = [], [], None, None, None
+    # The first search of a frame with features (the graph captured at the
+    # initialization warms up on an empty image buffer; no search is kept
+    # while a graph is being captured)
+    rec = SearchRecorder(project_match, "track", keep=lambda args: (
+        not torch.cuda.is_current_stream_capturing() and bool(args[7].any()))).__enter__()
+    try:
+        for i in range(n_frames):
+            t_call = time.perf_counter()
+            outs.append(slam.process_frame(seq.images[i], float(seq.timestamps[i]),
+                                           acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i]))
+            call_ms.append((time.perf_counter() - t_call) * 1e3)
+            if init_at is None and outs[-1] is not None:
+                init_at = i
+            elif init_at is not None:
+                check(slam.state == system.OK, f"vi pipelined: state {slam.state} at frame {i}")
+            if imu_at is None and slam.imu_initialized:
+                imu_at = i
+            if stage3_at is None and slam.imu_stage == 3:
+                stage3_at = i
+            check(init_at is not None or i < VI_INIT_BY,
+                  f"vi pipelined: not initialized by frame {VI_INIT_BY}")
+        slam.flush()
+    finally:
+        rec.__exit__()
+        kf_work.keyframe_work, inertial_system._vi_kf_work = work, vi_work
+        for k in ("_dispatch", "_dispatch_vi", "_log_pose"):
+            del vars(slam)[k]
+    torch.cuda.synchronize()
+    launches = dict(project_match.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(slam.pipe_counts)
+    acc = vi_accuracy(slam, seq, im, n_frames)
+    fp, vp = slam._frame_prog, slam._vi_prog
+    progs = {"visual": fp, "vi": vp}
+    replays = {k: sum(p.runs.values()) for k, p in progs.items()}
+    passes = {k: sum(len(name[1]) * n for name, n in p.runs.items()) for k, p in progs.items()}
+    warm = {site: fp.warmup_launches[site] + vp.warmup_launches[site] for site in launches}
+    want = {"track": passes["visual"] + passes["vi"] + warm["track"],
+            "fuse": 2 * fusing + warm["fuse"], "sim3": 0, "merge": 0}
+    nones = [i for i in range(init_at, n_frames) if outs[i] is None]
+    steady = call_ms[stage3_at + 1:]
+    fps = len(steady) / (sum(steady) / 1e3)
+    lat = np.percentile(steady, [50, 80])
+    k1 = site_kernel(torch, project_match, rec, "vi pipelined: the run's first tracking search")
+    print(f"vi pipelined ({card}): InertialSlam(pipelined=True) over phase 8's {n_frames} frames: "
+          f"initialized at frame {init_at} (phase 8: {vi['init_frame']}), IMU at frame {imu_at}, "
+          f"stage {slam.imu_stage}, {acc['poses']} poses; metric ATE {acc['ate_metric_m']:.5f} m "
+          f"(phase 8: {vi['ate_metric_m']:.5f}), scale {acc['scale']:.5f}, R[2,2] "
+          f"{acc['r22']:.5f}, bg err {acc['bg_err']:.2e}; calls returning None after "
+          f"initialization {nones}; {fps:.2f} frames/s over the {len(steady)} calls after stage 3 "
+          f"(phase 8: {vi['frames_per_s']:.2f}), host ms a call median {lat[0]:.2f}, p80 "
+          f"{lat[1]:.2f}; dispatches {counts}; replays {replays}, K1 {launches} (predicted "
+          f"{want}: passes {passes}, fusing keyframes {fusing}, warm-ups {warm}); syncs in a "
+          f"steady dispatch: visual {sorted(set(syncs['visual']))} over {len(syncs['visual'])}, "
+          f"VI {sorted(set(syncs['vi']))} over {len(syncs['vi'])}; peak device memory "
+          f"{peak / 2**20:.1f} MiB; phase 21 {time.perf_counter() - t0:.1f} s")
+    check_vi_accuracy(acc, "vi pipelined")
+    check(slam.imu_stage == 3 and slam.bad_imu_resets == 0 and slam.state == system.OK,
+          f"vi pipelined: stage {slam.imu_stage}, resets {slam.bad_imu_resets}, state {slam.state}")
+    check(init_at <= VI_INIT_BY and acc["poses"] == n_frames - init_at
+          and posted == [float(t) for t in seq.timestamps[init_at:n_frames]],
+          f"vi pipelined: {acc['poses']} poses of {n_frames - init_at} frames, or posted out of "
+          "order")
+    # the visual frames' lag (init + 1) and the first VI frame, which posts
+    # the frame handed off
+    check(len(nones) == 2 and nones[0] == init_at + 1, f"vi pipelined: None returned at {nones}")
+    check(counts["kf_deferred"] >= 1 and slam._kf_async is None,
+          f"vi pipelined: deferred keyframes {counts['kf_deferred']}")
+    check(fp.graphs and vp.graphs and replays["visual"] == counts["dispatches"]
+          and replays["vi"] == counts["vi_dispatches"] == n_frames - nones[1] + 1,
+          f"vi pipelined: replays {replays}, dispatches {counts}")
+    check(all(syncs.values()) and not any(any(v) for v in syncs.values()),
+          f"vi pipelined: synchronizing calls in a dispatch {syncs}")
+    check(launches == want, f"vi pipelined: K1 launches {launches}, predicted {want}")
+    return dict(init_frame=init_at, imu_frame=imu_at, nones=nones, frames_per_s=fps,
+                call_ms_p50=float(lat[0]), call_ms_p80=float(lat[1]), replays=replays,
+                passes=passes, fusing_keyframes=fusing, warmup_launches=warm, launches=launches,
+                pipe_counts=counts, k1=k1, peak_mem_mib=peak / 2**20,
+                phase_s=time.perf_counter() - t0, **acc)
+
+
 def main() -> int:
     import torch
 
@@ -4149,7 +4421,7 @@ def main() -> int:
     lap("5-6 slice")
     mp, map_seq = phase_mapping(torch, project_match)
     lap("7 mapping")
-    vi, start, (vi_slam, caps) = phase_vi(torch, project_match)
+    vi, start, (vi_slam, caps, vi_seq, vi_im) = phase_vi(torch, project_match, smi[0])
     lap("8 mono-inertial")
     vc = phase_vi_chunk(torch, project_match, vi, start)
     lap("9 VI chunks")
@@ -4180,11 +4452,14 @@ def main() -> int:
     lap("19 KB8 paths")
     pp = phase_pipelined(torch, project_match, mp, mc, map_seq, smi[0])
     lap("20 pipelined")
+    vp = phase_vi_pipelined(torch, project_match, vi, vi_seq, vi_im, smi[0])
+    lap("21 VI pipelined")
     print(f"seconds by phase: {laps}")
 
     print(json.dumps({"slice": s, "mapping": mp, "vi": vi, "vi_chunk": vc, "mono_chunk": mc,
                       "reloc": rl, "loop_mono": lp, "loop_vi": lv, "atlas": at, "stereo": st,
                       "fisheye": fe, "surface": su, "scale": sc, "kb8": k8, "pipelined": pp,
+                      "vi_pipelined": vp,
                       "phase_s": laps,
                       "card": smi[0]}, default=str))
     print(json.dumps({"kernels": [{
@@ -4199,15 +4474,21 @@ def main() -> int:
         # stereo and RGB-D (phase 15 (a), (c), (d)) and the fisheye paths
         # (phase 16 (a) to (d)), the native-feed replay (phase 17 (a)), the
         # two-device split (phase 18 (b), (c)), the KB8 paths (phase 19
-        # (a) to (d)) and the pipelined per-frame mode (phase 20), the
-        # counts set to 0 before each and read after it
+        # (a) to (d)), the pipelined per-frame mode (phase 20) and the
+        # pipelined mono-inertial system (phase 21), the counts set to 0
+        # before each and read after it
         "launches": sum(sum(x["launches"].values())
                         for x in (mp, vi, vc, mc, rl, la, lp["lc"], lv, at["a"], at["b"], at["c"],
-                                  st, fe, su["a"], sc, k8, pp)),
+                                  st, fe, su["a"], sc, k8, pp, vp)),
         "launches_track": mp["launches"]["track"],
         "launches_fuse": mp["launches"]["fuse"],
         "launches_vi_track": vi["launches"]["track"],
         "launches_vi_fuse": vi["launches"]["fuse"],
+        # phase 8's VI frame graph: its replays' tracking passes and warm-ups
+        "launches_vi_frame_graph_track": vi["vi_passes"] + vi["warmup_launches"]["track"],
+        "launches_vi_pipelined_track": vp["launches"]["track"],
+        "launches_vi_pipelined_fuse": vp["launches"]["fuse"],
+        "launches_vi_pipelined_vi_graph_track": vp["passes"]["vi"],
         "launches_vi_chunk_track": vc["launches"]["track"],
         "launches_vi_chunk_fuse": vc["launches"]["fuse"],
         "launches_mono_chunk_track": mc["launches"]["track"],
@@ -4274,6 +4555,7 @@ def main() -> int:
                            kb["k1"]["max_abs_err"], kb["k1_r4"]["max_abs_err"],
                            kfe["max_abs_err"], su["a"]["k1_max_abs_err"],
                            sc["b"]["k1_max_abs_err"], k8["c"]["k1"]["max_abs_err"],
+                           vp["k1"]["max_abs_err"],
                            (k8["d"]["k1"] or {}).get("max_abs_err", 0)),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -9,6 +9,8 @@ run from it. ``FrameProgram`` runs that as one region of
 tracking schedule, captured right after initialization (``warm``) or at
 its first use (a failed capture raises; nothing falls back to the eager
 path); off the card the same function runs eagerly on the same buffers.
+``vi_frame_program.VIFrameProgram`` runs the VI frame on the same buffers
+and map copy (``TrackingRegions``).
 
 Its inputs are static buffers:
 
@@ -104,6 +106,13 @@ class HostCopy:
             self.event.synchronize()
         return self.values.numpy().copy()
 
+    def __deepcopy__(self, memo):
+        """A copy of a system with a frame in flight: the values once
+        landed, with no event (a CUDA event cannot be copied)."""
+        out = HostCopy.__new__(HostCopy)
+        out.values, out.event = torch.from_numpy(self.get()), None
+        return out
+
 
 class FrameOut(NamedTuple):
     """One dispatched frame: its features and tracking result on the device
@@ -130,6 +139,22 @@ def predict(x: torch.Tensor):
     return torch.where(host, x[1:10].reshape(3, 3), R_dev), torch.where(host, x[10:13], t_dev)
 
 
+def program_map(buf: dict, blank: dict) -> MapState:
+    """The map a frame program reads: its buffers of the fields tracking
+    reads, ``blank``'s zero views for the others."""
+    return MapState(**{f: buf[f] if f in FRAME_MAP_FIELDS else blank[f] for f in MapState._fields})
+
+
+def store_tracked(buf: dict, feats: orb.Features, res: tracking.TrackResult) -> None:
+    """A frame's features and tracking result into the program's buffers."""
+    for f in orb.Features._fields:
+        buf[f"f_{f}"].copy_(getattr(feats, f))
+    buf["feat_pt"].copy_(res.feat_pt)
+    buf["n_inl"].copy_(res.n_inliers)
+    buf["visible"].copy_(res.visible_mask)
+    buf["found"].copy_(res.found_mask)
+
+
 def frame_program(buf: dict, blank: dict, cfg: FrameConfig, schedule: tuple) -> None:
     """The speculative frame on the program's buffers: the prediction,
     extraction and tracking against the map in ``buf``, each output copied
@@ -138,7 +163,7 @@ def frame_program(buf: dict, blank: dict, cfg: FrameConfig, schedule: tuple) -> 
     x = buf["x"]
     R_pred, t_pred = predict(x)
     feats = orb.extract(buf["img"].to(torch.float32), cfg.config)
-    m = MapState(**{f: buf[f] if f in FRAME_MAP_FIELDS else blank[f] for f in MapState._fields})
+    m = program_map(buf, blank)
     pt_mask = None
     if cfg.track_window is not None:
         pt_mask = m.pt_first_kf >= (x[37].to(torch.int32) - cfg.track_window)
@@ -146,12 +171,7 @@ def frame_program(buf: dict, blank: dict, cfg: FrameConfig, schedule: tuple) -> 
         m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height, pt_mask=pt_mask,
         schedule=schedule, track_cap=cfg.track_cap, cam_model=cfg.cam_model,
     )
-    for f in orb.Features._fields:
-        buf[f"f_{f}"].copy_(getattr(feats, f))
-    buf["feat_pt"].copy_(res.feat_pt)
-    buf["n_inl"].copy_(res.n_inliers)
-    buf["visible"].copy_(res.visible_mask)
-    buf["found"].copy_(res.found_mask)
+    store_tracked(buf, feats, res)
     buf["packed"].copy_(torch.cat([res.n_inliers.reshape(1).to(torch.float32),
                                    res.R.reshape(9), res.t]))
     buf["pred"].copy_(torch.cat([R_pred.reshape(9), t_pred]))
@@ -167,11 +187,15 @@ def upload(dst: torch.Tensor, a: np.ndarray) -> None:
         dst.copy_(src)
 
 
-class FrameProgram(GraphRegions):
-    """The speculative frame of one system (see the module docstring). Its
-    regions are ``("frame", schedule)``; ``dispatch`` runs one frame."""
+class TrackingRegions(GraphRegions):
+    """What the speculative frame program and the VI frame program
+    (``vi_frame_program.VIFrameProgram``) share: the image, the map's point
+    fields tracking reads, the features and the tracking result as static
+    buffers (and a subclass's ``_own_buffers``), the map copied in only when
+    it changed, and the capture of one graph a tracking schedule. Regions
+    are ``("frame", schedule)``."""
 
-    def __init__(self, cfg: FrameConfig, device):
+    def __init__(self, cfg, device):
         super().__init__(cfg, device)
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -181,7 +205,6 @@ class FrameProgram(GraphRegions):
         self.buf = dict(
             img=torch.zeros((cfg.height, cfg.width),
                             dtype=torch.uint8 if cfg.uint8 else torch.float32, device=dev),
-            x=torch.zeros((X_LEN,), **f32),
             **{f: torch.zeros(shapes[f][0], dtype=shapes[f][1], device=dev)
                for f in FRAME_MAP_FIELDS},
             f_xy=torch.zeros((N, 2), **f32), f_level=torch.zeros((N,), **i32),
@@ -192,22 +215,17 @@ class FrameProgram(GraphRegions):
             feat_pt=torch.zeros((N,), **i32), n_inl=torch.zeros((), **i32),
             visible=torch.zeros((P,), dtype=torch.bool, device=dev),
             found=torch.zeros((P,), dtype=torch.bool, device=dev),
-            packed=torch.zeros((PACKED_LEN,), **f32), pred=torch.zeros((12,), **f32),
+            **self._own_buffers(),
         )
         self._blank = {f: torch.zeros((), dtype=dt, device=dev).expand(shape)
                        for f, (shape, dt) in shapes.items() if f not in FRAME_MAP_FIELDS}
         self._map_src = {}  # map field -> (the tensor last copied in, its version then)
-        self._n_kf = None  # n_kf in ``x``
-        self._host_pred = False  # whether ``x`` holds the host-prediction flag
         self.map_copies = 0  # dispatches that copied the map in
 
-    def region(self, name):
-        schedule = name[1]
-
-        def run(buf):
-            frame_program(buf, self._blank, self.cfg, schedule)
-
-        return run
+    def _own_buffers(self) -> dict:
+        """The program's inputs and outputs besides the image, the map, the
+        features and the tracking result."""
+        raise NotImplementedError
 
     def forget_map(self) -> None:
         """Copy the map in at the next dispatch whatever its tensors' versions
@@ -240,6 +258,42 @@ class FrameProgram(GraphRegions):
             a = a.astype(np.float32, copy=False)
         upload(dst, a)
 
+    def _capture_schedules(self, schedules) -> None:
+        """Capture the graph of each schedule not captured yet, from the
+        inputs in the buffers (on the card; off it there is nothing to
+        capture)."""
+        if not self.graphs:
+            return
+        for schedule in dict.fromkeys(schedules):
+            name = ("frame", schedule)
+            if name not in self._graph:
+                self._graph[name] = self._capture(self.region(name))
+
+
+class FrameProgram(TrackingRegions):
+    """The speculative frame of one system (see the module docstring);
+    ``dispatch`` runs one frame."""
+
+    def __init__(self, cfg: FrameConfig, device):
+        super().__init__(cfg, device)
+        self._n_kf = None  # n_kf in ``x``
+        self._host_pred = False  # whether ``x`` holds the host-prediction flag
+
+    def _own_buffers(self) -> dict:
+        """The prediction's inputs ``x``, the packed host read and the
+        prediction."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return dict(x=torch.zeros((X_LEN,), **f32), packed=torch.zeros((PACKED_LEN,), **f32),
+                    pred=torch.zeros((12,), **f32))
+
+    def region(self, name):
+        schedule = name[1]
+
+        def run(buf):
+            frame_program(buf, self._blank, self.cfg, schedule)
+
+        return run
+
     def warm(self, schedules, m: MapState, n_kf: int, R, t) -> None:
         """Capture the graph of each schedule now, from the map ``m`` and
         the pose (R, t) (on the card; off it there is nothing to capture):
@@ -252,10 +306,7 @@ class FrameProgram(GraphRegions):
         R, t = np.asarray(R, np.float32).reshape(-1), np.asarray(t, np.float32).reshape(-1)
         upload(self.buf["x"], np.concatenate([[1.0], R, t, R, t, R, t, [n_kf]]).astype(np.float32))
         self._host_pred, self._n_kf = True, n_kf
-        for schedule in dict.fromkeys(schedules):
-            name = ("frame", schedule)
-            if name not in self._graph:
-                self._graph[name] = self._capture(self.region(name))
+        self._capture_schedules(schedules)
 
     def dispatch(self, img, m: MapState, n_kf: int, schedule: tuple,
                  prev: FrameOut | None = None, host=None) -> FrameOut:

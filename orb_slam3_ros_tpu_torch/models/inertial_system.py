@@ -12,14 +12,34 @@ against the map and the preintegration factor, and refine keyframes with
 the temporal-window visual-inertial BA. Two more initialization stages
 follow at +4 and +8 keyframes with weakening bias priors.
 
-A VI frame runs synchronously: preintegrate the frame's block at the
-anchor's bias, predict the state, extract, track from the predicted pose,
-refine, ONE packed host read (inliers, pose, v, bg, ba), then the state
-ladder and the keyframe decision. The anchor state and its covariance stay
-on the device from frame to frame. (The JAX package fuses this into one
-dispatch and drains it one frame late to hide its device link's fetch
-latency; neither is needed here.) A keyframe costs one more host read, an
+A VI frame runs one frame behind, as in the JAX package
+(``_process_frame_vi``): ``process_frame`` first drains the frame before it
+(``_drain_vi_pending``: the packed (inliers, pose, v, bg, ba) it copied to
+the host, the state ladder, the keyframe decision and any keyframe's work,
+at that frame's own id), then dispatches this frame with no host read
+(``vi_frame_program``: preintegration at the anchor's bias, the IMU
+prediction, extraction, tracking and the 15-dof refinement, on the card one
+CUDA graph replay) and returns the previous frame's pose: None at the first
+VI frame after a visual one. The anchor state and its covariance stay on
+the device from frame to frame. A keyframe costs one more host read, an
 initialization stage one for its solve and one for the state after its BA.
+The frame in flight is drained by ``flush`` (and so by ``get_trajectory``,
+a timestamp jump, compaction (``_make_room``), an Atlas archive, checkpoint
+saves, the control socket's ``save_map`` / ``save_traj``), by
+``process_frames`` before its chunk gate and by a frame that does not take
+the VI path; relocalization runs only once a drain has left tracking
+LOST.
+
+``pipelined`` (default False, the JAX package's): with True, the visual
+frames before the IMU initializes go through ``MonoSlam``'s pipelined frame
+(the frame graph and the deferred keyframe work; an initialization stage
+absorbs the deferred keyframe first). The frame in flight when a drain
+initializes the IMU was tracked against the map before its rescale: the
+next VI frame re-runs it through the VI frame program from the IMU
+prediction and posts it first (``_drain_pending``), so every dispatched
+frame is posted once, in frame order (the JAX package leaves it until
+``flush``: ROADMAP "Known faults in the reference"). The stereo, RGB-D and
+two-camera inertial systems keep their own synchronous frame.
 
 ``process_frames`` runs the steady state in chunks (``vi_device_loop``): on
 the card each frame is one replay of a captured CUDA graph of the frame
@@ -89,11 +109,12 @@ import numpy as np
 import torch
 
 from ..ops import imu as imu_ops
-from ..ops import orb, viba
+from ..ops import viba
 from ..utils import obslog
-from . import local_mapping, map_state, map_updates, tracking, vi_device_loop
+from . import local_mapping, map_state, map_updates, vi_device_loop
 from .chunk_runner import admit_keyframe_points, read_host, read_rows
 from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
+from .vi_frame_program import VIFrameConfig, VIFrameProgram
 
 
 def _vi_kf_work(
@@ -180,17 +201,16 @@ class InertialSlam(MonoSlam):
         vi_tracking: bool = True,
         **kw,
     ):
-        # The JAX package's default (its IMU prediction is host-driven). Its
-        # explicit pipelined=True runs the visual frames before the IMU's
-        # initialization one frame behind and then hands a frame in flight
-        # to the VI frame, whose own one-frame lag is not ported yet (ROADMAP
-        # Queue 1): refused here.
+        # The JAX package's default (its IMU prediction is host-driven); True
+        # pipelines the visual frames before the IMU's initialization.
         kw.setdefault("pipelined", False)
-        if kw["pipelined"]:
-            raise NotImplementedError(
-                f"{type(self).__name__}(pipelined=True): the inertial frame's one-frame lag is "
-                "not ported (ROADMAP Queue 1)")
         super().__init__(*args, **kw)
+        # The VI frame in flight (a dict: its VIFrameOut, ts, frame id) and
+        # the VI frame program, made at the first VI frame; with counts of
+        # the VI dispatches, the drains and the drains whose copy had landed.
+        self._vi_pending = None
+        self._vi_prog = None
+        self.pipe_counts.update(vi_dispatches=0, vi_drains=0, vi_ready=0)
         # Per-frame VI motion-only optimization once the IMU is initialized
         # and the RECENTLY_LOST dead-reckoning window it enables.
         self.vi_tracking = vi_tracking
@@ -365,13 +385,17 @@ class InertialSlam(MonoSlam):
 
     def process_frame(self, img, ts: float, acc=None, gyro=None, dts=None):
         """Track one frame with its IMU block (the samples since the
-        previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None."""
+        previous frame; arrays [M, 3] / [M]). Returns Twc [4, 4] or None;
+        on the VI path the previous frame's (module docstring)."""
         self._poll_replica()
         has_imu = self._record_frame_imu(ts, acc, gyro, dts)
         if self.imu_initialized and self.vi_tracking and has_imu and self.state in (OK, RECENTLY_LOST):
+            if self._pending is not None:
+                self._drain_pending()  # a visual frame in flight is posted first
             self._check_ts_jump(ts)
             if self.state in (OK, RECENTLY_LOST):
                 return self._process_frame_vi(img, ts)
+        self._drain_vi_pending()
         return super().process_frame(img, ts)
 
     def _fallback_frame_imu(self, img, ts, acc, gyro, dts):
@@ -415,21 +439,23 @@ class InertialSlam(MonoSlam):
                 n += m
         return a, g, d
 
-    def _frame_block(self, device=None) -> torch.Tensor:
-        """This frame's IMU samples as one [imu_cap_frame, 7] tensor
-        (acc | gyro | dt, zero rows as padding) on ``device`` (None: the map
-        device)."""
-        acc, gyro, dts = self._frame_imu
+    def _imu_block(self, imu) -> np.ndarray:
+        """A frame's IMU samples ``imu`` = (acc, gyro, dts) as one
+        [imu_cap_frame, 7] array (acc | gyro | dt, zero rows as padding)."""
+        acc, gyro, dts = imu
         blk = np.zeros((self.imu_cap_frame, 7), np.float32)
         n = min(len(acc), self.imu_cap_frame)
         blk[:n, 0:3], blk[:n, 3:6], blk[:n, 6] = acc[:n], gyro[:n], dts[:n]
-        return torch.from_numpy(blk).to(device or self.device)
+        return blk
 
-    def _preint_block(self, blk: torch.Tensor, b: torch.Tensor, calib=None) -> imu_ops.Preintegrated:
+    def _frame_block(self) -> torch.Tensor:
+        """This frame's ``_imu_block`` on the map device."""
+        return torch.from_numpy(self._imu_block(self._frame_imu)).to(self.device)
+
+    def _preint_block(self, blk: torch.Tensor, b: torch.Tensor) -> imu_ops.Preintegrated:
         # The tree form: in eager torch it beats the per-sample recursion at
         # the frame and the window shape alike (PERF.md).
-        return imu_ops.preintegrate(blk[..., 0:3], blk[..., 3:6], blk[..., 6], b,
-                                    calib or self.calib)
+        return imu_ops.preintegrate(blk[..., 0:3], blk[..., 3:6], blk[..., 6], b, self.calib)
 
     # ------------------------------------------------------------------
     def _predict_motion(self, ts):
@@ -454,65 +480,141 @@ class InertialSlam(MonoSlam):
         self.vel_t = t_cw - self.vel_R @ self.t_cur
         self.v_cur = buf[12:15].copy()
 
-    def _body_state_from_host(self, device=None):
-        """Anchor body state from the host's camera pose, velocity and
-        biases (used when no per-frame anchor exists yet), on ``device``
-        (None: the map device)."""
-        calib = self.calib if device is None else self._tcalib
+    def _body_state_from_host(self):
+        """Anchor body state on the map device from the host's camera pose,
+        velocity and biases (used when no per-frame anchor exists yet)."""
         buf = torch.from_numpy(np.concatenate([
             self.R_cur.reshape(-1), self.t_cur, self.v_cur, self.bg_cur, self.ba_cur,
-        ]).astype(np.float32)).to(device or self.device)
+        ]).astype(np.float32)).to(self.device)
         R_wb, p_wb = viba.body_from_cam(
-            buf[0:9].reshape(3, 3), buf[9:12], calib.R_bc, calib.t_bc
+            buf[0:9].reshape(3, 3), buf[9:12], self.calib.R_bc, self.calib.t_bc
         )
         return R_wb, p_wb, buf[12:15], buf[15:18], buf[18:21]
 
     # ------------------------------------------------------------------
+    # The VI frame's one-frame lag (the JAX package's _process_frame_vi and
+    # _drain_vi_pending, inertial_system.py:416-479).
     def _process_frame_vi(self, img, ts):
-        """An OK / RECENTLY_LOST frame once the IMU is initialized (on the
-        track device against the replica when split)."""
-        dev, cal = self.track_device, self._tcalib
-        anchor = self._vi_anchor or self._body_state_from_host(dev)
-        R_anc, p_anc, v_anc, bg_anc, ba_anc = anchor
-        anc_Sigma = self._vi_prior
-        if anc_Sigma is None:
-            anc_Sigma = torch.zeros((15, 15), dtype=torch.float32, device=dev)
-        b = torch.cat([bg_anc, ba_anc])
-        pre = self._preint_block(self._frame_block(dev), b, cal)
-        # PredictStateIMU from the previous frame's body state.
-        R2, p2, _ = imu_ops.predict_state(R_anc, p_anc, v_anc, b, pre)
-        R_pred, t_pred = viba.cam_from_body(R2, p2, cal.R_bc, cal.t_bc)
-        feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
-        tm = self._tmap()
-        if self._replica is not None:
-            self._replica.note_frame()
-        res = tracking.track_against_map(
-            tm, feats, R_pred, t_pred, self._track_cam, self.width, self.height,
-            schedule=self._current_schedule(), track_cap=self.track_cap, cam_model=self.cam_model,
-        )
-        vires, R_cw, t_cw = _vi_refine(
-            tm, feats, res.feat_pt, res.R, res.t, v_anc, bg_anc, ba_anc,
-            R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self._track_cam,
-            cal.R_bc, cal.t_bc, self.cam_model,
-        )
-        # The frame's one host read.
-        buf = torch.cat([
-            vires.n_inliers.reshape(1).to(torch.float32), R_cw.reshape(9), t_cw,
-            vires.v_w, vires.bg, vires.ba,
-        ]).cpu().numpy()
-        out = self._vi_post(feats, res, vires, ts, buf)
+        """An OK / RECENTLY_LOST frame once the IMU is initialized: drain
+        the frame before it (its keyframe work included), then dispatch this
+        one (on the track device against the replica when split). Returns
+        the drained frame's pose, or None."""
+        out = self._drain_vi_pending()
+        if self.state not in (OK, RECENTLY_LOST):
+            # the drained frame lost tracking: this one recovers
+            return super().process_frame(img, ts)
+        self._vi_pending = self._dispatch_vi(img, ts, self._frame_imu, self.frame_id)
         self.frame_id += 1
         return out
 
-    def _track_post(self, feats, res, ts):
+    def _vi_frame_program(self) -> VIFrameProgram:
+        if self._vi_prog is None:
+            m = self.map
+            self._vi_prog = VIFrameProgram(VIFrameConfig(
+                config=self.config, cam_params=self._track_cam, calib=self._tcalib,
+                width=self.width, height=self.height, track_cap=self.track_cap,
+                cam_model=self.cam_model, uint8=self.transfer_uint8, K=m.K, N=m.N, P=m.P,
+                imu_cap_frame=self.imu_cap_frame,
+            ), self.track_device)
+        return self._vi_prog
+
+    def _dispatch_vi(self, img, ts: float, imu, idx: int) -> dict:
+        """Frame ``img`` with its IMU samples ``imu`` = (acc, gyro, dts)
+        through the VI frame program, with no host read, from the previous
+        frame's refined state on the device, or from the host's pose,
+        velocity and biases where there is none. Returns the dispatched frame
+        (its ``VIFrameOut``, ts, frame id ``idx``)."""
+        if self._replica is not None:
+            # the drain before this dispatch may have started a refresh:
+            # adopt it if it has landed (off the card it has)
+            self._replica.poll()
+            self._replica.note_frame()
+        host = None
+        if self._vi_anchor is None:
+            host = np.concatenate([self.R_cur.reshape(-1), self.t_cur, self.v_cur, self.bg_cur,
+                                   self.ba_cur])
+        out = self._vi_frame_program().dispatch(
+            img, self._imu_block(imu), self._tmap(), self._current_schedule(),
+            anchor=self._vi_anchor, Sigma=self._vi_prior, host=host,
+            warm=(self._sched_dense, self._sched_lean),
+        )
+        self.pipe_counts["vi_dispatches"] += 1
+        return dict(out=out, ts=ts, idx=idx)
+
+    def _drain_vi_pending(self):
+        """The VI frame in flight through ``_vi_post`` at its own frame id
+        (its host copy waited for). Returns its pose, or None."""
+        p = self._vi_pending
+        if p is None:
+            return None
+        self._vi_pending = None
+        out = p["out"]
+        self.pipe_counts["vi_drains"] += 1
+        self.pipe_counts["vi_ready"] += out.host.ready()
+        buf = out.host.get()
+        saved, self.frame_id = self.frame_id, p["idx"]
+        try:
+            return self._vi_post(out.feats, out.res, out.vires, p["ts"], buf)
+        finally:
+            self.frame_id = max(saved, self.frame_id)
+
+    def flush(self):
+        """Drain the VI frame in flight, then ``MonoSlam.flush``. Returns
+        the last pose drained."""
+        out = self._drain_vi_pending()
+        out2 = super().flush()
+        return out2 if out2 is not None else out
+
+    def _poll_between_chunks(self) -> None:
+        """``MonoSlam``'s, with the VI frame in flight drained before the
+        visual one (the JAX package's ``process_frames``)."""
+        self._poll_gba()
+        self._drain_vi_pending()
+        self._drain_pending()
+
+    def _dispatch(self, img, ts: float, schedule: tuple, prev) -> dict:
+        """``MonoSlam``'s pipelined dispatch, the frame's image and IMU
+        samples kept with it: its drain posts it with its own IMU block, and
+        the handoff (``_drain_pending``) runs it again."""
+        d = super()._dispatch(img, ts, schedule, prev)
+        d.update(img=img, imu=self._frame_imu)
+        return d
+
+    def _drain_pending(self):
+        """``MonoSlam``'s drain of the visual frame in flight, with the
+        frame's own IMU samples. The handoff: a frame dispatched before the
+        IMU initialized, drained after, was tracked against the map before
+        its gravity alignment and rescale; it goes through the VI frame
+        program now, from the IMU prediction, and is drained at once."""
+        p = self._pending
+        if p is None:
+            return super()._drain_pending()
+        if (self.imu_initialized and self.vi_tracking and p["imu"][0] is not None
+                and self.state == OK):
+            self._pending = None
+            self._apply_kf_async()
+            self._poll_gba()
+            self._poll_replica()
+            self._vi_pending = self._dispatch_vi(p["img"], p["ts"], p["imu"], p["idx"])
+            return self._drain_vi_pending()
+        saved, self._frame_imu = self._frame_imu, p["imu"]
+        try:
+            return super()._drain_pending()
+        finally:
+            self._frame_imu = saved
+
+    def _track_post(self, feats, res, ts, fetched=None):
         """The 15-dof refinement of a visually tracked frame once the IMU is
         initialized (the JAX package's ``InertialSlam._track_post``): the
         path of frames whose features a subclass extracted (stereo, RGB-D),
         seeded by the IMU-predicted motion model and velocity, anchored at
         the state that prediction started from. Otherwise the parent's (the
-        stereo refinement of a stereo system)."""
+        stereo refinement of a stereo system), with ``fetched``, the
+        pipelined drain's host copy, where there is one."""
         if not (self.imu_initialized and self.vi_tracking) or self._frame_imu[0] is None:
-            return super()._track_post(feats, res, ts)
+            if fetched is None:  # the rigs' parents (synchronous) take no ``fetched``
+                return super()._track_post(feats, res, ts)
+            return super()._track_post(feats, res, ts, fetched=fetched)
         dev = self.device
         anchor, self._host_anchor = self._vi_anchor or self._host_anchor, None
         R_anc, p_anc, v_anc, bg_anc, ba_anc = anchor or self._body_state_from_host()
@@ -632,6 +734,7 @@ class InertialSlam(MonoSlam):
         time includes its device work. A stage rotates and rescales the whole
         map: a split system's replica is refreshed at once (the JAX package
         refreshes it only after the next keyframe)."""
+        self._apply_kf_async(force=True)  # a deferred keyframe's pose predates the stage
         t0 = time.perf_counter()
         fn(**kw)
         self.init_stage_ms[stage] = (time.perf_counter() - t0) * 1e3
@@ -1050,6 +1153,9 @@ class InertialSlam(MonoSlam):
         rows, kf_ids = runner.run_chunk(
             stack, off, torch.from_numpy(xs).to(self.device), self._current_schedule(), n_kf0
         )
+        for prog in (self._frame_prog, self._vi_prog):
+            if prog is not None:
+                prog.forget_map()  # the step graphs wrote the map in place
         c = runner.carry()
         self.map = c.m
         # The chunk's one read: its rows, the carried body state, the

@@ -73,3 +73,12 @@ def keyframe_work(
     if do_cull:
         m, _ = map_updates.cull_keyframes(m, kf_id + 1, n_levels=n_levels)
     return m, n_new, iters
+
+
+def keyframe_work_impl(*args, **kw) -> tuple[MapState, torch.Tensor]:
+    """The JAX package's ``keyframe_work_impl``: ``keyframe_work`` without
+    the iteration count, (map, n_new_points). Its ``row_n`` BA formulation
+    is a TPU workaround, not ported; under KB8 the JAX function reads the
+    camera as pinhole (ROADMAP "Known faults"), this one keeps
+    ``cam_model``."""
+    return keyframe_work(*args, **kw)[:2]

@@ -58,6 +58,18 @@ from .tracking import kf_features
 SIM3_RADIUS = 8.0  # SearchBySim3's search radius in level-0 pixels (x 1.2^level)
 
 
+class LoopCandidate(NamedTuple):
+    """A verified loop hypothesis on the host: the candidate keyframe and
+    the Sim(3) (s, R, t) with its inlier count (the JAX package's record
+    type; the closer keeps its hypotheses on the device)."""
+
+    cand_kf: int
+    s: float
+    R: np.ndarray
+    t: np.ndarray
+    n_inliers: int
+
+
 class Sim3Pairs(NamedTuple):
     """Matched landmark pairs between keyframes 1 and 2, by kf1's feature slot."""
 

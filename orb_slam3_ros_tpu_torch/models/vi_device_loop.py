@@ -134,6 +134,51 @@ def need_keyframe(ok, n_vis, since, ref_inl, n_kf, *, K_cap, kf_every, kf_min_in
     return ok & (n_kf < K_cap) & ((since >= kf_every) | weak)
 
 
+class VIFrame(NamedTuple):
+    """What ``vi_frame`` computes for one frame."""
+
+    feats: orb.Features
+    ur: torch.Tensor | None  # stereo: each feature's right-image x (-1: none)
+    depth: torch.Tensor | None
+    res: tracking.TrackResult
+    vires: viba.PoseInertialResult
+    R_cw: torch.Tensor  # the refined pose
+    t_cw: torch.Tensor
+    R_pred: torch.Tensor  # the IMU prediction tracking started from
+    t_pred: torch.Tensor
+
+
+def vi_frame(m: MapState, img, imu, R_wb, p_wb, v, bg, ba, Sigma, cfg, schedule: tuple) -> VIFrame:
+    """One VI frame against map ``m`` (the JAX package's
+    ``_vi_fused_program`` and the first half of its chunk's scan body):
+    preintegrate the frame's IMU block ``imu`` [M, 7] (acc | gyro | dt,
+    zero rows as padding) at the anchor's bias, predict the state from the
+    anchor (R_wb, p_wb, v, bg, ba) (PredictStateIMU, Tracking.cc:1774),
+    extract (``chunk_runner.prep_frame``), track from the prediction, then
+    the 15-dof refinement against the map and the preintegration factor,
+    the anchor's covariance ``Sigma`` [15, 15] (zeros: exact) marginalized
+    in. ``cfg``: a chunk or VI frame configuration."""
+    from .inertial_system import _vi_refine
+
+    calib = cfg.calib
+    b = torch.cat([bg, ba])
+    pre = imu_ops.preintegrate(imu[:, 0:3], imu[:, 3:6], imu[:, 6], b, calib)
+    R2, p2, _ = imu_ops.predict_state(R_wb, p_wb, v, b, pre)
+    R_pred, t_pred = viba.cam_from_body(R2, p2, calib.R_bc, calib.t_bc)
+    feats, ur, depth = prep_frame(img, cfg)
+    res = tracking.track_against_map(
+        m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
+        schedule=schedule, track_cap=cfg.track_cap, cam_model=cfg.cam_model,
+    )
+    vires, R_cw, t_cw = _vi_refine(
+        m, feats, res.feat_pt, res.R, res.t, v, bg, ba,
+        R_wb, p_wb, v, bg, ba, pre, Sigma, cfg.cam_params,
+        calib.R_bc, calib.t_bc, cfg.cam_model,
+    )
+    return VIFrame(feats=feats, ur=ur, depth=depth, res=res, vires=vires, R_cw=R_cw, t_cw=t_cw,
+                   R_pred=R_pred, t_pred=t_pred)
+
+
 def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
     """One frame: the JAX chunk's scan body up to its keyframe branch.
     ``img`` [H, W], or [2, H, W] with ``cfg.stereo`` (any real dtype,
@@ -143,15 +188,12 @@ def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
     ``fr`` holds what a keyframe at this frame needs (``f_*`` features,
     pose, ``kf_id``) and the frame's ``row`` and ``flags`` (need_kf,
     alive). The carry already counts the keyframe the flags call for."""
-    from .inertial_system import _vi_refine
-
     M, S = cfg.imu_cap_frame, cfg.imu_cap_kf
     dev = img.device
-    calib = cfg.calib
     imu = x_in[: M * 7].reshape(M, 7)
     ts = x_in[M * 7]
     fid = x_in[M * 7 + 1].to(torch.int32)
-    a, g, d = imu[:, 0:3], imu[:, 3:6], imu[:, 6]
+    d = imu[:, 6]
     st = c.st
     # Append the frame's samples to the since-last-keyframe block; samples
     # past its capacity go to a spare row that is cut off (the JAX
@@ -162,22 +204,8 @@ def frame_step(c: VICarry, img, x_in, cfg: VIChunkConfig, schedule: tuple):
     n_valid = torch.sum(d > 0, dtype=torch.int32)
     blk_ok = st.blk_ok & (st.blk_n + n_valid <= S)
     blk_n = torch.clamp(st.blk_n + n_valid, max=S)
-    # Preintegrate the frame block and predict the pose (PredictStateIMU,
-    # Tracking.cc:1774).
-    b = torch.cat([st.bg, st.ba])
-    pre = imu_ops.preintegrate(a, g, d, b, calib)
-    R2, p2, _ = imu_ops.predict_state(st.R_wb, st.p_wb, st.v, b, pre)
-    R_pred, t_pred = viba.cam_from_body(R2, p2, calib.R_bc, calib.t_bc)
-    feats, ur, depth = prep_frame(img, cfg)
-    res = tracking.track_against_map(
-        c.m, feats, R_pred, t_pred, cfg.cam_params, cfg.width, cfg.height,
-        schedule=schedule, track_cap=cfg.track_cap, cam_model=cfg.cam_model,
-    )
-    vires, R_cw, t_cw = _vi_refine(
-        c.m, feats, res.feat_pt, res.R, res.t, st.v, st.bg, st.ba,
-        st.R_wb, st.p_wb, st.v, st.bg, st.ba, pre, st.Sigma, cfg.cam_params,
-        calib.R_bc, calib.t_bc, cfg.cam_model,
-    )
+    f = vi_frame(c.m, img, imu, st.R_wb, st.p_wb, st.v, st.bg, st.ba, st.Sigma, cfg, schedule)
+    feats, ur, depth, res, vires, R_cw, t_cw, R_pred, t_pred = f
     n_vis = vires.n_inliers
     ok = c.alive & (n_vis >= 15)
 

@@ -123,3 +123,26 @@ def select_grid(score: torch.Tensor, post_mask: torch.Tensor, max_kp: int, cell:
         resp = torch.cat([resp, torch.full((pad,), neg_inf, dtype=torch.float32, device=dev)])
         valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool, device=dev)])
     return xy, resp, valid
+
+
+def fast_score_map(img: torch.Tensor, threshold: float):
+    """(corner_mask [H, W] bool, score [H, W] f32) for one threshold: the
+    score sums |p_i - c| - t over the circle pixels past the threshold
+    (the FAST "V" response that orders corners for NMS)."""
+    return _score_from_diff(_circle_stack(img) - img[None], threshold)
+
+
+def detect_grid(img: torch.Tensor, max_kp: int, cell: int, ini_threshold: float = 20.0,
+                min_threshold: float = 7.0, border: int = 19):
+    """Up to ``max_kp`` well-spread FAST corners of one pyramid level: the
+    two-threshold score map, NMS, one corner a cell, the top cells.
+    ``border`` masks the margin descriptor patches need (EDGE_THRESHOLD,
+    ORBextractor.cc:793), after NMS. Returns (xy [max_kp, 2] f32 in level
+    pixels, response [max_kp], valid [max_kp]); invalid slots have response
+    -inf and xy (0, 0)."""
+    h, w = img.shape
+    score = score_map_combined(img, ini_threshold, min_threshold)
+    ys = torch.arange(h, device=img.device)[:, None]
+    xs = torch.arange(w, device=img.device)[None, :]
+    inb = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
+    return select_grid(score, inb, max_kp, cell)

@@ -31,6 +31,25 @@ def hamming_matrix(sign_a: torch.Tensor, sign_b: torch.Tensor) -> torch.Tensor:
     return torch.addmm(bias, half, sign_b.to(torch.float32).T).to(torch.int32)
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit-population count of 32-bit words (SWAR), as int32. ``x`` holds
+    the words as int32 (two's complement of the uint32 pattern, as
+    ``orb.Features.desc_packed`` does) or int64; the arithmetic runs in
+    int64 on the low 32 bits, masked after each product, because torch's
+    uint32 supports few operations."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def hamming_packed(packed_a: torch.Tensor, packed_b: torch.Tensor) -> torch.Tensor:
+    """[..., 8] packed descriptors (int32 words) -> their distance along
+    the last axis, pair by pair (no pairwise matrix)."""
+    return torch.sum(popcount32(packed_a ^ packed_b), dim=-1, dtype=torch.int32)
+
+
 def _best2(d: torch.Tensor):
     """(best_idx, best, second) per row of an already masked matrix. The
     second-best excludes only the argmin column: the two smallest values

@@ -208,6 +208,12 @@ def se3_inv(R, t):
     return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
 
 
+def se3_apply(R, t, x):
+    """Apply the pose (R, t) to points ``x`` [..., 3] (broadcasting over
+    point batches)."""
+    return torch.einsum("...ij,...j->...i", R, x) + t
+
+
 # ---------------------------------------------------------------------------
 # Sim(3): (R, t, s) with action x -> s R x + t; tangent zeta = (rho, phi, sigma).
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Oriented binary descriptors + the multi-level feature extractor — port of
-``orb_slam3_ros_tpu.ops.orb`` (``extract`` and what it calls).
+``orb_slam3_ros_tpu.ops.orb`` (``extract``, what it calls, and the per-level
+helpers ``orientation_maps``, ``angles_at(_dense)`` and
+``compute_descriptors``; ``extract_looped`` is not ported).
 
 Layouts match the JAX package's ``Features``: int32 levels, int8 +-1 sign
 descriptors. ``desc_packed`` is int32 carrying the uint32 bit pattern of the
@@ -162,15 +164,76 @@ def _patch_blur(patches: torch.Tensor, ksize: int = 7, sigma: float = 2.0):
     return torch.einsum("nkj,jl->nkl", x, B)  # cols (dim 2), VALID
 
 
-def _descriptors_from_patches(bpatch: torch.Tensor, angle: torch.Tensor):
-    """Steered 256-pair tests sampled from blurred patches [N, D, D]."""
-    n, D, _ = bpatch.shape
+def _steered_offsets(angle: torch.Tensor) -> torch.Tensor:
+    """[N, P, 2 (endpoint), 2 (xy)]: the test pattern rotated by each
+    keypoint's angle, rounded half to even (``jnp.round``'s rule)."""
     ca, sa = torch.cos(angle), torch.sin(angle)
     rot = torch.stack(
         [torch.stack([ca, -sa], -1), torch.stack([sa, ca], -1)], dim=-2
     )  # [N, 2, 2]
-    pat = device_table(_pattern, (), None, bpatch.device)  # [P, 2, 2]
-    off = torch.round(torch.einsum("nij,pkj->npki", rot, pat)).to(torch.int64)
+    pat = device_table(_pattern, (), None, angle.device)  # [P, 2, 2]
+    return torch.round(torch.einsum("nij,pkj->npki", rot, pat))
+
+
+def _gather_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, S: int):
+    """[N, S, S] patches of ``img`` at top-left corners (y0, x0) [N]
+    (int64, already in range)."""
+    ar = torch.arange(S, device=img.device)
+    return img[(y0[:, None] + ar)[:, :, None], (x0[:, None] + ar)[:, None, :]]
+
+
+def _patch_angles(center: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientations [N] of [N, 31, 31] patches (their
+    moments as one product with the disc's weights)."""
+    kern = device_table(_moment_matrix, (), None, center.device)
+    mom = center.reshape(center.shape[0], -1) @ kern  # [N, 2]
+    return torch.atan2(mom[:, 1], mom[:, 0])
+
+
+def orientation_maps(img: torch.Tensor):
+    """(m10 map, m01 map): each pixel's intensity-centroid moments over the
+    31-px disc, as two zero-padded convolutions."""
+    return tuple(pyr_mod.conv2d_same(img, torch.as_tensor(k, device=img.device))
+                 for k in (_KX, _KY))
+
+
+def angles_at_dense(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Keypoint orientations [N] read from the whole-image moment maps
+    (``orientation_maps``; the test reference of ``angles_at``)."""
+    m10, m01 = orientation_maps(img)
+    xi = torch.clamp(xy[:, 0].to(torch.int64), 0, img.shape[1] - 1)
+    yi = torch.clamp(xy[:, 1].to(torch.int64), 0, img.shape[0] - 1)
+    return torch.atan2(m01[yi, xi], m10[yi, xi])
+
+
+def angles_at(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Keypoint orientations [N] (radians) from 31x31 patches gathered at
+    the keypoints (``extract``'s orientation stage); a patch that would
+    leave the image is clamped inside it."""
+    h, w = img.shape
+    S = 2 * PATCH_R + 1
+    x0 = torch.clamp(xy[:, 0].to(torch.int64) - PATCH_R, 0, w - S)
+    y0 = torch.clamp(xy[:, 1].to(torch.int64) - PATCH_R, 0, h - S)
+    return _patch_angles(_gather_patches(img, y0, x0, S))
+
+
+def compute_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor):
+    """Steered 256-bit binary descriptors sampled from a blurred level
+    image [H, W] at keypoints ``xy`` [N, 2] (level pixels) with
+    orientations ``angle`` [N]; each sample clamped into the image.
+    Returns bits [N, 256] bool."""
+    h, w = blurred.shape
+    coords = xy[:, None, None, :] + _steered_offsets(angle)  # [N, P, 2, 2]
+    xi = torch.clamp(coords[..., 0].to(torch.int64), 0, w - 1)
+    yi = torch.clamp(coords[..., 1].to(torch.int64), 0, h - 1)
+    vals = blurred[yi, xi]  # [N, P, 2]
+    return vals[..., 0] < vals[..., 1]
+
+
+def _descriptors_from_patches(bpatch: torch.Tensor, angle: torch.Tensor):
+    """Steered 256-pair tests sampled from blurred patches [N, D, D]."""
+    n, D, _ = bpatch.shape
+    off = _steered_offsets(angle).to(torch.int64)
     cx = torch.clamp(off[..., 0] + _BLUR_R, 0, D - 1)  # [N, P, 2]
     cy = torch.clamp(off[..., 1] + _BLUR_R, 0, D - 1)
     flat_idx = (cy * D + cx).reshape(n, -1)  # [N, P*2]
@@ -236,15 +299,11 @@ def extract(img: torch.Tensor, config: ExtractorConfig) -> Features:
     offs_arr = device_table(np.asarray, (tuple(offs),), torch.int64, dev)[lvl.long()]
     y0 = torch.clamp(xy_lv[:, 1].to(torch.int64) + M - PATCH_RAW, 0, Hs - S)
     x0 = torch.clamp(xy_lv[:, 0].to(torch.int64) + offs_arr - PATCH_RAW, 0, Ws - S)
-    ar = torch.arange(S, device=dev)
-    patches = strip[(y0[:, None] + ar)[:, :, None], (x0[:, None] + ar)[:, None, :]]
+    patches = _gather_patches(strip, y0, x0, S)
 
     # Orientation from the centre 31x31.
     c0 = PATCH_RAW - PATCH_R
-    center = patches[:, c0 : c0 + 2 * PATCH_R + 1, c0 : c0 + 2 * PATCH_R + 1]
-    kern = device_table(_moment_matrix, (), None, dev)
-    mom = center.reshape(center.shape[0], -1) @ kern  # [N, 2]
-    ang = torch.atan2(mom[:, 1], mom[:, 0])
+    ang = _patch_angles(patches[:, c0 : c0 + 2 * PATCH_R + 1, c0 : c0 + 2 * PATCH_R + 1])
 
     bits = _descriptors_from_patches(_patch_blur(patches), ang)
 

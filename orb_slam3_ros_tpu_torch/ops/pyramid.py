@@ -1,5 +1,4 @@
-"""Image pyramid — port of ``orb_slam3_ros_tpu.ops.pyramid`` (the parts
-ORB extraction uses).
+"""Image pyramid and Gaussian blur — port of ``orb_slam3_ros_tpu.ops.pyramid``.
 
 ``jax.image.resize(..., "bilinear")`` antialiases when it shrinks (its
 triangle kernel widens by the scale factor); ``F.interpolate`` only does so
@@ -44,3 +43,29 @@ def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(ksize) - r
     k = np.exp(-(x**2) / (2.0 * sigma**2))
     return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur_batched(imgs: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur of a stack [L, H, W], each image padded by
+    reflection (without repeating the edge, the reference's
+    BORDER_REFLECT_101 in cv::GaussianBlur(7, 7, 2, 2)): two 1-D
+    convolutions, the stack on the batch axis."""
+    k = torch.as_tensor(_gaussian_kernel1d(ksize, sigma), device=imgs.device)
+    pad = ksize // 2
+    x = F.pad(imgs[:, None], (0, 0, pad, pad), mode="reflect")
+    x = F.conv2d(x, k.reshape(1, 1, ksize, 1))
+    x = F.pad(x, (pad, pad, 0, 0), mode="reflect")
+    return F.conv2d(x, k.reshape(1, 1, 1, ksize))[:, 0]
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """``gaussian_blur_batched`` of one [H, W] image."""
+    return gaussian_blur_batched(img[None], ksize, sigma)[0]
+
+
+def conv2d_same(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Single-channel 2-D correlation of [H, W] with ``kernel`` [kh, kw]
+    (odd sizes), zero-padded to the same size."""
+    kh, kw = kernel.shape
+    return F.conv2d(img[None, None], kernel[None, None].to(img.dtype),
+                    padding=(kh // 2, kw // 2))[0, 0]

@@ -40,22 +40,53 @@ SLAM_KW = dict(height=240, width=376, n_features=1200, max_keyframes=32, max_poi
 JAX_RESULT = dict(metric=0.02258, scale=0.96793, n=31, bg=[0.01762, -0.01235, 0.01911], n_kf=16)
 
 
+POSTS = (("_try_initialize", 1), ("_track_post", 2), ("_vi_post", 3))  # (method, ts argument)
+
+
+def record_posts(slam) -> dict:
+    """Wrap ``slam``'s posting methods (a frame's initialization, its
+    tracking's or its VI frame's host side; each returns the frame's pose
+    after its keyframe work) to record their returns by the frame's
+    timestamp, until ``unwrap_posts``."""
+    posts = {}
+
+    def recording(fn, at):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            posts[float(a[at])] = out
+            return out
+        return wrapped
+
+    for name, at in POSTS:
+        setattr(slam, name, recording(getattr(slam, name), at))
+    return posts
+
+
+def unwrap_posts(slam) -> None:
+    for name, _ in POSTS:
+        delattr(slam, name)
+
+
 def _run(slam, seq, imu):
+    posts = record_posts(slam)
     outs = [
         slam.process_frame(seq.images[i], float(seq.timestamps[i]),
                            acc=imu["acc"][i], gyro=imu["gyro"][i], dts=imu["dts"][i])
         for i in range(N_FRAMES)
     ]
-    getattr(slam, "flush", lambda: None)()  # the JAX package drains its last frame here
+    flushed = slam.flush()  # the VI frames lag one frame: the last one is drained here
+    unwrap_posts(slam)
     traj = slam.get_trajectory()
-    ts = np.asarray([t for t, _ in traj])[N_SKIP:]
+    traj_ts = np.asarray([t for t, _ in traj])
+    ts = traj_ts[N_SKIP:]
     est = np.stack([T[:3, 3] for _, T in traj])[N_SKIP:]
     gt_ts = seq.timestamps.astype(np.float64)
     _, n, scale = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=True)
     metric, _, _ = ate_rmse(ts, est, gt_ts, seq.t_wc, with_scale=False)
     gt = seq.t_wc[np.clip(np.searchsorted(seq.timestamps, ts), 0, N_FRAMES - 1)]
     _, R, _ = align_umeyama(est, gt, with_scale=True)
-    return dict(outs=outs, n=n, scale=scale, metric=metric, r22=R[2, 2])
+    return dict(outs=outs, flushed=flushed, posts=posts, traj_ts=traj_ts, frame_ts=gt_ts, n=n,
+                scale=scale, metric=metric, r22=R[2, 2])
 
 
 @pytest.fixture(scope="module")
@@ -83,6 +114,29 @@ def _first_pose(res):
     return next(i for i, o in enumerate(res["outs"]) if o is not None)
 
 
+def _lag_ok(res) -> bool:
+    """The one-frame lag of the VI frames (the JAX package's
+    ``_process_frame_vi``): a visual frame's call returns its own pose; the
+    first VI frame's returns None, and each later call the previous
+    frame's (as its post returned it). None nowhere else after the first
+    pose."""
+    outs, posts = res["outs"], res["posts"]
+    ts = [float(t) for t in res["frame_ts"]]
+    first = _first_pose(res)
+    nones = [i for i in range(first, N_FRAMES) if outs[i] is None]
+    if len(nones) != 1:
+        return False
+    v = nones[0]
+    return all(np.array_equal(outs[i], posts[ts[i] if i < v else ts[i - 1]])
+               for i in range(first, N_FRAMES) if i != v)
+
+
+def _flush_ok(res) -> bool:
+    """``flush`` drains the last frame and returns its pose."""
+    last = float(res["frame_ts"][-1])
+    return res["flushed"] is not None and np.array_equal(res["flushed"], res["posts"][last])
+
+
 CHECKS = {
     "state_ok": lambda t, r, imu: t.state == tsys.OK,
     "imu_initialized": lambda t, r, imu: t.imu_initialized,
@@ -91,8 +145,14 @@ CHECKS = {
     "no_bad_imu_reset": lambda t, r, imu: t.bad_imu_resets == 0,
     "at_least_8_keyframes": lambda t, r, imu: t.n_kf >= 8,
     "map_initialized_by_frame_3": lambda t, r, imu: _first_pose(r) <= 3,
+    # every frame from the first pose on has its pose, in order (a VI call
+    # returns the frame before it: ``vi_frames_lag_one_frame``)
     "no_frame_lost_after_initialization":
-        lambda t, r, imu: all(o is not None for o in r["outs"][_first_pose(r):]),
+        lambda t, r, imu: np.allclose(r["traj_ts"], r["frame_ts"][_first_pose(r):]),
+    "vi_frames_lag_one_frame": lambda t, r, imu: _lag_ok(r),
+    "jax_vi_frames_lag_one_frame": lambda t, r, imu: _lag_ok(r["jax"]),
+    "flush_returns_the_last_frame": lambda t, r, imu: _flush_ok(r),
+    "jax_flush_returns_the_last_frame": lambda t, r, imu: _flush_ok(r["jax"]),
     "enough_poses_scored": lambda t, r, imu: r["n"] >= 20,
     # The JAX test's bounds: scale within 5%, metric ATE < 0.10 m; and the
     # port no worse than the JAX package's run beside it by more than 2 cm
@@ -197,14 +257,18 @@ def test_dead_reckoning_then_lost(runs):
     # A blank frame has no visual support: dead reckoning on the IMU
     # (RECENTLY_LOST), and LOST once time_recently_lost has passed; a LOST
     # blank frame then fails to relocalize and stays LOST.
+    # Each VI frame is settled by ``flush`` (the one-frame lag), which
+    # returns its pose.
     slam, _, imu, _ = runs
     img = np.zeros((240, 376), np.float32)
     kw = dict(acc=imu["acc"][5], gyro=imu["gyro"][5], dts=imu["dts"][5])
     ts = float(slam._last_frame_ts)
-    assert slam.process_frame(img, ts + 0.1, **kw) is not None
+    assert slam.process_frame(img, ts + 0.1, **kw) is None  # dispatched, not drained
+    assert slam.flush() is not None
     assert slam.state == tsys.RECENTLY_LOST
     slam.time_recently_lost = 0.05
-    assert slam.process_frame(img, ts + 0.2, **kw) is None and slam.state == tsys.LOST
+    slam.process_frame(img, ts + 0.2, **kw)
+    assert slam.flush() is None and slam.state == tsys.LOST
     assert slam.process_frame(img, ts + 0.3, **kw) is None and slam.state == tsys.LOST
     assert slam._vi_anchor is None and slam._vi_prior is None
     # the observation hook is ported: a LOST frame emits no frame event
@@ -221,7 +285,7 @@ def _lose_and_relocalize(slam, seq, imu, flush):
     """The last frame's state 0.1 s on: two blank frames (RECENTLY_LOST,
     then LOST), a third blank (LOST, relocalization fails), then the last
     frame's image again with its IMU block (relocalization), then once more
-    (``flush`` settles the JAX package's one-frame lag after each). Returns
+    (``flush`` settles the VI frames' one-frame lag after each). Returns
     (the state after each frame, the VI state and pose after the
     relocalizing frame)."""
     img, i = np.zeros((240, 376), np.float32), N_FRAMES - 1
@@ -246,7 +310,8 @@ def _lose_and_relocalize(slam, seq, imu, flush):
 def recovered(runs):
     tslam, tres, timu_, tseq = runs
     jslam, jseq, jimu = tres["jax_system"]
-    return dict(port=_lose_and_relocalize(tres["port_system"], tseq, timu_, lambda: None),
+    port = tres["port_system"]
+    return dict(port=_lose_and_relocalize(port, tseq, timu_, port.flush),
                 jax=_lose_and_relocalize(jslam, jseq, jimu, jslam.flush),
                 systems=(tres["port_system"], jslam))
 

@@ -365,13 +365,15 @@ def kb8_runs():
     seq, im, scene = _vi_seq(sc.TEST_VI_FRAMES)
     slam = InertialSlam(height=sc.TEST_H, width=sc.TEST_W, cam_params=sc.TEST_KB8, cam_model="kb8",
                         calib=_calib(), device="cpu", **sc.TEST_VI_KW)
-    posed, imu_at = [], None
+    imu_at = None
     for i in range(sc.TEST_VI_FRAMES):
-        if slam.process_frame(_view(scene, seq.R_wc[i], seq.t_wc[i]), float(seq.timestamps[i]),
-                              acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i]) is not None:
-            posed.append(i)
+        slam.process_frame(_view(scene, seq.R_wc[i], seq.t_wc[i]), float(seq.timestamps[i]),
+                           acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i])
         if slam.imu_initialized and imu_at is None:
             imu_at = i
+    # the frames with a pose, from the trajectory: a VI frame's call returns
+    # the frame before it, and ``get_trajectory`` drains the last one
+    posed = [int(np.argmin(np.abs(seq.timestamps - t))) for t, _ in slam.get_trajectory()]
     out["vi"] = dict(slam=slam, posed=posed, imu_at=imu_at, **_metric(slam, seq, sc.VI_SKIP))
 
     seq, im, scene = _vi_seq(sc.TEST_RIG_FRAMES)

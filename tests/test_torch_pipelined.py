@@ -373,21 +373,30 @@ def _systems(package, **extra):
 @pytest.mark.parametrize("name", list(_systems("torch")))
 def test_subclass_pipelined_follows_jax(name):
     """Each class's default is the JAX class's (the mono system pipelined,
-    every other False). An explicit True: the stereo, RGB-D and two-camera
-    systems keep their own synchronous frame and keyframe (the flag changes
-    nothing, as in the JAX package); the inertial systems refuse it, their
-    one-frame lag being the next slice (ROADMAP Queue 1)."""
+    every other False). An explicit True: the mono and the mono-inertial
+    systems take their visual frames one frame behind through
+    ``MonoSlam``'s pipelined frame (the inertial one's VI frames lag on
+    their own path either way); the stereo, RGB-D and two-camera systems
+    and their inertial variants keep their own synchronous frame and
+    keyframe (the flag changes nothing, as in the JAX package). One blank
+    frame shows each class's route."""
     j = _systems("jax")[name]()
     t = _systems("torch")[name]()
     assert t.pipelined == j.pipelined == (name == "MonoSlam")
     assert _systems("jax", pipelined=True)[name]().pipelined
-    if "Inertial" in name:
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            _systems("torch", pipelined=True)[name]()
-        return
     t_true = _systems("torch", pipelined=True)[name]()
     assert t_true.pipelined
-    if name != "MonoSlam":
+    routed = []
+    t_true._process_frame_pipelined = lambda img, ts: routed.append(ts)
+    blank = np.zeros((H, W), np.float32)
+    imu = {}
+    if "Inertial" in name:
+        imu = dict(acc=np.zeros((10, 3), np.float32), gyro=np.zeros((10, 3), np.float32),
+                   dts=np.full(10, 0.01, np.float32))
+    mono = name in ("MonoSlam", "InertialSlam")
+    t_true.process_frame(*((blank,) if mono else (blank, blank)), 0.1, **imu)
+    assert routed == ([0.1] if mono else [])
+    if not mono:
         own = type(t_true).process_frame
         assert own is not tsys.MonoSlam.process_frame
         assert type(t_true)._insert_keyframe is not tsys.MonoSlam._insert_keyframe

@@ -15,6 +15,7 @@ copy at the top of the next frame.
 """
 
 import copy
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -42,13 +43,15 @@ TRACK = tracking.track_against_map
 
 class SharedExtraction:
     """``orb.extract`` memoized by frame: a second run over the same frames
-    reuses the first run's features (clones: nothing may alias them)."""
+    reuses the first run's features (clones: nothing may alias them). A
+    frame is known by its pixels, not its storage: a frame program extracts
+    every frame from one image buffer."""
 
     def __init__(self):
         self.orig, self.memo = orb.extract, {}
 
     def __call__(self, img, config):
-        key = (img.data_ptr(), tuple(img.shape), img.device.type)
+        key = (tuple(img.shape), img.device.type, hashlib.sha1(img.cpu().numpy().tobytes()).digest())
         if key not in self.memo:
             self.memo[key] = self.orig(img, config)
         f = self.memo[key]
