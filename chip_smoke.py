@@ -47,12 +47,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      alignment's R[2,2] > 0.999 (gravity), the gyro bias within 3e-3 of
      the truth, every VI frame one replay of the VI frame graph, no
      synchronizing call in a steady VI dispatch, one replay equal to the
-     eager program (integers exact, floats to 1e-4), and kernel launches
-     equal to the visual frames' tracking passes plus the VI graph replays'
-     passes (plus the captures' warm-ups) plus 2 for each fusing keyframe.
+     eager program (integers exact, floats to 1e-4), every VI keyframe the
+     replays of the VI keyframe program's region graphs its id calls for
+     (``ProgramWatch``: one synchronizing call a keyframe, the packed read;
+     the fuse graph 2 K1 launches a replay; under deterministic algorithms a
+     twin program's replays equal to the plain ``_vi_kf_work`` on copies of
+     the keyframe's inputs, integers exact, floats to 1e-4), and kernel
+     launches equal to the visual frames' tracking passes plus the VI graph
+     replays' passes (plus the captures' warm-ups) plus 2 for each fusing
+     keyframe (plus the keyframe program's warm-ups and comparisons).
      Prints frames/s and latency beside the eager VI frame's, the VI
-     graph's device ms (CUDA events) and nodes, and the share of drains
-     whose copy had landed.
+     graph's device ms (CUDA events) and nodes, the share of drains
+     whose copy had landed, and the keyframe program's device and host ms
+     a keyframe beside the plain function's.
      Then (after phase 9, so that phase 9's device times are taken before
      the profiler is first used) times the inertial stages alone on inputs
      captured from the run (host ms and the CUDA-event span, and launches
@@ -171,7 +178,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      1%; (d) ``RgbdSlam`` (60 frames) and
      ``RgbdInertialSlam`` (45 frames, phase 8's IMU) at 640x480 per frame:
      initialized at frame 0, a pose for every frame, metric ATE within 2x
-     the JAX run's, scale within 2%. Prints its time.
+     the JAX run's, scale within 2%. In (b) the stereo front-end program
+     on the first pair, in (c) and (d) every per-frame frame's front end:
+     one replay a frame, no synchronizing call, a replay equal to the eager
+     front end; every VI keyframe of (c) and (d) as in phase 8. Prints its
+     time, and each program's device ms beside its eager run's.
  16. the fisheye camera (``tests/torch_fisheye_scenarios.py``'s protocols,
      whose JAX run on the CPU gives the limits) at the TUM-VI shape
      (512x512 KB8, cam0 of Examples/Stereo-Inertial/TUM-VI.yaml, 1000
@@ -191,7 +202,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``FisheyeStereoInertialSlam(cam_model="pinhole")`` on phase 8's
      sequence with a 0.11 m rig, 45 frames: the IMU initialized with the
      scale fixed, the scale within 6%, the metric ATE within 2x the JAX
-     run's; (d) the rectified route (KB8 rendered at 768x768, one
+     run's; in (b) and (c) the rig's front-end program and in (c) the VI
+     keyframe program held as in phase 15; (d) the rectified route (KB8 rendered at 768x768, one
      ``kb8_rect_map``, ``remap_bilinear`` on the card each frame, the pinhole
      ``MonoSlam``), 25 frames: the Sim(3) ATE within 2x the JAX run's;
      prints the remap's time a frame.
@@ -266,7 +278,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``FisheyeStereoInertialSlam()`` at its KB8 default on phase 16 (b)'s
      rig, both views of phase 8's first 30 frames rendered KB8, per frame:
      the IMU initialized with the scale fixed, the scale within 6%, metric
-     ATE <= 0.015 m (printed beside phase 16 (c)'s pinhole run); (c)
+     ATE <= 0.015 m (printed beside phase 16 (c)'s pinhole run), its front
+     ends and VI keyframes held as in phase 16 (c); (c)
      ``MonoSlam(cam_model="kb8", enable_loop_closing=True)`` on phase 12
      (a)'s loop (seed 5, 90 frames, 6144 points) through the KB8 camera,
      once without loop closing: requires a closure, K1's "sim3" launches
@@ -310,9 +323,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      each in order, None returned only at the visual frames' lag and the
      first VI frame, every dispatch one graph replay with no synchronizing
      call (but a capturing one), K1 launches equal to the replays' tracking
-     passes (plus warm-ups) and 2 a fusing keyframe, and K1 exact against
-     its plain version on the run's first tracking search of a frame with
-     features.
+     passes (plus warm-ups) and 2 a fusing keyframe, every VI keyframe held
+     as in phase 8, and K1 exact against its plain version on the run's
+     first tracking search of a frame with features.
 Prints one JSON line of kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports torch, numpy and the port only.
 """
@@ -357,6 +370,8 @@ JUMP_AT, JUMP_S, DARK = 90, 2.0, (60, 63)  # phase 11's timestamp jump and black
 # 240x376): it relocalizes at that frame.
 RELOC_AFTER_DARK = 0
 GRAPH_TOL = 1e-4  # graph replay vs eager step, float fields (abs, and rel to max(1, |x|))
+# A VI keyframe's landmark fields, printed apart from its keyframes' fields
+POINT_FIELDS = ("pt_X", "pt_normal", "pt_min_dist", "pt_max_dist")
 # Phase 12 (a): the closed loop of tests/test_loop_closing.py at full width,
 # with that test's point capacity: at 4096 points the JAX package's map
 # fills before the revisit at 752x480, tracking is lost at frame 74 and no
@@ -464,6 +479,7 @@ SURF_POINTS_EVERY, SURF_FPS_RATIO, SURF_REOPT_TOL, SURF_REOPT_ITERS = 1, 0.9, 1e
 SURF_B_RUNS = 2  # (b) runs, each between two runs of (a)
 VI_PIPE_FRAMES = 120  # phase 21's frames: phase 8's first 120 of 165 (cut for time)
 SURF_FRAMES = 90  # each replay's frames: phase 7's first 90 (120 before phase 21, cut for time)
+FRONT_RUNS = 21  # phase 15 (b): runs of the stereo front-end program on one pair (1 captures)
 PROBE_LOOP = 100_000  # interpreter iterations a host-probe sample (8-10 ms on the card's host)
 
 
@@ -937,6 +953,264 @@ def counting_syncs(torch, fn, *args):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
+def float_gap(got, want) -> float:
+    """The largest difference of two tensors relative to max(1, |want|),
+    for a float dtype; raises on any difference of an integer or bool one."""
+    if not want.dtype.is_floating_point:
+        check(bool((got == want).all()), "integer or bool outputs differ")
+        return 0.0
+    if not want.numel():
+        return 0.0
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def map_gaps(a: dict, b: dict) -> dict:
+    """Two VI keyframes' results (map fields and ``packed`` by name) apart:
+    the largest float difference relative to max(1, |b|) in the keyframes'
+    fields with the packed read, in the landmarks', and the integer and
+    bool entries that differ."""
+    out = {"keyframes": 0.0, "points": 0.0, "int_entries": 0}
+    for f, y in b.items():
+        x = a[f]
+        if not y.dtype.is_floating_point:
+            out["int_entries"] += int((x != y).sum())
+        elif y.numel():
+            c = "points" if f in POINT_FIELDS else "keyframes"
+            out[c] = max(out[c], float(((x - y).abs() / y.abs().clamp(min=1.0)).max()))
+    return out
+
+
+class ProgramWatch:
+    """The per-frame programs of one run, watched through their ``run``
+    (``vi_kf_program.VIKeyframeProgram`` and ``front_end_program.
+    FrontEndProgram``, wrapped on their classes while the block runs): each
+    VI keyframe's region replays against the regions ``kf_segments`` names,
+    its synchronizing calls (the one packed read, but at a capture), its
+    host ms (the packed read included) and its replays' CUDA-event spans;
+    each front end's replays a frame, synchronizing calls and spans. At the
+    first keyframe after the capture, and at the first fusing one, the
+    keyframe is held to the plain ``_vi_kf_work`` on copies of its inputs:
+    under torch's deterministic algorithms (sums in a fixed order), a twin
+    program's graphs, captured and replayed there, must equal the plain
+    function (integers exact, floats to ``GRAPH_TOL``; equal to the bit as
+    a rule); as the system's own graphs run (atomic sums, not reproducible
+    on the card), the replays' gap to a plain run is printed beside two
+    plain runs' gap, with the plain run's CUDA-event time. Once a front-end
+    program, the region runs
+    eagerly on a copy of its buffers and is held to the replay's outputs
+    (timed eagerly a few times). The comparisons' K1 launches are kept in
+    ``cmp_launches``, for the phase's count to leave out."""
+
+    def __init__(self, torch, project_match, what: str):
+        self.torch, self.pm, self.what = torch, project_match, what
+        self.kf, self.front = [], []
+        self.kf_cmp = []  # the compared keyframes: id, fusing, worst float gap, eager ms
+        self.front_cmp = {}  # program -> (worst float gap, eager ms)
+        self.cmp_launches = dict.fromkeys(project_match.LAUNCHES, 0)
+
+    def __enter__(self):
+        from orb_slam3_ros_tpu_torch.models import front_end_program, vi_kf_program
+
+        self._cls = (vi_kf_program.VIKeyframeProgram, front_end_program.FrontEndProgram)
+        self._runs = tuple(c.run for c in self._cls)
+        watch = self
+        self._cls[0].run = lambda prog, m, inp: watch._kf_run(prog, m, inp)
+        self._cls[1].run = lambda prog, a, b: watch._fe_run(prog, a, b)
+        return self
+
+    def __exit__(self, *exc):
+        for c, r in zip(self._cls, self._runs):
+            c.run = r
+
+    def _kf_run(self, prog, m, inp):
+        from orb_slam3_ros_tpu_torch.models import vi_kf_program as vkp
+        from orb_slam3_ros_tpu_torch.models.map_state import MapState
+
+        torch = self.torch
+        segs = vkp.kf_segments(prog.cfg, inp.kf_id)
+        capturing = prog.graphs and prog.n_graphs < len(vkp.REGIONS)
+        snap = None
+        fusing = "kf_fuse" in segs
+        if not capturing and (not self.kf_cmp or fusing and not any(c["fuse"] for c in self.kf_cmp)):
+            snap = [(MapState(*(x.clone() for x in m)), inp._replace(
+                feats=type(inp.feats)(*(x.clone() for x in inp.feats)),
+                feat_pt=inp.feat_pt.clone(),
+                ur=None if inp.ur is None else inp.ur.clone(),
+                depth=None if inp.depth is None else inp.depth.clone())) for _ in range(4)]
+        runs0, s0 = sum(prog.runs.values()), len(prog.spans)
+        prog.timing = True
+        t0 = time.perf_counter()
+        out, n_sync = counting_syncs(torch, self._runs[0], prog, m, inp)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        self.kf.append(dict(kf=inp.kf_id, segs=segs, replays=sum(prog.runs.values()) - runs0,
+                            syncs=n_sync, host_ms=host_ms, capturing=capturing, prog=prog,
+                            spans=(s0, len(prog.spans))))
+        if snap is not None:
+            self.kf_cmp.append(dict(kf=inp.kf_id, fuse=fusing, **self._kf_compare(prog, snap)))
+        return out
+
+    def _kf_compare(self, prog, snap) -> dict:
+        import warnings
+
+        from orb_slam3_ros_tpu_torch.models import vi_kf_program as vkp
+        from orb_slam3_ros_tpu_torch.models.map_state import MapState
+
+        torch = self.torch
+
+        def named(m, packed):
+            return dict(zip(MapState._fields, m), packed=packed)
+
+        before = dict(self.pm.LAUNCHES)
+        graph = {k: prog.buf[k].clone() for k in MapState._fields + ("packed",)}
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain = named(*vkp.eager_keyframe(*snap[0], prog.cfg))
+        b.record()
+        plain2 = named(*vkp.eager_keyframe(*snap[1], prog.cfg))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                K, N = prog.buf["kf_obs"].shape
+                twin = vkp.VIKeyframeProgram(prog.cfg, prog.device, K, N,
+                                             prog.buf["pt_valid"].shape[0])
+                det_graph = named(*self._runs[0](twin, *snap[2]))
+                det_graph["packed"] = twin.buf["packed"]
+                det_plain = named(*vkp.eager_keyframe(*snap[3], prog.cfg))
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for site, n in self.pm.LAUNCHES.items():
+            self.cmp_launches[site] += n - before[site]
+        det = map_gaps(det_graph, det_plain)
+        return dict(det=det, det_bitwise=all(torch.equal(det_graph[k], v)
+                                             for k, v in det_plain.items()),
+                    nondet_ops=sorted({str(w.message).split(" does not")[0][:80] for w in caught
+                                       if "deterministic" in str(w.message)}),
+                    gap=map_gaps(graph, plain), spread=map_gaps(plain2, plain),
+                    eager_ms=a.elapsed_time(b))
+
+    def _fe_run(self, prog, img, img2):
+        torch = self.torch
+        capturing = prog.graphs and not prog.n_graphs
+        runs0, s0 = prog.runs[prog.REGION], len(prog.spans)
+        prog.timing = True
+        t0 = time.perf_counter()
+        out, n_sync = counting_syncs(torch, self._runs[1], prog, img, img2)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        self.front.append(dict(replays=prog.runs[prog.REGION] - runs0, syncs=n_sync,
+                               host_ms=host_ms, capturing=capturing, prog=prog,
+                               spans=(s0, len(prog.spans))))
+        if prog not in self.front_cmp and not capturing:
+            # the replay left this frame's inputs and outputs in the buffers
+            before = dict(self.pm.LAUNCHES)
+            fn = prog.region(prog.REGION)
+            scratch = {k: v.clone() for k, v in prog.buf.items()}
+            fn(scratch)
+            worst = max(float_gap(prog.buf[k], v) for k, v in scratch.items())
+            eager_ms = cuda_ms(lambda: fn(scratch), 3)
+            for site, n in self.pm.LAUNCHES.items():
+                self.cmp_launches[site] += n - before[site]
+            self.front_cmp[prog] = (worst, eager_ms)
+        return out
+
+    def _ms(self, rec) -> float:
+        """A record's replays' device ms, summed (CUDA events)."""
+        prog, (i, j) = rec["prog"], rec["spans"]
+        return sum(a.elapsed_time(b) for _, a, b in prog.spans[i:j])
+
+    def warmups(self) -> dict:
+        """K1 launches of the watched programs' captures' warm-ups."""
+        progs = {id(r["prog"]): r["prog"] for r in self.kf + self.front}
+        return {site: sum(p.warmup_launches[site] for p in progs.values())
+                for site in self.pm.LAUNCHES}
+
+    def report(self, frames: int | None = None) -> dict:
+        """Check and print the run's programs: every VI keyframe the regions
+        its id names, each one replay, one synchronizing call (the packed
+        read) but at a capture, the fuse graph 2 K1 launches a replay, the
+        compared keyframes' twin replays equal to the plain function under
+        deterministic algorithms; with ``frames``, that
+        many front-end runs, each one replay, none synchronizing but a
+        capture, each program equal to its eager region. Returns the
+        figures, with the fusing keyframes and K1 launches to predict."""
+        torch, what = self.torch, self.what
+        torch.cuda.synchronize()
+        out = dict(vi_keyframes=len(self.kf), cmp_launches=dict(self.cmp_launches),
+                   warmup_launches=self.warmups())
+        if self.kf:
+            bad = [(r["kf"], r["replays"], len(r["segs"])) for r in self.kf
+                   if r["replays"] != len(r["segs"])]
+            check(not bad, f"{what}: keyframes whose replays are not the regions kf_segments names "
+                           f"(kf, replays, regions): {bad}")
+            check(all(r["prog"].graphs for r in self.kf), f"{what}: a VI keyframe ran off the card")
+            steady = [r for r in self.kf if not r["capturing"]]
+            syncs = sorted({r["syncs"] for r in steady})
+            check(steady and syncs == [1], f"{what}: synchronizing calls in a steady keyframe "
+                                           f"dispatch {syncs} (the packed read's 1 expected)")
+            fuse_k1 = {r["prog"]._graph["kf_fuse"][1]["fuse"] for r in self.kf}
+            check(fuse_k1 == {2}, f"{what}: K1 launches a replay of the fuse graph {fuse_k1}")
+            cmp = self.kf_cmp
+            det = {c: max(x["det"][c] for x in cmp) for c in ("keyframes", "points", "int_entries")}
+            check(det["int_entries"] == 0 and max(det["keyframes"], det["points"]) <= GRAPH_TOL,
+                  f"{what}: under deterministic algorithms a keyframe's replays and the plain "
+                  f"_vi_kf_work differ: {det}")
+            worst = {c: max(x["gap"][c] for x in cmp) for c in ("keyframes", "points", "int_entries")}
+            spread = {c: max(x["spread"][c] for x in cmp)
+                      for c in ("keyframes", "points", "int_entries")}
+            graph_ms = [self._ms(r) for r in steady]
+            host_ms = [r["host_ms"] for r in steady]
+            out.update(
+                fusing_keyframes=sum("kf_fuse" in r["segs"] for r in self.kf),
+                kf_replays=sum(r["replays"] for r in self.kf), kf_graph_ms_p50=float(
+                    np.median(graph_ms)), kf_graph_ms_max=float(max(graph_ms)),
+                kf_host_ms_p50=float(np.median(host_ms)), kf_host_ms_max=float(max(host_ms)),
+                kf_eager_ms=float(np.median([c["eager_ms"] for c in cmp])),
+                kf_graph_vs_eager=worst, kf_eager_spread=spread,
+                kf_capture_s=self.kf[0]["prog"].capture_s)
+            cmp_txt = ", ".join(f"keyframe {c['kf']}{' (fusing)' if c['fuse'] else ''} "
+                                f"{c['eager_ms']:.3f} ms" for c in cmp)
+            nondet = sorted({o for c in cmp for o in c["nondet_ops"]})
+            out.update(kf_det_bitwise=all(c["det_bitwise"] for c in cmp), kf_det_gap=det,
+                       kf_nondet_ops=nondet)
+            print(f"{what} VI keyframe program: {len(self.kf)} keyframes = "
+                  f"{out['kf_replays']} region replays, as kf_segments names; device ms a "
+                  f"keyframe median {out['kf_graph_ms_p50']:.3f} (max {out['kf_graph_ms_max']:.3f}),"
+                  f" host ms with the packed read median {out['kf_host_ms_p50']:.3f} (max "
+                  f"{out['kf_host_ms_max']:.3f}) over {len(steady)} after the capture "
+                  f"({out['kf_capture_s']:.2f} s); the plain _vi_kf_work on copies of the "
+                  f"inputs: {cmp_txt} (CUDA events); under deterministic algorithms a twin "
+                  f"program's replays equal to it {'to the bit' if out['kf_det_bitwise'] else det}"
+                  f" (ops without a deterministic form: {nondet or 'none'}); the system's replays "
+                  f"(atomic sums) {worst} from a plain run, two plain runs {spread} apart; syncs "
+                  f"a steady dispatch "
+                  f"{syncs}; fusing keyframes {out['fusing_keyframes']}, K1 2 a fuse replay")
+        else:
+            out.update(fusing_keyframes=0)
+        if frames is not None:
+            check(len(self.front) == frames, f"{what}: {len(self.front)} front-end runs for "
+                                             f"{frames} frames")
+            bad = [r["replays"] for r in self.front if r["replays"] != 1]
+            check(not bad and all(r["prog"].graphs for r in self.front),
+                  f"{what}: front-end runs that were not one replay: {bad}")
+            steady = [r for r in self.front if not r["capturing"]]
+            syncs = sorted({r["syncs"] for r in steady})
+            check(syncs == [0], f"{what}: synchronizing calls in a front-end run {syncs}")
+            worst = max(w for w, _ in self.front_cmp.values())
+            check(worst <= GRAPH_TOL, f"{what}: front-end replay and eager differ by {worst:.3g}")
+            graph_ms = [self._ms(r) for r in steady]
+            host_ms = [r["host_ms"] for r in steady]
+            eager_ms = float(np.median([e for _, e in self.front_cmp.values()]))
+            out.update(front_runs=len(self.front), front_ms_p50=float(np.median(graph_ms)),
+                       front_host_ms_p50=float(np.median(host_ms)), front_eager_ms=eager_ms,
+                       front_graph_vs_eager=worst)
+            print(f"{what} front end: {len(self.front)} frames = {len(self.front)} replays; device "
+                  f"ms median {out['front_ms_p50']:.3f} (CUDA events), eager {eager_ms:.3f} ms, "
+                  f"host ms a run {out['front_host_ms_p50']:.3f}; equal to the eager region to "
+                  f"{worst:.3g}; syncs a run {syncs}")
+        return out
+
+
 COUNTED = ("_track_res", "_dispatch_vi", "_log_pose")  # phase 8's wrappers of its system
 
 
@@ -984,7 +1258,7 @@ def phase_vi(torch, project_match, card: str) -> tuple:
     print(f"vi setup: rendered {VI_LC_FRAMES[0]} frames at {W}x{H} with {int(VI_IMU_HZ)} Hz IMU "
           f"(this phase's first {n_frames}, phase 13's all) in {time.perf_counter() - t0:.1f} s")
 
-    kf_ms, n_fusing = [], 0
+    n_fusing = 0
     caps = {
         "refine": Captured(inertial_system, "_vi_refine"),
         "build": Captured(local_mapping, "build_vi_ba"),
@@ -992,18 +1266,7 @@ def phase_vi(torch, project_match, card: str) -> tuple:
         "init": Captured(viba, "inertial_init", keep=2),
         "gs": Captured(viba, "vi_bundle_adjust_gs", keep=3),
     }
-    work = inertial_system._vi_kf_work
-
-    def timed_work(*args, **kw):
-        nonlocal n_fusing
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = work(*args, **kw)
-        b.record()
-        b.synchronize()
-        kf_ms.append(a.elapsed_time(b))
-        n_fusing += bool(kw["do_fuse"])
-        return out
+    watch = ProgramWatch(torch, project_match, "vi")
 
     mono_work = inertial_system.MonoSlam._insert_keyframe
 
@@ -1037,13 +1300,13 @@ def phase_vi(torch, project_match, card: str) -> tuple:
         posted.append(ts)
         log_pose(ts)
 
-    inertial_system._vi_kf_work = timed_work
     inertial_system.MonoSlam._insert_keyframe = counted_mono_kf
     slam._track_res, slam._dispatch_vi, slam._log_pose = counted_track_res, counted_dispatch_vi, logged
     torch.cuda.reset_peak_memory_stats()
     reset_launches(project_match)
     init_at, stage_at, frame_ms, syncs, nones = None, {}, [], [], []
     start = None
+    watch.__enter__()
     try:
         for i in range(n_frames):
             if start is None and i < CHUNK_WARM - 2 * CHUNK and slam._vi_chunkable():
@@ -1091,8 +1354,12 @@ def phase_vi(torch, project_match, card: str) -> tuple:
         # last frame's inputs), which Captured records.
         sched = slam._current_schedule()
         prog.region(("frame", sched))({k: v.clone() for k, v in prog.buf.items()})
+        # build_vi_ba's and vi_bundle_adjust's too, from the keyframe
+        # program's BA region on a copy of its buffers (the last keyframe's)
+        kfp = slam._vi_kf_prog
+        kfp.region("kf_ba")({k: v.clone() for k, v in kfp.buf.items()})
     finally:
-        inertial_system._vi_kf_work = work
+        watch.__exit__()
         inertial_system.MonoSlam._insert_keyframe = mono_work
         for c in caps.values():
             c.restore()
@@ -1101,6 +1368,8 @@ def phase_vi(torch, project_match, card: str) -> tuple:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     counts = dict(slam.pipe_counts)
+    kfw = watch.report()
+    n_fusing += kfw["fusing_keyframes"]
 
     check(slam.imu_initialized and slam.imu_stage == 3,
           f"IMU initialization stopped at stage {slam.imu_stage}")
@@ -1123,7 +1392,7 @@ def phase_vi(torch, project_match, card: str) -> tuple:
     bg_err = float(np.abs(slam.bg_cur - im["bg"]).max())
     lat = np.percentile(frame_ms, [50, 80])
     fps = len(frame_ms) / (sum(frame_ms) / 1e3)
-    kf_med, kf_max = float(np.median(kf_ms)), float(max(kf_ms))
+    kf_med, kf_max = kfw["kf_graph_ms_p50"], kfw["kf_graph_ms_max"]
     label = {slam._sched_dense: "dense", slam._sched_lean: "lean"}
     runs = {label[name[1]]: n for name, n in prog.runs.items()}
     vi_passes = sum(len(name[1]) * n for name, n in prog.runs.items())
@@ -1139,8 +1408,11 @@ def phase_vi(torch, project_match, card: str) -> tuple:
           f"{scale:.5f}, alignment R[2,2] {R_align[2, 2]:.5f}; bg {slam.bg_cur} (truth {im['bg']}), "
           f"ba {slam.ba_cur}; {fps:.2f} frames/s steady over {len(frame_ms)} frames after stage 3 "
           f"(keyframe frames included; the eager VI frame before the VI frame graph: 2.36-2.75 "
-          f"frames/s, median 346.50 ms, PERF.md); latency median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; flush {flush_ms:.2f} ms; VI "
-          f"keyframe work median {kf_med:.2f} ms, max {kf_max:.2f} ms over {len(kf_ms)}; kernel "
+          f"frames/s, median 346.50 ms; with the eager VI keyframe work 13.78-18.75, PERF.md); "
+          f"latency median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; flush {flush_ms:.2f} ms; VI "
+          f"keyframe program device ms median {kf_med:.2f}, max {kf_max:.2f}, host ms median "
+          f"{kfw['kf_host_ms_p50']:.2f} (the eager VI keyframe work 95.25-132.33 ms median, "
+          f"PERF.md); kernel "
           f"launches {launches} (tracking passes {passes}: {mono_passes} visual, {vi_passes} in "
           f"the VI frame graphs' replays {runs}, warm-ups {warm}; fusing keyframes {n_fusing}); "
           f"synchronizing calls of a steady frame without a keyframe {sorted(set(syncs))}; peak "
@@ -1162,10 +1434,14 @@ def phase_vi(torch, project_match, card: str) -> tuple:
           f"{vi_calls} VI frames")
     check(vi_syncs and not any(vi_syncs),
           f"synchronizing calls in a steady VI dispatch: {sorted(set(vi_syncs))}")
-    want = {"track": passes + warm["track"], "fuse": 2 * n_fusing + warm["fuse"], "sim3": 0,
-            "merge": 0}
+    # the keyframe program's capture warm-ups and the plain keyframe it was
+    # held against launch K1 too
+    extra = {k: kfw["warmup_launches"][k] + kfw["cmp_launches"][k] for k in warm}
+    want = {"track": passes + warm["track"] + extra["track"],
+            "fuse": 2 * n_fusing + warm["fuse"] + extra["fuse"], "sim3": 0, "merge": 0}
     check(launches == want, f"matcher launches {launches}, expected {want}: {mono_passes} visual "
-          f"passes, {vi_passes} in the VI frame graphs, {2 * n_fusing} from fusion, warm-ups {warm}")
+          f"passes, {vi_passes} in the VI frame graphs, {2 * n_fusing} from fusion, warm-ups {warm}"
+          f", the keyframe program's warm-ups and comparison {extra}")
     worst = graph_vs_eager(torch, prog, sched, "frame")
     print(f"vi frame graph: one replay = the eager program to {worst:.3g}")
     return dict(
@@ -1177,6 +1453,7 @@ def phase_vi(torch, project_match, card: str) -> tuple:
         vi_graph_runs=runs, warmup_launches=warm, fusing_keyframes=n_fusing,
         graph_ms_p50=float(np.median(graph_ms)), graph_nodes=nodes, capture_s=prog.capture_s,
         ready_share=ready, graph_vs_eager=worst, sync_free_dispatches=len(vi_syncs),
+        kf_program={k: v for k, v in kfw.items() if not k.endswith("launches")},
         sync_calls_per_frame=sorted(set(syncs)), peak_mem_mib=peak / 2**20,
     ), start, (slam, caps, seq, im)
 
@@ -1245,15 +1522,19 @@ def phase_vi_stages(torch, slam, caps) -> dict:
     return costs
 
 
-SHARED = ("generator", "_mono_runner", "_frame_prog", "_vi_prog")
+SHARED = ("generator", "_mono_runner", "_frame_prog", "_vi_prog", "_front_prog")
+# Not shared: the VI keyframe program's buffers are its system's map after a
+# keyframe, so a copy makes its own at its first VI keyframe.
+OWN = ("_vi_kf_prog",)
 
 
 def chunk_snapshot(slam):
     """A deep copy of a system on the card that shares, not copies, its CUDA
     generator, its mono chunk runner and its frame programs (graphs cannot
-    be copied; each chunk or frame loads its own inputs into the buffers).
-    A frame in flight is copied with its host copy landed."""
-    held = {k: getattr(slam, k, None) for k in SHARED}
+    be copied; each chunk or frame loads its own inputs into the buffers),
+    and has no VI keyframe program yet. A frame in flight is copied with its
+    host copy landed."""
+    held = {k: getattr(slam, k, None) for k in SHARED + OWN}
     for k in held:
         setattr(slam, k, None)
     try:
@@ -1261,8 +1542,8 @@ def chunk_snapshot(slam):
     finally:
         for k, v in held.items():
             setattr(slam, k, v)
-    for k, v in held.items():
-        setattr(snap, k, v)
+    for k in SHARED:
+        setattr(snap, k, held[k])
     return snap
 
 
@@ -2564,7 +2845,9 @@ def phase_stereo_kernels(torch, project_match, seq) -> dict:
     slots of 2000 features, both radii of the lean schedule, ties planted
     on its split boundaries) against its plain version, exact, then timed;
     ``match_stereo`` on the sequence's first pair, its matches' depth held
-    to the rendered depth, timed."""
+    to the rendered depth, timed; the stereo front-end program on that pair,
+    its replay against the eager front end."""
+    from orb_slam3_ros_tpu_torch.models import front_end_program
     from orb_slam3_ros_tpu_torch.ops import orb, stereo
 
     cfg = orb.default_config(ST_H, ST_W, n_features=ST_SLAM_KW["n_features"])
@@ -2595,12 +2878,24 @@ def phase_stereo_kernels(torch, project_match, seq) -> dict:
     ms = cuda_ms(fn, 50)
     dev_us = device_us(fn, 20)
     bound = stereo_bound_us(fl, fr, il, ir)
+    # the stereo front end (both extractions and match_stereo) as its
+    # program runs it per frame: one capture, then replays of this pair
+    fcfg = front_end_program.FrontEndConfig(
+        kind="stereo", config=cfg, height=ST_H, width=ST_W,
+        cam_params=torch.as_tensor(np.asarray(seq.cam_params, np.float32), device="cuda"),
+        cam_model="pinhole", fx=fx, baseline=ST_BASE)
+    fprog = front_end_program.FrontEndProgram(fcfg, "cuda")
+    with ProgramWatch(torch, project_match, "stereo (b)") as watch:
+        for _ in range(FRONT_RUNS):
+            fprog.run(il, ir)
+    front = watch.report(frames=FRONT_RUNS)
     print(f"match_stereo at {n}x{n} features ({ST_W}x{ST_H}): {int(valid.sum())} matches, depth "
           f"median relative error {med:.4f}, {within:.1%} within 15% of the rendered depth; call "
           f"{ms * 1e3:.1f} us (median of 50, CUDA events), device {dev_us:.1f} us (20 queued calls);"
           f" bound {bound['bound_us']:.3f} us by {bound['bound_by']} ({bound['bytes']} B); "
           f"synchronizing calls 0")
-    return dict(k1=k, k1_r4=k4, stereo_matches=int(valid.sum()), stereo_depth_median_rel=med,
+    return dict(k1=k, k1_r4=k4, front=front, stereo_matches=int(valid.sum()),
+                stereo_depth_median_rel=med,
                 stereo_depth_within_15=within, stereo_ms=ms, stereo_device_us=dev_us,
                 stereo_bound_us=bound["bound_us"], stereo_bound_by=bound["bound_by"])
 
@@ -2627,6 +2922,14 @@ def phase_stereo_vi(torch, project_match) -> dict:
 
     reset_launches(project_match)
     t0 = time.perf_counter()
+    calls, per_frame = [], slam.process_frame
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return per_frame(*args, **kw)
+
+    slam.process_frame = counted
+    watch = ProgramWatch(torch, project_match, "stereo-inertial (c)").__enter__()
     i = 0
     while i < n_frames and not slam._vi_chunkable():
         per_frame_run(frame, [i], first, lost)
@@ -2647,6 +2950,9 @@ def phase_stereo_vi(torch, project_match) -> dict:
             runner.timing = True
         i += CHUNK
     per_frame_run(frame, range(i, n_frames), first, lost)
+    watch.__exit__()
+    del slam.process_frame
+    progs = watch.report(frames=len(calls))
     torch.cuda.synchronize()
     runner.timing = False
     launches = dict(project_match.LAUNCHES)
@@ -2679,7 +2985,9 @@ def phase_stereo_vi(torch, project_match) -> dict:
           f"{slam.n_kf} keyframes, {slam.n_pts} of {slam.P_cap} point slots; K1 launches "
           f"{launches}; {run_s:.1f} s")
     return dict(init_frame=first[0], chunkable_frame=i_steady, frames_per_s=fps,
-                step_ms=float(np.median(steps)), graph_nodes=nodes, launches=launches,
+                per_frame_s=per_frame_s, per_frame_per_s=i_steady / per_frame_s,
+                programs=progs, step_ms=float(np.median(steps)), graph_nodes=nodes,
+                launches=launches,
                 imu_stage=slam.imu_stage, resets=slam.bad_imu_resets, seconds=run_s, **acc)
 
 
@@ -2696,6 +3004,7 @@ def phase_rgbd(torch, project_match) -> dict:
         reset_launches(project_match)
         t0 = time.perf_counter()
         first, lost = [], []
+        watch = ProgramWatch(torch, project_match, name).__enter__()
         if name == "rgbd":
             n = RGBD_FRAMES
             seq = synth.make_sequence(n_frames=n, dt=0.1, seed=3, with_depth=True, **shape)
@@ -2717,6 +3026,8 @@ def phase_rgbd(torch, project_match) -> dict:
             check(slam.imu_initialized, "RGB-D-inertial: the IMU was not initialized")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        watch.__exit__()
+        progs = watch.report(frames=n)
         launches = dict(project_match.LAUNCHES)
         check(first and first[0] == 0, f"{name} initialized at frame {first[:1]}, not frame 0")
         check(not lost, f"{name}: frames without a pose: {lost}")
@@ -2727,7 +3038,7 @@ def phase_rgbd(torch, project_match) -> dict:
               f"{acc['ate_metric_m']:.5f} m (JAX package, CPU: {ST_JAX[f'd_{name}_ate_m']:.5f} m), "
               f"Sim(3) scale {acc['scale']:.5f}; {slam.n_kf} keyframes; K1 launches {launches}")
         out[name] = dict(init_frame=first[0], frames_per_s=n / secs, launches=launches,
-                         keyframes=slam.n_kf, **acc)
+                         keyframes=slam.n_kf, programs=progs, **acc)
     return out
 
 
@@ -2978,10 +3289,12 @@ def phase_fisheye_stereo(torch, project_match) -> dict:
     reset_launches(project_match)
     first, lost = [], []
     t0 = time.perf_counter()
-    per_frame_run(lambda i: slam.process_frame(left[i], right[i], float(ts[i])),
-                  range(FE_ST_FRAMES), first, lost)
-    torch.cuda.synchronize()
+    with ProgramWatch(torch, project_match, "fisheye (b)") as watch:
+        per_frame_run(lambda i: slam.process_frame(left[i], right[i], float(ts[i])),
+                      range(FE_ST_FRAMES), first, lost)
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    progs = watch.report(frames=FE_ST_FRAMES)
     launches = dict(project_match.LAUNCHES)
     acc = traj_ate(slam, ts, t_wc, with_scale=False)
     without = FE_ST_FRAMES - acc["poses"]
@@ -3021,7 +3334,7 @@ def phase_fisheye_stereo(torch, project_match) -> dict:
           f"device {dev_us:.1f} us (20 queued calls); K1 launches {launches}")
     return dict(init_frame=first[0], frames_without_pose=without, frames_per_s=FE_ST_FRAMES / secs,
                 keyframes=slam.n_kf, cross_points=int(ok.sum()), cross_depth_median_rel=rel,
-                cross_ms=ms, cross_device_us=dev_us, launches=launches, **acc)
+                cross_ms=ms, cross_device_us=dev_us, launches=launches, programs=progs, **acc)
 
 
 def phase_fisheye_vi(torch, project_match) -> dict:
@@ -3040,11 +3353,13 @@ def phase_fisheye_vi(torch, project_match) -> dict:
     reset_launches(project_match)
     first, lost = [], []
     t0 = time.perf_counter()
-    per_frame_run(lambda i: slam.process_frame(
-        seq.images[i], seq.images_right[i], float(seq.timestamps[i]), acc=im["acc"][i],
-        gyro=im["gyro"][i], dts=im["dts"][i]), range(FE_VI_FRAMES), first, lost)
-    torch.cuda.synchronize()
+    with ProgramWatch(torch, project_match, "fisheye (c)") as watch:
+        per_frame_run(lambda i: slam.process_frame(
+            seq.images[i], seq.images_right[i], float(seq.timestamps[i]), acc=im["acc"][i],
+            gyro=im["gyro"][i], dts=im["dts"][i]), range(FE_VI_FRAMES), first, lost)
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    progs = watch.report(frames=FE_VI_FRAMES)
     launches = dict(project_match.LAUNCHES)
     acc = traj_ate(slam, seq.timestamps, seq.t_wc, with_scale=False)
     check(first, "the two-camera inertial run never initialized")
@@ -3061,7 +3376,7 @@ def phase_fisheye_vi(torch, project_match) -> dict:
           f"{acc['ate_m']:.5f} m (JAX package, CPU: {FE_JAX['c_ate_m']:.5f} m), scale "
           f"{acc['scale']:.5f}; {slam.n_kf} keyframes; K1 launches {launches}")
     return dict(init_frame=first[0], lost=lost, imu_stage=slam.imu_stage, keyframes=slam.n_kf,
-                frames_per_s=FE_VI_FRAMES / secs, launches=launches, **acc)
+                frames_per_s=FE_VI_FRAMES / secs, launches=launches, programs=progs, **acc)
 
 
 def phase_rectified(torch, project_match) -> dict:
@@ -3891,11 +4206,13 @@ def phase_kb8_rig_vi(torch, project_match) -> dict:
     reset_launches(project_match)
     first, lost = [], []
     t0 = time.perf_counter()
-    per_frame_run(lambda i: slam.process_frame(
-        seq.images[i], right[i], float(seq.timestamps[i]), acc=im["acc"][i], gyro=im["gyro"][i],
-        dts=im["dts"][i]), range(n), first, lost)
-    torch.cuda.synchronize()
+    with ProgramWatch(torch, project_match, "kb8 (b)") as watch:
+        per_frame_run(lambda i: slam.process_frame(
+            seq.images[i], right[i], float(seq.timestamps[i]), acc=im["acc"][i],
+            gyro=im["gyro"][i], dts=im["dts"][i]), range(n), first, lost)
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    progs = watch.report(frames=n)
     launches = dict(project_match.LAUNCHES)
     acc = traj_ate(slam, seq.timestamps, seq.t_wc, with_scale=False)
     print(f"kb8 (b): FisheyeStereoInertialSlam() (cam_model {slam.cam_model!r}, {FE_BASE} m rig "
@@ -3913,7 +4230,7 @@ def phase_kb8_rig_vi(torch, project_match) -> dict:
           f"kb8 rig: metric ATE {acc['ate_metric_m']:.5f} m above {VI_ATE_LIMIT} m")
     check(launches["track"] > 0, "kb8 rig: no tracking search launched")
     return dict(init_frame=first[0], lost=lost, imu_stage=slam.imu_stage, keyframes=slam.n_kf,
-                frames_per_s=n / secs, launches=launches, seconds=secs, **acc)
+                frames_per_s=n / secs, launches=launches, seconds=secs, programs=progs, **acc)
 
 
 def kb8_loop_run(torch, imgs, ts, close: bool, times=None):
@@ -4253,7 +4570,8 @@ def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> di
     syncs = {"visual": [], "vi": []}
     posted, fusing = [], 0
     dispatch, dispatch_vi, log_pose = slam._dispatch, slam._dispatch_vi, slam._log_pose
-    work, vi_work = kf_work.keyframe_work, inertial_system._vi_kf_work
+    work = kf_work.keyframe_work
+    watch = ProgramWatch(torch, project_match, "vi pipelined")
 
     def counted(fn, kind, prog_of):
         def run(*args):
@@ -4274,15 +4592,10 @@ def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> di
         fusing += bool(kw["do_fuse"])
         return work(*args, **kw)
 
-    def counted_vi_work(*args, **kw):
-        nonlocal fusing
-        fusing += bool(kw["do_fuse"])
-        return vi_work(*args, **kw)
-
     slam._dispatch = counted(dispatch, "visual", lambda: slam._frame_prog)
     slam._dispatch_vi = counted(dispatch_vi, "vi", lambda: slam._vi_prog)
     slam._log_pose = logged
-    kf_work.keyframe_work, inertial_system._vi_kf_work = counted_work, counted_vi_work
+    kf_work.keyframe_work = counted_work
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(project_match)
@@ -4292,6 +4605,7 @@ def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> di
     # while a graph is being captured)
     rec = SearchRecorder(project_match, "track", keep=lambda args: (
         not torch.cuda.is_current_stream_capturing() and bool(args[7].any()))).__enter__()
+    watch.__enter__()
     try:
         for i in range(n_frames):
             t_call = time.perf_counter()
@@ -4310,20 +4624,26 @@ def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> di
                   f"vi pipelined: not initialized by frame {VI_INIT_BY}")
         slam.flush()
     finally:
+        watch.__exit__()
         rec.__exit__()
-        kf_work.keyframe_work, inertial_system._vi_kf_work = work, vi_work
+        kf_work.keyframe_work = work
         for k in ("_dispatch", "_dispatch_vi", "_log_pose"):
             del vars(slam)[k]
     torch.cuda.synchronize()
     launches = dict(project_match.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     counts = dict(slam.pipe_counts)
+    kfw = watch.report()
+    fusing += kfw["fusing_keyframes"]
     acc = vi_accuracy(slam, seq, im, n_frames)
     fp, vp = slam._frame_prog, slam._vi_prog
     progs = {"visual": fp, "vi": vp}
     replays = {k: sum(p.runs.values()) for k, p in progs.items()}
     passes = {k: sum(len(name[1]) * n for name, n in p.runs.items()) for k, p in progs.items()}
-    warm = {site: fp.warmup_launches[site] + vp.warmup_launches[site] for site in launches}
+    # the keyframe program's capture warm-ups and the plain keyframe it was
+    # held against launch K1 too
+    warm = {site: fp.warmup_launches[site] + vp.warmup_launches[site]
+            + kfw["warmup_launches"][site] + kfw["cmp_launches"][site] for site in launches}
     want = {"track": passes["visual"] + passes["vi"] + warm["track"],
             "fuse": 2 * fusing + warm["fuse"], "sim3": 0, "merge": 0}
     nones = [i for i in range(init_at, n_frames) if outs[i] is None]
@@ -4364,6 +4684,7 @@ def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> di
     return dict(init_frame=init_at, imu_frame=imu_at, nones=nones, frames_per_s=fps,
                 call_ms_p50=float(lat[0]), call_ms_p80=float(lat[1]), replays=replays,
                 passes=passes, fusing_keyframes=fusing, warmup_launches=warm, launches=launches,
+                kf_program={k: v for k, v in kfw.items() if not k.endswith("launches")},
                 pipe_counts=counts, k1=k1, peak_mem_mib=peak / 2**20,
                 phase_s=time.perf_counter() - t0, **acc)
 

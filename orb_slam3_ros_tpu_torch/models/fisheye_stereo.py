@@ -24,17 +24,19 @@ the JAX package's VI-BA keeps them, projected through the pinhole model:
 ROADMAP "Known faults"), so the right view constrains the map through the
 cross-camera landmarks and the two-camera pose refinement.
 
-Frames run one at a time and eagerly, as RGB-D does (the chunk gate does
-not admit a system with bf > 0 and no stereo chunk branch):
+Frames run one at a time, as RGB-D's do (the chunk gate does not admit a
+system with bf > 0 and no stereo chunk branch): a frame's front end (both
+extractions, the cross match and the virtual ``StereoMatch``, the JAX
+package's ``_frame_program``) is one CUDA graph replay on the card
+(``front_end_program``, "rig"), the tracking after it eager;
 ``process_frames`` of [N, 2, H, W] pairs splits each pair into
 ``process_frame``. The stage timer names "extract+cross" and "track", the
 JAX package's; a keyframe emits a "keyframe" event, which the JAX
 package's rig omits. ``devices`` raises ``ValueError``, as in
 ``stereo_system``. Left out, as in the other ported systems: the JAX
-package's compile and host helpers (``_frame_program``'s jit,
-``_warm_schedules``), its lag-1 VI chunk plumbing (``_drain_vi_chunk``,
-``_vi_dev_state``; ROADMAP "Do not port") and its asynchronous keyframe
-apply (``_apply_kf_async``).
+package's ``_warm_schedules``, its lag-1 VI chunk plumbing
+(``_drain_vi_chunk``, ``_vi_dev_state``; ROADMAP "Do not port") and its
+asynchronous keyframe apply (``_apply_kf_async``).
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ import time
 import numpy as np
 import torch
 
-from ..ops import orb, stereo, twocam
+from ..ops import twocam
 from . import map_updates
+from .front_end_program import FrontEndConfig, FrontEndProgram
 from .inertial_system import InertialSlam
 from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, SPLIT_REFUSED, MonoSlam
 
@@ -96,29 +99,24 @@ class FisheyeStereoSlam(MonoSlam):
         self.bf = float(self.cam_params[0]) * self.baseline  # one read at construction
         self._last_cross = None  # (CrossCamTriangulation, right pixels) of the frame
         self._last_depth = None  # the cross match as a StereoMatch (virtual u_r)
+        self._front_prog = None  # the front end (``front_end_program``), made at the first frame
 
     def process_frame(self, img_left, img_right, ts: float):
         """Process one pair of raw frames ([H, W] each, numpy or tensors,
         values in [0, 255]). Returns Twc [4, 4] (numpy), or None while
         initializing or when tracking is lost."""
         self._check_ts_jump(ts)
-        dev = self.device
         t0 = time.perf_counter()
-        feats = orb.extract(torch.as_tensor(img_left, dtype=torch.float32, device=dev),
-                            self.config)
-        feats_r = orb.extract(torch.as_tensor(img_right, dtype=torch.float32, device=dev),
-                              self.config)
-        cross = twocam.triangulate_cross_camera(
-            feats, feats_r, self.R_rl, self.t_rl, self.cam_params, self.cam_params,
-            cam_model=self.cam_model,
-        )
-        self._last_cross = (cross, feats_r.xy[cross.right_feat.long()])
-        z = cross.X_l[:, 2]
-        cand = cross.ok & (z > 0.05) & (z < self.max_depth)
-        self._last_depth = stereo.StereoMatch(
-            u_right=self._virtual_ur(feats, cross, cand), depth=torch.where(cand, z, -1.0),
-            valid=cand,
-        )
+        if self._front_prog is None:
+            self._front_prog = FrontEndProgram(FrontEndConfig(
+                kind="rig", config=self.config, height=self.height, width=self.width,
+                cam_params=self.cam_params, cam_model=self.cam_model, bf=self.bf,
+                max_depth=self.max_depth, R_rl=self.R_rl, t_rl=self.t_rl,
+            ), self.device)
+        fe = self._front_prog.run(img_left, img_right)
+        feats, cross = fe.feats, fe.cross
+        self._last_cross = (cross, fe.uv_right)
+        self._last_depth = fe.sm
         t0 = self._tic("extract+cross", t0)
         if self.state == NOT_INITIALIZED:
             out = self._fisheye_initialize(feats, cross, ts)

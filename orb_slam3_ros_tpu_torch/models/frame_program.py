@@ -187,6 +187,24 @@ def upload(dst: torch.Tensor, a: np.ndarray) -> None:
         dst.copy_(src)
 
 
+def load_image(dst: torch.Tensor, img) -> None:
+    """Image ``img`` (numpy or a tensor, values in [0, 255]) into buffer
+    ``dst``: a tensor on the buffer's device is copied there, anything else
+    uploaded from pinned memory (``upload``); a uint8 buffer takes a float
+    image clamped to [0, 255] and truncated, as the chunk loop's stack does."""
+    if isinstance(img, torch.Tensor) and img.device.type == dst.device.type:
+        if dst.dtype == torch.uint8 and img.dtype != torch.uint8:
+            img = torch.clamp(img, 0, 255)
+        dst.copy_(img)
+        return
+    a = img.cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+    if dst.dtype == torch.uint8:
+        a = a if a.dtype == np.uint8 else np.clip(a, 0, 255).astype(np.uint8)
+    else:
+        a = a.astype(np.float32, copy=False)
+    upload(dst, a)
+
+
 class TrackingRegions(GraphRegions):
     """What the speculative frame program and the VI frame program
     (``vi_frame_program.VIFrameProgram``) share: the image, the map's point
@@ -243,20 +261,6 @@ class TrackingRegions(GraphRegions):
             self._map_src[f] = (src, src._version)
             copied = True
         self.map_copies += copied
-
-    def _load_image(self, img) -> None:
-        dst = self.buf["img"]
-        if isinstance(img, torch.Tensor) and img.device.type == dst.device.type:
-            if dst.dtype == torch.uint8 and img.dtype != torch.uint8:
-                img = torch.clamp(img, 0, 255)
-            dst.copy_(img)
-            return
-        a = img.cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
-        if dst.dtype == torch.uint8:
-            a = a if a.dtype == np.uint8 else np.clip(a, 0, 255).astype(np.uint8)
-        else:
-            a = a.astype(np.float32, copy=False)
-        upload(dst, a)
 
     def _capture_schedules(self, schedules) -> None:
         """Capture the graph of each schedule not captured yet, from the
@@ -315,7 +319,7 @@ class FrameProgram(TrackingRegions):
         pose the previous dispatch read as frame i-1's. Else ``host`` =
         (R_pred, t_pred, R_cur, t_cur), numpy: the host's prediction, with
         the host's pose as frame i-1's for the next dispatch. No host read."""
-        self._load_image(img)
+        load_image(self.buf["img"], img)
         # The map as it stands now: the copy and the replay are enqueued
         # before the drain's counter update and keyframe work for frame i-1,
         # which stream order keeps after them (one keyframe of staleness).

@@ -21,8 +21,12 @@ at that frame's own id), then dispatches this frame with no host read
 prediction, extraction, tracking and the 15-dof refinement, on the card one
 CUDA graph replay) and returns the previous frame's pose: None at the first
 VI frame after a visual one. The anchor state and its covariance stay on
-the device from frame to frame. A keyframe costs one more host read, an
-initialization stage one for its solve and one for the state after its BA.
+the device from frame to frame. A keyframe runs as the VI keyframe
+program (``vi_kf_program``: insert + admit, fuse, BA + point cull, stats,
+keyframe cull, end, on the card replays of its region graphs, captured at
+the first VI keyframe; the eager ``_vi_kf_work`` is the plain function it
+is held to) and costs one more host read, an initialization stage one for
+its solve and one for the state after its BA.
 The frame in flight is drained by ``flush`` (and so by ``get_trajectory``,
 a timestamp jump, compaction (``_make_room``), an Atlas archive, checkpoint
 saves, the control socket's ``save_map`` / ``save_traj``), by
@@ -72,10 +76,10 @@ takes the newest keyframe's state.
 
 The stereo- and RGB-D-inertial systems (``stereo_system``) build on this
 class: their keyframes carry u_r and create close landmarks from depth
-(``_vi_kf_work``), every VI-BA builds (u, v, u_r) rows with ``bf``, their
-frames reach the 15-dof refinement through ``_track_post`` (monocular once
-the IMU is initialized, the stereo refinement before), and the
-stereo-inertial chunks take [2, H, W] pairs.
+(the keyframe program's depth variant), every VI-BA builds (u, v, u_r)
+rows with ``bf``, their frames reach the 15-dof refinement through
+``_track_post`` (monocular once the IMU is initialized, the stereo
+refinement before), and the stereo-inertial chunks take [2, H, W] pairs.
 
 The ``on_frame`` events are ``MonoSlam``'s: a VI frame emits "frame" (no
 point-cloud events, as in the JAX package), a VI keyframe "keyframe", a
@@ -115,6 +119,7 @@ from . import local_mapping, map_state, map_updates, vi_device_loop
 from .chunk_runner import admit_keyframe_points, read_host, read_rows
 from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
 from .vi_frame_program import VIFrameConfig, VIFrameProgram
+from .vi_kf_program import KFInputs, VIKeyframeProgram
 
 
 def _vi_kf_work(
@@ -124,8 +129,9 @@ def _vi_kf_work(
     bf=0.0, ur=None, depth=None, max_depth=0.0, cam_model="pinhole",
 ):
     """One VI keyframe's mapping work (LocalMapping::Run with
-    LocalInertialBA): insert -> record body state -> triangulate -> admit
-    -> fuse -> temporal-window VI-BA -> culls. ``vb_new`` [9]: the new
+    LocalInertialBA), the plain function the keyframe program
+    (``vi_kf_program``) is held to: insert -> record body state ->
+    triangulate -> admit -> fuse -> temporal-window VI-BA -> culls. ``vb_new`` [9]: the new
     keyframe's (v, bg, ba); ``imu_blocks`` [W-1, S, 7]: per-edge IMU blocks
     (acc | gyro | dt). A stereo or RGB-D keyframe passes its features'
     ``ur`` and ``depth`` (-1 where none): it creates the close landmarks
@@ -210,6 +216,9 @@ class InertialSlam(MonoSlam):
         # the VI dispatches, the drains and the drains whose copy had landed.
         self._vi_pending = None
         self._vi_prog = None
+        # The VI keyframe program (its buffers hold the map after a keyframe),
+        # made at the first VI keyframe.
+        self._vi_kf_prog = None
         self.pipe_counts.update(vi_dispatches=0, vi_drains=0, vi_ready=0)
         # Per-frame VI motion-only optimization once the IMU is initialized
         # and the RECENTLY_LOST dead-reckoning window it enables.
@@ -740,11 +749,11 @@ class InertialSlam(MonoSlam):
         self.init_stage_ms[stage] = (time.perf_counter() - t0) * 1e3
         self._sync_replica()
 
-    def _window(self, lo: int, last: int, fixed, W_eff: int):
+    def _window_host(self, lo: int, last: int, fixed, W_eff: int):
         """Pad a keyframe window [lo, last) to ``W_eff`` entries with the
         empty last slot (fixed, edge masked) and gather its IMU blocks.
-        Returns (window_ids, fixed, imu_blocks [W_eff-1, S, 7], edge_ok) on
-        the device: edge (ids[i] -> ids[i+1]) uses block ids[i+1]."""
+        Returns (window_ids, fixed, imu_blocks [W_eff-1, S, 7], edge_ok) as
+        numpy: edge (ids[i] -> ids[i+1]) uses block ids[i+1]."""
         ids = list(range(lo, last))
         fixed = list(fixed)
         edge_ok = [ids[i + 1] not in self.chain_breaks for i in range(len(ids) - 1)]
@@ -758,19 +767,31 @@ class InertialSlam(MonoSlam):
         blocks = np.concatenate([
             self.kf_imu_acc[blk_ids], self.kf_imu_gyro[blk_ids], self.kf_imu_dts[blk_ids][..., None],
         ], axis=-1).astype(np.float32)
+        return (np.asarray(ids, np.int32), np.asarray(fixed, bool), blocks,
+                np.asarray(edge_ok, bool))
+
+    def _window(self, lo: int, last: int, fixed, W_eff: int):
+        """``_window_host`` on the device."""
+        ids, fixed, blocks, edge_ok = self._window_host(lo, last, fixed, W_eff)
         dev = self.device
-        return (
-            torch.as_tensor(np.asarray(ids, np.int32), device=dev),
-            torch.as_tensor(np.asarray(fixed, bool), device=dev),
-            torch.from_numpy(blocks).to(dev),
-            torch.as_tensor(np.asarray(edge_ok, bool), device=dev),
-        )
+        return (torch.as_tensor(ids, device=dev), torch.as_tensor(fixed, device=dev),
+                torch.from_numpy(blocks).to(dev), torch.as_tensor(edge_ok, device=dev))
+
+    def _vi_kf_program(self) -> VIKeyframeProgram:
+        if self._vi_kf_prog is None:
+            m = self.map
+            # the depth variant: the stereo, RGB-D and rig keyframes carry
+            # u_r and create their close points from depth
+            cfg = self._vi_chunk_config()._replace(stereo=self.bf > 0)
+            self._vi_kf_prog = VIKeyframeProgram(cfg, self.device, m.K, m.N, m.P)
+        return self._vi_kf_prog
 
     def _insert_keyframe_vi(self, feats, ts, track_res, kf_id):
-        """A keyframe once the IMU is initialized: the VI keyframe work and
-        one host read of (admitted points, the keyframe's refined state),
-        then the loop-closure check. It stops a global BA in flight after
-        its current dispatch, as ``MonoSlam._insert_keyframe`` does."""
+        """A keyframe once the IMU is initialized: the VI keyframe program
+        (``vi_kf_program``: on the card replays of its graphs) and its one
+        host read of (admitted points, the keyframe's refined state), then
+        the loop-closure check. It stops a global BA in flight after its
+        current dispatch, as ``MonoSlam._insert_keyframe`` does."""
         self.abort_gba()
         self._emit_keyframe(ts, kf_id)
         # Temporal VI-BA window over the last W keyframes INCLUDING the new
@@ -783,34 +804,22 @@ class InertialSlam(MonoSlam):
             fixed = [i == 0 for i in range(lo, last)]
         else:
             fixed = [i == 0 or i < last - self.ba_window for i in range(lo, last)]
-        window_ids, fixed_d, blocks, edge_ok = self._window(lo, last, fixed, self.W)
-        dev = self.device
+        window_ids, fixed, blocks, edge_ok = self._window_host(lo, last, fixed, self.W)
         feats, feat_pt = self._to_map_dev((feats, track_res.feat_pt))
-        vb = torch.from_numpy(
-            np.concatenate([self.v_cur, self.bg_cur, self.ba_cur]).astype(np.float32)
-        ).to(dev)
-        sm = getattr(self, "_last_depth", None)
-        depth_kw = {}
-        if sm is not None and self.bf > 0:
-            depth_kw = dict(ur=torch.where(sm.valid, sm.u_right, -1.0),
-                            depth=torch.where(sm.valid, sm.depth, -1.0), max_depth=self.max_depth)
-        self.map, n_new = _vi_kf_work(
-            self.map, kf_id, torch.as_tensor(self.R_cur, device=dev),
-            torch.as_tensor(self.t_cur, device=dev), ts, feats, feat_pt,
-            self.n_pts, self.P_cap - self.n_pts, vb,
-            window_ids, fixed_d, blocks, edge_ok, self.calib, self.cam_params,
-            width=self.width, height=self.height, fuse_neighbors=self.fuse_neighbors,
-            do_fuse=self.fuse_neighbors > 0 and kf_id >= 2 and kf_id % self.fuse_every == 0,
-            do_stats=kf_id % self.stats_every == 0,
-            do_cull=self.kf_culling and kf_id >= 4 and kf_id % self.cull_every == 0,
-            n_iters=self.local_ba_iters, n_levels=self.config.n_levels, bf=self.bf,
-            cam_model=self.cam_model, **depth_kw,
+        ur = depth = None
+        if self.bf > 0:
+            sm = self._last_depth
+            ur, depth = torch.where(sm.valid, sm.u_right, -1.0), torch.where(sm.valid, sm.depth, -1.0)
+        inp = KFInputs(
+            kf_id=kf_id, R=self.R_cur, t=self.t_cur, ts=ts, n_pts=self.n_pts,
+            vb=np.concatenate([self.v_cur, self.bg_cur, self.ba_cur]), window_ids=window_ids,
+            fixed=fixed, edge_ok=edge_ok, blocks=blocks, feats=feats, feat_pt=feat_pt, ur=ur,
+            depth=depth,
         )
+        self.map, buf = self._vi_kf_program().run(self.map, inp)
+        self._forget_frame_maps()
         self.n_kf += 1
         self.last_kf_frame = self.frame_id
-        buf = torch.cat([
-            n_new.to(torch.float32).reshape(1), _pack_kf_state(self.map, kf_id)
-        ]).cpu().numpy()
         self.n_pts += int(buf[0])
         self._take_kf_state(kf_id, buf[1:])
         # BA moved keyframe poses: the per-frame anchor / prior are stale.
@@ -820,6 +829,14 @@ class InertialSlam(MonoSlam):
             return
         self._close_loop(kf_id)
         self._start_replica_copy()
+
+    def _forget_frame_maps(self) -> None:
+        """Graph replays wrote the map in place, behind torch's version
+        counters: the frame programs copy it in afresh at their next
+        dispatch."""
+        for prog in (self._frame_prog, self._vi_prog):
+            if prog is not None:
+                prog.forget_map()
 
     def _take_kf_state(self, kf_id: int, buf: np.ndarray) -> None:
         """Host state from a keyframe's packed (v, bg, ba, R, t)."""
@@ -1153,9 +1170,7 @@ class InertialSlam(MonoSlam):
         rows, kf_ids = runner.run_chunk(
             stack, off, torch.from_numpy(xs).to(self.device), self._current_schedule(), n_kf0
         )
-        for prog in (self._frame_prog, self._vi_prog):
-            if prog is not None:
-                prog.forget_map()  # the step graphs wrote the map in place
+        self._forget_frame_maps()  # the step graphs wrote the map in place
         c = runner.carry()
         self.map = c.m
         # The chunk's one read: its rows, the carried body state, the

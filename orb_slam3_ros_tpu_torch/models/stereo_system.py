@@ -13,7 +13,11 @@ baseline, the reference's mbf).
 
 ``StereoSlam.process_frames`` runs the steady state in chunks of
 [2, H, W] pairs (``device_loop``'s stereo branch, CUDA graphs on the card);
-RGB-D runs per frame, as in the JAX package. The inertial variants pair
+RGB-D runs per frame, as in the JAX package. A frame taken one at a time
+runs its front end (both extractions and ``match_stereo``, or the
+extraction and the depth map sampled at the features: the JAX package's
+jitted ``_extract`` / ``_match_stereo``) as one CUDA graph replay on the
+card (``front_end_program``), the tracking after it eagerly. The inertial variants pair
 these with ``InertialSlam`` (IMU initialization with the scale held fixed:
 depth observes it); the stereo-inertial chunks run ``vi_device_loop``'s
 stereo branch.
@@ -38,8 +42,9 @@ import time
 import numpy as np
 import torch
 
-from ..ops import orb, pose_opt, stereo
+from ..ops import pose_opt, stereo
 from . import map_updates
+from .front_end_program import FrontEndConfig, FrontEndProgram
 from .inertial_system import InertialSlam
 from .system import NOT_INITIALIZED, OK, RECENTLY_LOST, SPLIT_REFUSED, MonoSlam
 
@@ -75,6 +80,7 @@ class StereoSlam(MonoSlam):
         self.bf = self.fx * baseline
         self.max_depth = depth_factor_far * baseline
         self._last_depth = None  # the current frame's StereoMatch
+        self._front_prog = None  # the front end, made at the first frame
 
     def _track_post(self, feats, res, ts):
         """Stereo refinement of the visually tracked pose before the
@@ -88,15 +94,17 @@ class StereoSlam(MonoSlam):
         return super()._track_post(feats, res, ts)
 
     # ------------------------------------------------------------------
-    def _match(self, img_left, img_right):
-        """Both views' features and the stereo correspondence."""
-        dev = self.device
-        il = torch.as_tensor(img_left, dtype=torch.float32, device=dev)
-        ir = torch.as_tensor(img_right, dtype=torch.float32, device=dev)
-        feats = orb.extract(il, self.config)
-        feats_r = orb.extract(ir, self.config)
-        return feats, stereo.match_stereo(feats, feats_r, il, ir, fx=self.fx,
-                                          baseline=self.baseline)
+    def _front_end_config(self) -> FrontEndConfig:
+        return FrontEndConfig(kind="stereo", config=self.config, height=self.height,
+                              width=self.width, cam_params=self.cam_params,
+                              cam_model=self.cam_model, fx=self.fx, baseline=self.baseline)
+
+    def _front_end(self) -> FrontEndProgram:
+        """The frame's front end (``front_end_program``), made at the first
+        frame: on the card one CUDA graph replay a frame."""
+        if self._front_prog is None:
+            self._front_prog = FrontEndProgram(self._front_end_config(), self.device)
+        return self._front_prog
 
     def process_frame(self, img_left, img_right, ts: float):
         """Process one rectified pair ([H, W] each, numpy or tensors, values
@@ -104,7 +112,8 @@ class StereoSlam(MonoSlam):
         lost or the first pair has too little depth."""
         self._check_ts_jump(ts)
         t0 = time.perf_counter()
-        feats, sm = self._match(img_left, img_right)
+        fe = self._front_end().run(img_left, img_right)
+        feats, sm = fe.feats, fe.sm
         self._last_depth = sm
         t0 = self._tic("extract+stereo", t0)
         if self.state == NOT_INITIALIZED:
@@ -249,28 +258,19 @@ class RgbdSlam(StereoSlam):
         super().__init__(*args, baseline=0.05, **kw)
         self.max_depth = max_depth
 
-    def _depth_to_match(self, feats, dm):
-        """Sample the depth map [H, W] at the features and derive the
-        virtual right coordinate u_r = u - bf / d (Frame::ComputeStereoFromRGBD,
-        Frame.cc:984), so that RGB-D observations feed the same (u, v, u_r)
-        residuals as true stereo."""
-        xi = torch.clamp(feats.xy[:, 0].to(torch.int32), 0, dm.shape[1] - 1).long()
-        yi = torch.clamp(feats.xy[:, 1].to(torch.int32), 0, dm.shape[0] - 1).long()
-        d = dm[yi, xi]
-        valid = feats.valid & (d > 0.05)
-        u_r = feats.xy[:, 0] - self.bf / torch.clamp(d, min=0.05)
-        return stereo.StereoMatch(u_right=torch.where(valid, u_r, -1.0), depth=d, valid=valid)
+    def _front_end_config(self) -> FrontEndConfig:
+        return FrontEndConfig(kind="rgbd", config=self.config, height=self.height,
+                              width=self.width, cam_params=self.cam_params,
+                              cam_model=self.cam_model, bf=self.bf)
 
     def process_frame(self, img, depth_map, ts: float):
         """Process one frame ([H, W], values in [0, 255]) with its metric
         depth map ([H, W], metres; 0 where the sensor has none). Returns
         Twc [4, 4] or None."""
         self._check_ts_jump(ts)
-        dev = self.device
         t0 = time.perf_counter()
-        feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=dev), self.config)
-        sm = self._depth_to_match(
-            feats, torch.as_tensor(depth_map, dtype=torch.float32, device=dev))
+        fe = self._front_end().run(img, depth_map)
+        feats, sm = fe.feats, fe.sm
         self._last_depth = sm
         t0 = self._tic("extract+depth", t0)
         if self.state == NOT_INITIALIZED:

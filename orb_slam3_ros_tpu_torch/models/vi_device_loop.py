@@ -17,6 +17,11 @@ keyframe body in six segments, of which the fuse, stats and cull segments
 are replayed only at the keyframe ids that call for them (ids the host
 knows); after each step the host reads two words, ``(need_kf, alive)``.
 
+The keyframe bodies (``insert_admit``, ``kf_fuse``, ``window_ba``,
+``kf_stats``, ``kf_cull``) are also the per-frame path's VI keyframe
+program's (``vi_kf_program``); the chunk gathers its window and its
+keyframe's body state on the device, the program takes the host's.
+
 A frame whose refinement keeps fewer than 15 inliers ends the chunk: its
 step leaves the body state as it was, and the host replays it and the
 frames after it one at a time, from the state of the last tracked frame.
@@ -255,29 +260,42 @@ def _kf_feats(fr: dict) -> orb.Features:
     )
 
 
-def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
-    """Keyframe segment 1: snapshot the since-last-keyframe IMU block into
-    ``kf_blk[kf_id]``, insert the keyframe with its body state (v, bg, ba)
-    (and its features' u_r in a stereo chunk) and admit its new points
-    (``chunk_runner.admit_keyframe_points``)."""
-    m, st, kf_id = c.m, c.st, fr["kf_id"]
-    S = cfg.imu_cap_kf
-    k = kf_index(kf_id, st.blk.device)
-    filled = torch.arange(S, device=st.blk.device) < st.blk_n
-    st.kf_blk.index_copy_(0, k, torch.where(filled[:, None], st.blk, 0.0)[None])
-    st.kf_edge_ok.index_copy_(0, k, st.blk_ok.reshape(1))
+def insert_admit(m: MapState, fr: dict, v, bg, ba, n_pts, cfg):
+    """Insert the keyframe ``fr`` describes (``fr["kf_id"]``, its pose,
+    timestamp and features; with ``cfg.stereo`` its features' u_r) with its
+    body state (v, bg, ba), then admit its new points from slot ``n_pts``
+    on (``chunk_runner.admit_keyframe_points``; depth first with
+    ``cfg.stereo``). What the chunk's ``kf_insert`` and the per-frame
+    keyframe program (``vi_kf_program``) share. Returns (map, points
+    admitted as a 0-d tensor)."""
+    kf_id = fr["kf_id"]
+    k = kf_index(kf_id, m.kf_R.device)
     m = map_updates.insert_keyframe(
         m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"],
         ur=fr["f_ur"] if cfg.stereo else None,
     )
-    m.kf_v.index_copy_(0, k, st.v[None])
-    m.kf_bg.index_copy_(0, k, st.bg[None])
-    m.kf_ba.index_copy_(0, k, st.ba[None])
-    m, n_new = admit_keyframe_points(
+    m.kf_v.index_copy_(0, k, v[None])
+    m.kf_bg.index_copy_(0, k, bg[None])
+    m.kf_ba.index_copy_(0, k, ba[None])
+    return admit_keyframe_points(
         m, kf_id, fr["kf_R"], fr["kf_t"], fr["f_xy"], fr["f_valid"],
-        fr["f_depth"] if cfg.stereo else None, c.n_pts, m.P - c.n_pts, cfg.cam_params,
+        fr["f_depth"] if cfg.stereo else None, n_pts, m.P - n_pts, cfg.cam_params,
         cfg.max_depth, cfg.cam_model,
     )
+
+
+def kf_insert(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
+    """Keyframe segment 1: snapshot the since-last-keyframe IMU block into
+    ``kf_blk[kf_id]``, insert the keyframe with its body state (v, bg, ba)
+    (and its features' u_r in a stereo chunk) and admit its new points
+    (``insert_admit``)."""
+    st = c.st
+    S = cfg.imu_cap_kf
+    k = kf_index(fr["kf_id"], st.blk.device)
+    filled = torch.arange(S, device=st.blk.device) < st.blk_n
+    st.kf_blk.index_copy_(0, k, torch.where(filled[:, None], st.blk, 0.0)[None])
+    st.kf_edge_ok.index_copy_(0, k, st.blk_ok.reshape(1))
+    m, n_new = insert_admit(c.m, fr, st.v, st.bg, st.ba, c.n_pts, cfg)
     return c._replace(m=m, n_pts=c.n_pts + n_new)
 
 
@@ -290,25 +308,35 @@ def kf_fuse(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     return c._replace(m=m)
 
 
+def window_ba(m: MapState, ids, fixed, blocks, edge_ok, last, cfg) -> MapState:
+    """The temporal-window VI-BA over keyframes ``ids`` [W] (``fixed`` [W]
+    held), the inertial edge ids[i] -> ids[i+1] from ``blocks[i]``
+    [S, 7] where ``edge_ok[i]``; its write-back, then point culling with
+    ``last`` keyframes. What the chunk's ``kf_ba`` and the per-frame
+    keyframe program (``vi_kf_program``) share."""
+    prob = local_mapping.build_vi_ba(
+        m, ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6], edge_ok, cfg.calib,
+        cfg.cam_params, bf=cfg.bf,
+    )
+    res = viba.vi_bundle_adjust(prob, n_iters=cfg.local_ba_iters, cam_model=cfg.cam_model)
+    m = local_mapping.apply_vi_ba(m, ids, res, cfg.calib)
+    return map_updates.cull_points(m, last)
+
+
 def kf_ba(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:
     """Keyframe segment 3: the temporal window over the last W keyframes,
     the new one included (LocalInertialBA's mPrevKF chain,
     Optimizer.cc:2532), with its ids, fixed mask and IMU blocks gathered on
-    the device; the VI-BA, its write-back and point culling. The host gates
-    chunking on n_kf > W, so the window is always full."""
-    m, st = c.m, c.st
+    the device (``window_ba``). The host gates chunking on n_kf > W, so the
+    window is always full."""
+    st = c.st
     last = fr["kf_id"] + 1
     ids = last - cfg.W + torch.arange(cfg.W, dtype=torch.int32, device=st.blk.device)
     fixed = (ids == 0) | (ids < last - cfg.ba_window)
     edge = ids[1:].long()
-    blocks = st.kf_blk.index_select(0, edge)  # [W-1, S, 7]
-    prob = local_mapping.build_vi_ba(
-        m, ids, fixed, blocks[..., 0:3], blocks[..., 3:6], blocks[..., 6],
-        st.kf_edge_ok.index_select(0, edge), cfg.calib, cfg.cam_params, bf=cfg.bf,
-    )
-    res = viba.vi_bundle_adjust(prob, n_iters=cfg.local_ba_iters, cam_model=cfg.cam_model)
-    m = local_mapping.apply_vi_ba(m, ids, res, cfg.calib)
-    return c._replace(m=map_updates.cull_points(m, last))
+    m = window_ba(c.m, ids, fixed, st.kf_blk.index_select(0, edge),
+                  st.kf_edge_ok.index_select(0, edge), last, cfg)
+    return c._replace(m=m)
 
 
 def kf_stats(c: VICarry, fr: dict, cfg: VIChunkConfig) -> VICarry:

@@ -46,7 +46,8 @@ import torch
 from ..ops import imu as imu_ops
 from ..ops import orb, viba
 from . import tracking
-from .frame_program import HostCopy, TrackingRegions, program_map, store_tracked, upload
+from .frame_program import (HostCopy, TrackingRegions, load_image, program_map, store_tracked,
+                            upload)
 from .vi_device_loop import vi_frame
 
 PACKED_LEN = 22  # (n_inliers, R_cw, t_cw, v, bg, ba): the frame's one host read
@@ -165,7 +166,7 @@ class VIFrameProgram(TrackingRegions):
         (None: exact), or, with ``anchor`` None, from ``host`` [21] (numpy
         R_cw, t_cw, v, bg, ba). On the card the graphs of the schedules in
         ``warm`` are captured first where they are not yet. No host read."""
-        self._load_image(img)
+        load_image(self.buf["img"], img)
         upload(self.buf["imu"], imu)
         self._load_map(m)
         self._load_anchor(anchor, Sigma, host)

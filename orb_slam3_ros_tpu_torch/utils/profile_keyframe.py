@@ -18,7 +18,9 @@ without the per-frame times.
 ``chip_smoke.py``'s 165-frame sequence with IMU samples; after the third
 IMU initialization stage one VI keyframe (insert, triangulate, admit, fuse,
 ``build_vi_ba`` with its window preintegration, ``vi_bundle_adjust``,
-apply, culls) is profiled and the next timed by stage, then one VI frame
+apply, culls) is profiled and the next timed by stage, each as the plain
+function ``_vi_kf_work`` on a copy of its map (the per-frame path runs the
+keyframe program, whose graph replays fall in no stage), then one VI frame
 (preintegration, prediction, extraction, tracking, the 15-dof refinement)
 is profiled, with no keyframe: its call (the drain of the frame before it
 and its dispatch) and the ``flush`` that drains it. The VI frame runs as
@@ -38,7 +40,9 @@ import torch
 
 import numpy as np
 
-from ..models import inertial_system, kf_work, local_mapping, map_updates, system, tracking
+from ..models import (inertial_system, kf_work, local_mapping, map_state, map_updates, system,
+                      tracking, vi_kf_program)
+from ..models.chunk_runner import kf_segments
 from ..ops import ba, imu, orb, project_match, viba
 from . import synth
 
@@ -215,36 +219,41 @@ def profile_vi(out: Path, card: str) -> dict:
     slam = inertial_system.InertialSlam(cam_params=seq.cam_params, calib=vi_calib(), **VI_SLAM_KW)
     result = {"card": card}
     hooks = _StageHooks(VI_STAGES)
-    work = inertial_system._vi_kf_work
+    run = vi_kf_program.VIKeyframeProgram.run
 
-    def hooked(*a, **kw):
-        kf_id = a[1]
-        full = kw["do_fuse"] and kw["do_stats"] and kw["do_cull"] and slam.imu_stage == 3
-        if full and "profiled_kf" not in result:
-            box = []
-            wall = _profiled(lambda: box.append(work(*a, **kw)),
-                             out / "vi_kf_trace.json", out / "vi_kf_table.txt")
-            result["profiled_kf"] = dict(kf_id=kf_id, wall_ms=wall,
-                                         stages=stage_split(out / "vi_kf_trace.json"))
-            return box[0]
+    def hooked(prog, m, inp):
+        # The program's regions replay as CUDA graphs, whose kernels fall in
+        # no stage's range: the stages are profiled and timed on the plain
+        # function, ``_vi_kf_work``, on a copy of the keyframe's map.
+        full = (len(kf_segments(prog.cfg, inp.kf_id)) == len(vi_kf_program.REGIONS)
+                and slam.imu_stage == 3)
         if full and "timed_kf" not in result:
-            hooks.times = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = work(*a, **kw)
-            torch.cuda.synchronize()
-            result["timed_kf"] = dict(kf_id=kf_id, wall_ms=(time.perf_counter() - t0) * 1e3,
-                                      stages_ms=hooks.times)
-            hooks.times = None
-            return res
-        return work(*a, **kw)
+            mc = map_state.MapState(*(x.clone() for x in m))
+
+            def eager():
+                return vi_kf_program.eager_keyframe(mc, inp, prog.cfg)
+
+            if "profiled_kf" not in result:
+                wall = _profiled(eager, out / "vi_kf_trace.json", out / "vi_kf_table.txt")
+                result["profiled_kf"] = dict(kf_id=inp.kf_id, wall_ms=wall,
+                                             stages=stage_split(out / "vi_kf_trace.json"))
+            else:
+                hooks.times = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eager()
+                torch.cuda.synchronize()
+                result["timed_kf"] = dict(kf_id=inp.kf_id, wall_ms=(time.perf_counter() - t0) * 1e3,
+                                          stages_ms=hooks.times)
+                hooks.times = None
+        return run(prog, m, inp)
 
     def frame(i):
         return slam.process_frame(seq.images[i], float(seq.timestamps[i]),
                                   acc=im["acc"][i], gyro=im["gyro"][i], dts=im["dts"][i])
 
     hooks.install()
-    inertial_system._vi_kf_work = hooked
+    vi_kf_program.VIKeyframeProgram.run = hooked
     frame_ms = []
     try:
         for i in range(n_frames - 1):
@@ -256,7 +265,7 @@ def profile_vi(out: Path, card: str) -> dict:
         wall = _profiled(lambda: (frame(n_frames - 1), slam.flush()), out / "vi_frame_trace.json",
                          out / "vi_frame_table.txt")
     finally:
-        inertial_system._vi_kf_work = work
+        vi_kf_program.VIKeyframeProgram.run = run
         hooks.remove()
     result["vi_frame"] = dict(wall_ms=wall, stages=stage_split(out / "vi_frame_trace.json"))
     result.update(n_kf=slam.n_kf, imu_stage=slam.imu_stage, init_stage_ms=slam.init_stage_ms,

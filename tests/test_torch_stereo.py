@@ -4,7 +4,7 @@ and images (and on planted cases: keypoints on every border, SAD minima at
 the slide window's edges, the mutual check), ``pose_optimization_stereo``
 over mixed mono / stereo edges with planted outliers, keyframe insertion
 with ``ur``, the capture-safe ``admit_depth_points``,
-``RgbdSlam._depth_to_match``, and the synthetic right view and VI depth
+the RGB-D front end's ``depth_to_match``, and the synthetic right view and VI depth
 against the JAX renderer. Tolerances are stated where they are compared.
 """
 
@@ -22,7 +22,7 @@ from orb_slam3_ros_tpu.ops import pose_opt as jpo
 from orb_slam3_ros_tpu.ops import stereo as jst
 from orb_slam3_ros_tpu.utils import synth as jsynth
 from orb_slam3_ros_tpu_torch.models import map_updates as tmu
-from orb_slam3_ros_tpu_torch.models.stereo_system import RgbdSlam as TorchRgbdSlam
+from orb_slam3_ros_tpu_torch.models.front_end_program import depth_to_match
 from orb_slam3_ros_tpu_torch.ops import pose_opt as tpo
 from orb_slam3_ros_tpu_torch.ops import stereo as tst
 from orb_slam3_ros_tpu_torch.utils import synth as tsynth
@@ -282,7 +282,7 @@ def test_depth_to_match_against_jax(seq, extracted):
     dm[100:140, 150:250] = 0.0  # a hole
     bf = float(seq.cam_params[0]) * 0.05
     j = JaxRgbdSlam._depth_to_match(SimpleNamespace(bf=bf), fl, jnp.asarray(dm))
-    t = TorchRgbdSlam._depth_to_match(SimpleNamespace(bf=bf), torch_features(fl), T(dm))
+    t = depth_to_match(torch_features(fl), T(dm), bf)
     np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
     assert (~t.valid.numpy() & np.asarray(fl.valid)).sum() > 10  # the hole took some
     np.testing.assert_allclose(t.u_right.numpy(), np.asarray(j.u_right), atol=1e-4)

@@ -236,7 +236,12 @@ def test_loop_closure_syncs_the_replica(inertial, monkeypatch):
         slam = tis.InertialSlam(enable_loop_closing=True, calib=torch_calib(make_calib()),
                                 devices=SPLIT, **LC_KW)
         slam.imu_initialized = True
-        monkeypatch.setattr(tis, "_vi_kf_work", lambda mp, *a, **k: (mp, torch.tensor(0)))
+        from orb_slam3_ros_tpu_torch.models.vi_kf_program import VIKeyframeProgram
+
+        # the keyframe program leaves the map as it is and reads the
+        # keyframe's state back with no point admitted
+        monkeypatch.setattr(VIKeyframeProgram, "run", lambda self, mp, inp: (mp, np.concatenate(
+            [[0.0], tis._pack_kf_state(mp, inp.kf_id).cpu().numpy()])))
     else:
         slam = tsys.MonoSlam(enable_loop_closing=True, devices=SPLIT, pipelined=False, **LC_KW)
         monkeypatch.setattr(kf_work, "keyframe_work", lambda mp, *a, **k: (mp, torch.tensor(0), 0))
