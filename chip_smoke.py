@@ -31,7 +31,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      culling) at ``bench.py``'s configuration; requires initialization by
      frame 4, no frame lost after it, >= 12 keyframes, Sim(3) ATE <= 0.02 m,
      and kernel launches equal to the tracking passes plus 2 for each
-     fusing keyframe;
+     fusing keyframe (plus the keyframe program's capture warm-ups; the
+     comparisons' launches, after the run, are printed apart); every
+     keyframe after the initial pair runs the keyframe program
+     (``kf_program``, none the eager ``keyframe_work``): the
+     replays of its region graphs its id calls for, one synchronizing call
+     (the packed read), the fuse graph 2 K1 launches a replay, and under
+     deterministic algorithms a twin program's replays equal to the plain
+     ``keyframe_work`` on copies of the first steady and the first fusing
+     keyframe's inputs (``ProgramWatch``, compared after the run); prints
+     the program's device and host ms a keyframe beside the plain
+     function's. Phases 12 (a), 14 (a) and (b), 16 (d), 17, 18 (b), 19 (c)
+     and (d) and 20 hold their mono keyframes the same way (a deferred
+     one, the pipelined mode's, with no synchronizing call);
   8. mono-inertial: ``InertialSlam`` runs a 165-frame 752x480 sequence with
      100 Hz IMU samples from frame 0 at ``bench.py``'s ``main_vi``
      configuration (``utils/profile_keyframe.py`` holds it, for its ``--vi``
@@ -55,7 +67,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      the keyframe's inputs, integers exact, floats to 1e-4), and kernel
      launches equal to the visual frames' tracking passes plus the VI graph
      replays' passes (plus the captures' warm-ups) plus 2 for each fusing
-     keyframe (plus the keyframe program's warm-ups and comparisons).
+     keyframe (plus the keyframe program's warm-ups; its comparisons run
+     after the run).
      Prints frames/s and latency beside the eager VI frame's, the VI
      graph's device ms (CUDA events) and nodes, the share of drains
      whose copy had landed, and the keyframe program's device and host ms
@@ -209,7 +222,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      prints the remap's time a frame.
  17. the system surface: (a) the dataset-replay entry point
      (``run_synth.run`` with ``--native-feed --stream --verbose 1 --json``)
-     at phase 7's configuration and the first 90 frames of its sequence
+     at phase 7's configuration and the first 75 frames of its sequence
      (``SURF_FRAMES``, cut for time), per frame, fed by the C++
      measurement sync (``native.py``, built from ``native/measurement_sync
      .cpp`` with g++ in this run) from a producer thread, the JSONL event
@@ -478,7 +491,9 @@ KB8_RIG_FRAMES = 30
 SURF_POINTS_EVERY, SURF_FPS_RATIO, SURF_REOPT_TOL, SURF_REOPT_ITERS = 1, 0.9, 1e-4, 30
 SURF_B_RUNS = 2  # (b) runs, each between two runs of (a)
 VI_PIPE_FRAMES = 120  # phase 21's frames: phase 8's first 120 of 165 (cut for time)
-SURF_FRAMES = 90  # each replay's frames: phase 7's first 90 (120 before phase 21, cut for time)
+# each replay's frames: phase 7's first 75 (120 before phase 21, 90 before
+# the mono keyframe program's comparisons; cut for time)
+SURF_FRAMES = 75
 FRONT_RUNS = 21  # phase 15 (b): runs of the stereo front-end program on one pair (1 captures)
 PROBE_LOOP = 100_000  # interpreter iterations a host-probe sample (8-10 ms on the card's host)
 
@@ -803,7 +818,8 @@ def phase_cpu(torch, state) -> None:
 def phase_mapping(torch, project_match) -> dict:
     """``MonoSlam`` maps a rendered 120-frame sequence from frame 0 on the
     card (``bench.py``'s sequence and configuration, no stored map). Each
-    ``keyframe_work`` call is timed by CUDA events around it."""
+    keyframe runs the keyframe program (``ProgramWatch``), its call timed by
+    CUDA events around it; none runs the eager ``keyframe_work``."""
     from orb_slam3_ros_tpu_torch.models import kf_work, system
     from orb_slam3_ros_tpu_torch.utils import synth
 
@@ -813,21 +829,15 @@ def phase_mapping(torch, project_match) -> dict:
     torch.cuda.synchronize()
     print(f"mapping setup: rendered {MAP_FRAMES} frames at {W}x{H} in {time.perf_counter() - t0:.1f} s")
 
-    kf_ms, n_fusing = [], 0
+    eager = []
     work = kf_work.keyframe_work
 
-    def timed_work(*args, **kw):
-        nonlocal n_fusing
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = work(*args, **kw)
-        b.record()
-        b.synchronize()
-        kf_ms.append(a.elapsed_time(b))
-        n_fusing += bool(kw["do_fuse"])
-        return out
+    def counted_work(*args, **kw):
+        eager.append(args[1])
+        return work(*args, **kw)
 
-    kf_work.keyframe_work = timed_work
+    kf_work.keyframe_work = counted_work
+    watch = ProgramWatch(torch, project_match, "mapping").__enter__()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(project_match)
     passes = 0
@@ -851,33 +861,44 @@ def phase_mapping(torch, project_match) -> dict:
                     frame_ms.append(dt)
             check(init_at is not None or i < MAP_INIT_BY, f"not initialized by frame {MAP_INIT_BY}")
     finally:
+        watch.__exit__()
         kf_work.keyframe_work = work
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t_init
     t_steady = sum(frame_ms) / 1e3
-    launches = dict(project_match.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    launches = dict(project_match.LAUNCHES)  # the run's: the comparisons come after it
+    kfw = watch.report(mono=True)
+    n_fusing = kfw["fusing_keyframes"]
+    kf_ms = kfw["mkf_call_ms"]  # every keyframe's call, the capture's included
     n_kf_made = 2 + len(kf_ms)
     rmse = ate(slam, seq, MAP_FRAMES - init_at, with_scale=True)
     lat = np.percentile(frame_ms, [50, 80])
-    kf_med, kf_max = float(np.median(kf_ms)), float(max(kf_ms))
+    kf_med, kf_max = float(np.median(kf_ms)), float(max(kf_ms[1:] or kf_ms))
+    extra = kfw["warmup_launches"]
     print(f"mapping: initialized at frame {init_at} ({init_ms:.1f} ms, initial BA "
           f"{slam.ba_iters[0]} iterations); tracked {MAP_FRAMES - init_at}/{MAP_FRAMES - init_at} "
           f"frames after it; {n_kf_made} keyframes made, {slam.n_kf} slots, "
           f"{int(slam.map.kf_valid.sum())} live; {slam.n_pts} points; Sim(3) ATE {rmse:.5f} m; "
           f"{len(frame_ms) / t_steady:.2f} frames/s steady over {len(frame_ms)} frames; latency "
-          f"median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; keyframe work median {kf_med:.2f} ms, "
-          f"max {kf_max:.2f} ms over {len(kf_ms)}; local-BA iterations {slam.ba_iters[1:]}; "
-          f"kernel launches {launches} (tracking passes {passes}, fusing keyframes {n_fusing}); "
-          f"peak device memory {peak / 2**20:.1f} MiB; wall {time.perf_counter() - t_init:.1f} s "
-          "after initialization")
+          f"median {lat[0]:.2f} ms, p80 {lat[1]:.2f} ms; keyframe work (the program's call, CUDA "
+          f"events) median {kf_med:.2f} ms over {len(kf_ms)}, max {kf_max:.2f} ms after the "
+          f"capture, the capture's {kf_ms[0]:.2f} ms; local-BA iterations {slam.ba_iters[1:]}; "
+          f"kernel launches {launches} (tracking passes {passes}, fusing keyframes {n_fusing}, "
+          f"the program's capture warm-ups {extra}); peak device memory "
+          f"{peak / 2**20:.1f} MiB; wall {wall:.1f} s after initialization")
     check(n_kf_made >= MAP_MIN_KF, f"only {n_kf_made} keyframes")
+    check(not eager, f"keyframes {eager} ran the eager keyframe_work")
     check(rmse <= MAP_ATE_LIMIT, f"mapping ATE {rmse:.5f} m above {MAP_ATE_LIMIT} m")
-    check(launches == {"track": passes, "fuse": 2 * n_fusing, "sim3": 0, "merge": 0},
+    check(launches == {"track": passes + extra["track"], "fuse": 2 * n_fusing + extra["fuse"],
+                       "sim3": 0, "merge": 0},
           f"matcher launches {launches}, expected {passes} from tracking and "
-          f"{2 * n_fusing} from fusion")
+          f"{2 * n_fusing} from fusion, plus {extra}")
     return dict(init_frame=init_at, init_ms=init_ms, keyframes=n_kf_made, ate_sim3_m=rmse,
                 frames_per_s=len(frame_ms) / t_steady, frame_ms_p50=float(lat[0]),
                 frame_ms_p80=float(lat[1]), kf_work_ms_p50=kf_med, kf_work_ms_max=kf_max,
+                kf_capture_ms=kf_ms[0], kf_program={k: v for k, v in kfw.items()
+                                                   if k.startswith("mkf_")},
                 ba_iters=slam.ba_iters, launches=launches, peak_mem_mib=peak / 2**20), seq
 
 
@@ -982,109 +1003,137 @@ def map_gaps(a: dict, b: dict) -> dict:
 
 class ProgramWatch:
     """The per-frame programs of one run, watched through their ``run``
-    (``vi_kf_program.VIKeyframeProgram`` and ``front_end_program.
-    FrontEndProgram``, wrapped on their classes while the block runs): each
-    VI keyframe's region replays against the regions ``kf_segments`` names,
-    its synchronizing calls (the one packed read, but at a capture), its
-    host ms (the packed read included) and its replays' CUDA-event spans;
-    each front end's replays a frame, synchronizing calls and spans. At the
-    first keyframe after the capture, and at the first fusing one, the
-    keyframe is held to the plain ``_vi_kf_work`` on copies of its inputs:
-    under torch's deterministic algorithms (sums in a fixed order), a twin
+    (``kf_program.KeyframeProgram``, ``vi_kf_program.VIKeyframeProgram`` and
+    ``front_end_program.FrontEndProgram``, wrapped on their classes while
+    the block runs): each keyframe's region replays against the regions
+    ``kf_segments`` names, its synchronizing calls (the one packed read of a
+    synchronous keyframe, none of a deferred mono one, but at a capture),
+    its call's CUDA-event span, its host ms (the packed read included) and
+    its replays' spans; each front end's replays a frame, synchronizing
+    calls and spans. In the run the watch only copies what a comparison
+    needs: the inputs of a kind's first keyframe after the capture and of
+    its first fusing one, and a front-end program's buffers after its first
+    replay after the capture. ``report`` compares, so that no timed frame
+    holds a comparison and the K1 launches a phase reads before ``report``
+    are its main path's alone. A keyframe is held to the plain function
+    (``kf_work.keyframe_work``, or ``_vi_kf_work``) on its copies: under
+    torch's deterministic algorithms (sums in a fixed order), a twin
     program's graphs, captured and replayed there, must equal the plain
     function (integers exact, floats to ``GRAPH_TOL``; equal to the bit as
     a rule); as the system's own graphs run (atomic sums, not reproducible
     on the card), the replays' gap to a plain run is printed beside two
-    plain runs' gap, with the plain run's CUDA-event time. Once a front-end
-    program, the region runs
-    eagerly on a copy of its buffers and is held to the replay's outputs
-    (timed eagerly a few times). The comparisons' K1 launches are kept in
-    ``cmp_launches``, for the phase's count to leave out."""
+    plain runs' gap, with the plain run's CUDA-event time. A front-end
+    program's region runs eagerly on a copy of its buffers and is held to
+    the replay's outputs (timed eagerly a few times). ``report`` prints the
+    comparisons' K1 launches on a line of their own."""
+
+    KINDS = ("VI", "mono")  # the keyframe programs, in the order of ``_cls``
 
     def __init__(self, torch, project_match, what: str):
         self.torch, self.pm, self.what = torch, project_match, what
-        self.kf, self.front = [], []
-        self.kf_cmp = []  # the compared keyframes: id, fusing, worst float gap, eager ms
-        self.front_cmp = {}  # program -> (worst float gap, eager ms)
-        self.cmp_launches = dict.fromkeys(project_match.LAUNCHES, 0)
+        self.kf, self.mkf, self.front = [], [], []  # VI keyframes, mono keyframes, front ends
+        self.kf_cmp = []  # the keyframes to compare (kind, id, fusing), then compared
+        self.front_cmp = {}  # program -> its buffers after a replay, then (worst gap, eager ms)
 
     def __enter__(self):
-        from orb_slam3_ros_tpu_torch.models import front_end_program, vi_kf_program
+        from orb_slam3_ros_tpu_torch.models import front_end_program, kf_program, vi_kf_program
 
-        self._cls = (vi_kf_program.VIKeyframeProgram, front_end_program.FrontEndProgram)
+        self._cls = (vi_kf_program.VIKeyframeProgram, kf_program.KeyframeProgram,
+                     front_end_program.FrontEndProgram)
+        self._mods = (vi_kf_program, kf_program)
         self._runs = tuple(c.run for c in self._cls)
         watch = self
-        self._cls[0].run = lambda prog, m, inp: watch._kf_run(prog, m, inp)
-        self._cls[1].run = lambda prog, a, b: watch._fe_run(prog, a, b)
+        self._cls[0].run = lambda prog, m, inp: watch._kf_run(0, prog, m, inp)
+        self._cls[1].run = lambda prog, m, inp, defer=False: watch._kf_run(1, prog, m, inp, defer)
+        self._cls[2].run = lambda prog, a, b: watch._fe_run(prog, a, b)
         return self
 
     def __exit__(self, *exc):
         for c, r in zip(self._cls, self._runs):
             c.run = r
 
-    def _kf_run(self, prog, m, inp):
-        from orb_slam3_ros_tpu_torch.models import vi_kf_program as vkp
+    @staticmethod
+    def _copies(m, inp, n: int) -> list:
+        """``n`` copies of a keyframe's map and inputs (the tensors cloned)."""
         from orb_slam3_ros_tpu_torch.models.map_state import MapState
 
-        torch = self.torch
-        segs = vkp.kf_segments(prog.cfg, inp.kf_id)
-        capturing = prog.graphs and prog.n_graphs < len(vkp.REGIONS)
-        snap = None
-        fusing = "kf_fuse" in segs
-        if not capturing and (not self.kf_cmp or fusing and not any(c["fuse"] for c in self.kf_cmp)):
-            snap = [(MapState(*(x.clone() for x in m)), inp._replace(
-                feats=type(inp.feats)(*(x.clone() for x in inp.feats)),
-                feat_pt=inp.feat_pt.clone(),
-                ur=None if inp.ur is None else inp.ur.clone(),
-                depth=None if inp.depth is None else inp.depth.clone())) for _ in range(4)]
-        runs0, s0 = sum(prog.runs.values()), len(prog.spans)
-        prog.timing = True
-        t0 = time.perf_counter()
-        out, n_sync = counting_syncs(torch, self._runs[0], prog, m, inp)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        self.kf.append(dict(kf=inp.kf_id, segs=segs, replays=sum(prog.runs.values()) - runs0,
-                            syncs=n_sync, host_ms=host_ms, capturing=capturing, prog=prog,
-                            spans=(s0, len(prog.spans))))
-        if snap is not None:
-            self.kf_cmp.append(dict(kf=inp.kf_id, fuse=fusing, **self._kf_compare(prog, snap)))
+        def clone(x):
+            return x.clone() if hasattr(x, "clone") else x
+
+        out = []
+        for _ in range(n):
+            kw = {f: clone(v) for f, v in inp._asdict().items() if f != "feats"}
+            kw["feats"] = type(inp.feats)(*(clone(x) for x in inp.feats))
+            out.append((MapState(*(x.clone() for x in m)), type(inp)(**kw)))
         return out
 
-    def _kf_compare(self, prog, snap) -> dict:
+    def _kf_run(self, k: int, prog, m, inp, defer: bool = False):
+        """A keyframe of program kind ``KINDS[k]``, watched."""
+        from orb_slam3_ros_tpu_torch.models import kf_program as kfp
+        from orb_slam3_ros_tpu_torch.models.map_state import MapState
+
+        torch, kind = self.torch, self.KINDS[k]
+        segs = kfp.kf_segments(prog.cfg, inp.kf_id)
+        capturing = prog.graphs and prog.n_graphs < len(kfp.REGIONS)
+        fusing = "kf_fuse" in segs
+        done = [c for c in self.kf_cmp if c["kind"] == kind]
+        snap = None
+        if not capturing and (not done or fusing and not any(c["fuse"] for c in done)):
+            snap = self._copies(m, inp, 4)
+        runs0, s0 = sum(prog.runs.values()), len(prog.spans)
+        prog.timing = True
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out, n_sync = counting_syncs(torch, self._runs[k], prog, m, inp,
+                                     *((defer,) if kind == "mono" else ()))
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        (self.mkf if kind == "mono" else self.kf).append(dict(
+            kf=inp.kf_id, segs=segs, replays=sum(prog.runs.values()) - runs0, syncs=n_sync,
+            host_ms=host_ms, capturing=capturing, prog=prog, spans=(s0, len(prog.spans)),
+            deferred=defer, call=(a, b)))
+        if snap is not None:
+            graph = {f: prog.buf[f].clone() for f in MapState._fields + ("packed",)}
+            self.kf_cmp.append(dict(kind=kind, kf=inp.kf_id, fuse=fusing, prog=prog, snap=snap,
+                                    graph=graph))
+        return out
+
+    def _kf_compare(self, kind: str, prog, snap, graph) -> dict:
+        """A keyframe's program of kind ``kind`` held to the plain function
+        on the copies ``snap`` of its inputs; ``graph``: the system's
+        replays' outputs."""
         import warnings
 
-        from orb_slam3_ros_tpu_torch.models import vi_kf_program as vkp
         from orb_slam3_ros_tpu_torch.models.map_state import MapState
 
         torch = self.torch
+        k = self.KINDS.index(kind)
+        mod, run = self._mods[k], self._runs[k]
 
         def named(m, packed):
             return dict(zip(MapState._fields, m), packed=packed)
 
-        before = dict(self.pm.LAUNCHES)
-        graph = {k: prog.buf[k].clone() for k in MapState._fields + ("packed",)}
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        plain = named(*vkp.eager_keyframe(*snap[0], prog.cfg))
+        plain = named(*mod.eager_keyframe(*snap[0], prog.cfg))
         b.record()
-        plain2 = named(*vkp.eager_keyframe(*snap[1], prog.cfg))
+        plain2 = named(*mod.eager_keyframe(*snap[1], prog.cfg))
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 K, N = prog.buf["kf_obs"].shape
-                twin = vkp.VIKeyframeProgram(prog.cfg, prog.device, K, N,
-                                             prog.buf["pt_valid"].shape[0])
-                det_graph = named(*self._runs[0](twin, *snap[2]))
+                twin = type(prog)(prog.cfg, prog.device, K, N, prog.buf["pt_valid"].shape[0])
+                det_graph = named(*run(twin, *snap[2]))
                 det_graph["packed"] = twin.buf["packed"]
-                det_plain = named(*vkp.eager_keyframe(*snap[3], prog.cfg))
+                det_plain = named(*mod.eager_keyframe(*snap[3], prog.cfg))
                 torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
-        for site, n in self.pm.LAUNCHES.items():
-            self.cmp_launches[site] += n - before[site]
         det = map_gaps(det_graph, det_plain)
-        return dict(det=det, det_bitwise=all(torch.equal(det_graph[k], v)
-                                             for k, v in det_plain.items()),
+        return dict(det=det, det_bitwise=all(torch.equal(det_graph[f], v)
+                                             for f, v in det_plain.items()),
                     nondet_ops=sorted({str(w.message).split(" does not")[0][:80] for w in caught
                                        if "deterministic" in str(w.message)}),
                     gap=map_gaps(graph, plain), spread=map_gaps(plain2, plain),
@@ -1096,23 +1145,32 @@ class ProgramWatch:
         runs0, s0 = prog.runs[prog.REGION], len(prog.spans)
         prog.timing = True
         t0 = time.perf_counter()
-        out, n_sync = counting_syncs(torch, self._runs[1], prog, img, img2)
+        out, n_sync = counting_syncs(torch, self._runs[2], prog, img, img2)
         host_ms = (time.perf_counter() - t0) * 1e3
         self.front.append(dict(replays=prog.runs[prog.REGION] - runs0, syncs=n_sync,
                                host_ms=host_ms, capturing=capturing, prog=prog,
                                spans=(s0, len(prog.spans))))
         if prog not in self.front_cmp and not capturing:
             # the replay left this frame's inputs and outputs in the buffers
-            before = dict(self.pm.LAUNCHES)
-            fn = prog.region(prog.REGION)
-            scratch = {k: v.clone() for k, v in prog.buf.items()}
-            fn(scratch)
-            worst = max(float_gap(prog.buf[k], v) for k, v in scratch.items())
-            eager_ms = cuda_ms(lambda: fn(scratch), 3)
-            for site, n in self.pm.LAUNCHES.items():
-                self.cmp_launches[site] += n - before[site]
-            self.front_cmp[prog] = (worst, eager_ms)
+            self.front_cmp[prog] = {k: v.clone() for k, v in prog.buf.items()}
         return out
+
+    def _compare(self) -> dict:
+        """Run the comparisons the run copied inputs for; returns their K1
+        launches."""
+        before = dict(self.pm.LAUNCHES)
+        for c in self.kf_cmp:
+            if "det" not in c:
+                c.update(self._kf_compare(c["kind"], c.pop("prog"), c.pop("snap"),
+                                          c.pop("graph")))
+        for prog, got in self.front_cmp.items():
+            if isinstance(got, dict):
+                fn = prog.region(prog.REGION)
+                scratch = {k: v.clone() for k, v in got.items()}
+                fn(scratch)
+                worst = max(float_gap(got[k], v) for k, v in scratch.items())
+                self.front_cmp[prog] = (worst, cuda_ms(lambda: fn(scratch), 3))
+        return {site: n - before[site] for site, n in self.pm.LAUNCHES.items()}
 
     def _ms(self, rec) -> float:
         """A record's replays' device ms, summed (CUDA events)."""
@@ -1121,72 +1179,98 @@ class ProgramWatch:
 
     def warmups(self) -> dict:
         """K1 launches of the watched programs' captures' warm-ups."""
-        progs = {id(r["prog"]): r["prog"] for r in self.kf + self.front}
+        progs = {id(r["prog"]): r["prog"] for r in self.kf + self.front + self.mkf}
         return {site: sum(p.warmup_launches[site] for p in progs.values())
                 for site in self.pm.LAUNCHES}
 
-    def report(self, frames: int | None = None) -> dict:
-        """Check and print the run's programs: every VI keyframe the regions
-        its id names, each one replay, one synchronizing call (the packed
-        read) but at a capture, the fuse graph 2 K1 launches a replay, the
-        compared keyframes' twin replays equal to the plain function under
-        deterministic algorithms; with ``frames``, that
-        many front-end runs, each one replay, none synchronizing but a
-        capture, each program equal to its eager region. Returns the
-        figures, with the fusing keyframes and K1 launches to predict."""
+    def _kf_report(self, recs: list, kind: str, plain_name: str) -> dict:
+        """Check and print the keyframes ``recs`` of program kind ``kind``
+        and their comparisons. Returns the figures."""
+        what = self.what
+        cmp = [c for c in self.kf_cmp if c["kind"] == kind]
+        bad = [(r["kf"], r["replays"], len(r["segs"])) for r in recs
+               if r["replays"] != len(r["segs"])]
+        check(not bad, f"{what}: keyframes whose replays are not the regions kf_segments names "
+                       f"(kf, replays, regions): {bad}")
+        check(all(r["prog"].graphs for r in recs), f"{what}: a {kind} keyframe ran off the card")
+        steady = [r for r in recs if not r["capturing"]]
+        bad = sorted({(r["deferred"], r["syncs"]) for r in steady
+                      if r["syncs"] != (0 if r["deferred"] else 1)})
+        check(steady and not bad, f"{what}: synchronizing calls in a steady {kind} keyframe "
+                                  f"(deferred, syncs) {bad} (1 synchronous, 0 deferred expected)")
+        syncs = sorted({r["syncs"] for r in steady})
+        fuse_k1 = {r["prog"]._graph["kf_fuse"][1]["fuse"] for r in recs}
+        check(fuse_k1 == {2}, f"{what}: K1 launches a replay of the fuse graph {fuse_k1}")
+        graph_ms = [self._ms(r) for r in steady]
+        host_ms = [r["host_ms"] for r in steady]
+        progs = {id(r["prog"]): r["prog"] for r in recs}
+        out = dict(
+            keyframes=len(recs), fusing_keyframes=sum("kf_fuse" in r["segs"] for r in recs),
+            deferred=sum(r["deferred"] for r in recs),
+            replays=sum(r["replays"] for r in recs), graph_ms_p50=float(np.median(graph_ms)),
+            graph_ms_max=float(max(graph_ms)), host_ms_p50=float(np.median(host_ms)),
+            host_ms_max=float(max(host_ms)), programs=len(progs),
+            capture_s=sum(p.capture_s for p in progs.values()), syncs=syncs)
+        head = (f"{what} {kind} keyframe program: {len(recs)} keyframes ({out['deferred']} "
+                f"deferred) = {out['replays']} region replays, as kf_segments names; device ms a "
+                f"keyframe median {out['graph_ms_p50']:.3f} (max {out['graph_ms_max']:.3f}), host "
+                f"ms with the packed read median {out['host_ms_p50']:.3f} (max "
+                f"{out['host_ms_max']:.3f}) over {len(steady)} after the capture "
+                f"({out['programs']} programs, captures {out['capture_s']:.2f} s); syncs a steady "
+                f"keyframe {syncs}; fusing keyframes {out['fusing_keyframes']}, K1 2 a fuse replay")
+        check(len(cmp) >= 1, f"{what}: no {kind} keyframe was compared with {plain_name}")
+        keys = ("keyframes", "points", "int_entries")
+        det = {c: max(x["det"][c] for x in cmp) for c in keys}
+        check(det["int_entries"] == 0 and max(det["keyframes"], det["points"]) <= GRAPH_TOL,
+              f"{what}: under deterministic algorithms a {kind} keyframe's replays and the plain "
+              f"{plain_name} differ: {det}")
+        worst = {c: max(x["gap"][c] for x in cmp) for c in keys}
+        spread = {c: max(x["spread"][c] for x in cmp) for c in keys}
+        out.update(eager_ms=float(np.median([c["eager_ms"] for c in cmp])), graph_vs_eager=worst,
+                   eager_spread=spread, det_bitwise=all(c["det_bitwise"] for c in cmp),
+                   det_gap=det, nondet_ops=sorted({o for c in cmp for o in c["nondet_ops"]}))
+        cmp_txt = ", ".join(f"keyframe {c['kf']}{' (fusing)' if c['fuse'] else ''} "
+                            f"{c['eager_ms']:.3f} ms" for c in cmp)
+        print(f"{head}; the plain {plain_name} on copies of the inputs: {cmp_txt} (CUDA "
+              f"events); under deterministic algorithms a twin program's replays equal to it "
+              f"{'to the bit' if out['det_bitwise'] else det} (ops without a deterministic form: "
+              f"{out['nondet_ops'] or 'none'}); the system's replays (atomic sums) {worst} from a "
+              f"plain run, two plain runs {spread} apart")
+        return out
+
+    def report(self, frames: int | None = None, mono: bool = False) -> dict:
+        """Run the comparisons (``_compare``), then check and print the run's
+        programs: every keyframe the regions its id names, each one replay,
+        one synchronizing call (the packed read) a synchronous keyframe and
+        none a deferred one but at a capture, the fuse graph 2 K1 launches a
+        replay, the compared keyframes' twin replays equal to the plain
+        function under deterministic algorithms; with ``mono``, mono
+        keyframes must have run; with ``frames``, that many front-end runs,
+        each one replay, none synchronizing but a capture, each program equal
+        to its eager region. Returns the figures, with the fusing keyframes
+        (of both kinds), the K1 launches of the captures' warm-ups (in the
+        run) and of the comparisons (after it)."""
         torch, what = self.torch, self.what
         torch.cuda.synchronize()
-        out = dict(vi_keyframes=len(self.kf), cmp_launches=dict(self.cmp_launches),
-                   warmup_launches=self.warmups())
+        cmp_launches = self._compare()
+        out = dict(vi_keyframes=len(self.kf), mono_keyframes=len(self.mkf), fusing_keyframes=0,
+                   cmp_launches=cmp_launches, warmup_launches=self.warmups())
+        check(not mono or self.mkf, f"{what}: no keyframe ran the mono keyframe program")
+        if self.mkf:
+            m = self._kf_report(self.mkf, "mono", "keyframe_work")
+            out.update({f"mkf_{k}": v for k, v in m.items()})
+            out["mkf_call_ms"] = [a.elapsed_time(b) for a, b in (r["call"] for r in self.mkf)]
+            out["fusing_keyframes"] += m["fusing_keyframes"]
         if self.kf:
-            bad = [(r["kf"], r["replays"], len(r["segs"])) for r in self.kf
-                   if r["replays"] != len(r["segs"])]
-            check(not bad, f"{what}: keyframes whose replays are not the regions kf_segments names "
-                           f"(kf, replays, regions): {bad}")
-            check(all(r["prog"].graphs for r in self.kf), f"{what}: a VI keyframe ran off the card")
-            steady = [r for r in self.kf if not r["capturing"]]
-            syncs = sorted({r["syncs"] for r in steady})
-            check(steady and syncs == [1], f"{what}: synchronizing calls in a steady keyframe "
-                                           f"dispatch {syncs} (the packed read's 1 expected)")
-            fuse_k1 = {r["prog"]._graph["kf_fuse"][1]["fuse"] for r in self.kf}
-            check(fuse_k1 == {2}, f"{what}: K1 launches a replay of the fuse graph {fuse_k1}")
-            cmp = self.kf_cmp
-            det = {c: max(x["det"][c] for x in cmp) for c in ("keyframes", "points", "int_entries")}
-            check(det["int_entries"] == 0 and max(det["keyframes"], det["points"]) <= GRAPH_TOL,
-                  f"{what}: under deterministic algorithms a keyframe's replays and the plain "
-                  f"_vi_kf_work differ: {det}")
-            worst = {c: max(x["gap"][c] for x in cmp) for c in ("keyframes", "points", "int_entries")}
-            spread = {c: max(x["spread"][c] for x in cmp)
-                      for c in ("keyframes", "points", "int_entries")}
-            graph_ms = [self._ms(r) for r in steady]
-            host_ms = [r["host_ms"] for r in steady]
+            v = self._kf_report(self.kf, "VI", "_vi_kf_work")
             out.update(
-                fusing_keyframes=sum("kf_fuse" in r["segs"] for r in self.kf),
-                kf_replays=sum(r["replays"] for r in self.kf), kf_graph_ms_p50=float(
-                    np.median(graph_ms)), kf_graph_ms_max=float(max(graph_ms)),
-                kf_host_ms_p50=float(np.median(host_ms)), kf_host_ms_max=float(max(host_ms)),
-                kf_eager_ms=float(np.median([c["eager_ms"] for c in cmp])),
-                kf_graph_vs_eager=worst, kf_eager_spread=spread,
-                kf_capture_s=self.kf[0]["prog"].capture_s)
-            cmp_txt = ", ".join(f"keyframe {c['kf']}{' (fusing)' if c['fuse'] else ''} "
-                                f"{c['eager_ms']:.3f} ms" for c in cmp)
-            nondet = sorted({o for c in cmp for o in c["nondet_ops"]})
-            out.update(kf_det_bitwise=all(c["det_bitwise"] for c in cmp), kf_det_gap=det,
-                       kf_nondet_ops=nondet)
-            print(f"{what} VI keyframe program: {len(self.kf)} keyframes = "
-                  f"{out['kf_replays']} region replays, as kf_segments names; device ms a "
-                  f"keyframe median {out['kf_graph_ms_p50']:.3f} (max {out['kf_graph_ms_max']:.3f}),"
-                  f" host ms with the packed read median {out['kf_host_ms_p50']:.3f} (max "
-                  f"{out['kf_host_ms_max']:.3f}) over {len(steady)} after the capture "
-                  f"({out['kf_capture_s']:.2f} s); the plain _vi_kf_work on copies of the "
-                  f"inputs: {cmp_txt} (CUDA events); under deterministic algorithms a twin "
-                  f"program's replays equal to it {'to the bit' if out['kf_det_bitwise'] else det}"
-                  f" (ops without a deterministic form: {nondet or 'none'}); the system's replays "
-                  f"(atomic sums) {worst} from a plain run, two plain runs {spread} apart; syncs "
-                  f"a steady dispatch "
-                  f"{syncs}; fusing keyframes {out['fusing_keyframes']}, K1 2 a fuse replay")
-        else:
-            out.update(fusing_keyframes=0)
+                fusing_keyframes=out["fusing_keyframes"] + v["fusing_keyframes"],
+                kf_replays=v["replays"], kf_graph_ms_p50=v["graph_ms_p50"],
+                kf_graph_ms_max=v["graph_ms_max"], kf_host_ms_p50=v["host_ms_p50"],
+                kf_host_ms_max=v["host_ms_max"], kf_eager_ms=v["eager_ms"],
+                kf_graph_vs_eager=v["graph_vs_eager"], kf_eager_spread=v["eager_spread"],
+                kf_capture_s=v["capture_s"], kf_det_bitwise=v["det_bitwise"],
+                kf_det_gap=v["det_gap"], kf_nondet_ops=v["nondet_ops"])
         if frames is not None:
             check(len(self.front) == frames, f"{what}: {len(self.front)} front-end runs for "
                                              f"{frames} frames")
@@ -1208,6 +1292,8 @@ class ProgramWatch:
                   f"ms median {out['front_ms_p50']:.3f} (CUDA events), eager {eager_ms:.3f} ms, "
                   f"host ms a run {out['front_host_ms_p50']:.3f}; equal to the eager region to "
                   f"{worst:.3g}; syncs a run {syncs}")
+        print(f"{what}: K1 launches of the comparisons above {cmp_launches} (after the run, "
+              f"apart from its count)")
         return out
 
 
@@ -1434,14 +1520,12 @@ def phase_vi(torch, project_match, card: str) -> tuple:
           f"{vi_calls} VI frames")
     check(vi_syncs and not any(vi_syncs),
           f"synchronizing calls in a steady VI dispatch: {sorted(set(vi_syncs))}")
-    # the keyframe program's capture warm-ups and the plain keyframe it was
-    # held against launch K1 too
-    extra = {k: kfw["warmup_launches"][k] + kfw["cmp_launches"][k] for k in warm}
+    extra = kfw["warmup_launches"]  # the keyframe program's capture warm-ups launch K1 too
     want = {"track": passes + warm["track"] + extra["track"],
             "fuse": 2 * n_fusing + warm["fuse"] + extra["fuse"], "sim3": 0, "merge": 0}
     check(launches == want, f"matcher launches {launches}, expected {want}: {mono_passes} visual "
           f"passes, {vi_passes} in the VI frame graphs, {2 * n_fusing} from fusion, warm-ups {warm}"
-          f", the keyframe program's warm-ups and comparison {extra}")
+          f", the keyframe program's warm-ups {extra}")
     worst = graph_vs_eager(torch, prog, sched, "frame")
     print(f"vi frame graph: one replay = the eager program to {worst:.3g}")
     return dict(
@@ -1523,17 +1607,17 @@ def phase_vi_stages(torch, slam, caps) -> dict:
 
 
 SHARED = ("generator", "_mono_runner", "_frame_prog", "_vi_prog", "_front_prog")
-# Not shared: the VI keyframe program's buffers are its system's map after a
-# keyframe, so a copy makes its own at its first VI keyframe.
-OWN = ("_vi_kf_prog",)
+# Not shared: a keyframe program's buffers are its system's map after a
+# keyframe, so a copy makes its own at its first keyframe.
+OWN = ("_vi_kf_prog", "_kf_prog")
 
 
 def chunk_snapshot(slam):
     """A deep copy of a system on the card that shares, not copies, its CUDA
     generator, its mono chunk runner and its frame programs (graphs cannot
     be copied; each chunk or frame loads its own inputs into the buffers),
-    and has no VI keyframe program yet. A frame in flight is copied with its
-    host copy landed."""
+    and has no keyframe program (mono or VI) yet. A frame in flight is
+    copied with its host copy landed."""
     held = {k: getattr(slam, k, None) for k in SHARED + OWN}
     for k in held:
         setattr(slam, k, None)
@@ -2123,6 +2207,7 @@ def phase_loop_mono(torch, project_match) -> dict:
 
     seq = synth.make_sequence(n_frames=LOOP_FRAMES, height=H, width=W, dt=0.1, seed=5,
                               trajectory="loop")
+    watch = ProgramWatch(torch, project_match, "loop (a)").__enter__()
     t0 = time.perf_counter()
     open_slam = loop_run(torch, seq, close=False)
     open_s = time.perf_counter() - t0
@@ -2143,8 +2228,10 @@ def phase_loop_mono(torch, project_match) -> dict:
             slam = loop_run(torch, seq, close=True)
     finally:
         pgo.optimize_pose_graph, ba_pcg.bundle_adjust_pcg = pgo_fn, pcg_fn
+        watch.__exit__()
     loop_s = time.perf_counter() - t0
     launches = dict(project_match.LAUNCHES)
+    kfw = watch.report(mono=True)
     lc, runner = slam.loop_closer, slam._mono_runner
     rmse = ate(slam, seq, len(slam.get_trajectory()), with_scale=True)
     print(f"loop (a): {LOOP_FRAMES} frames of the closed loop at {W}x{H}: closures {lc.closures}, "
@@ -2194,7 +2281,8 @@ def phase_loop_mono(torch, project_match) -> dict:
              sim3_searches=lc.sim3_searches, sim3_max_abs_err=err, sim3_matches=n_match,
              sim3_ms=k_ms, sim3_plain_ms=plain_ms, sim3_device_us=dev_us,
              sim3_bound_us=bound["bound_us"], sim3_bound_by=bound["bound_by"], run_s=loop_s,
-             pgo_graph_vs_eager=pgo_diff, pcg_graph_vs_eager=pcg_diff)
+             pgo_graph_vs_eager=pgo_diff, pcg_graph_vs_eager=pcg_diff,
+             kf_program={k: v for k, v in kfw.items() if k.startswith("mkf_")})
     return dict(closed_loop=a, lc=phase_lc_protocol(torch, project_match)), slam
 
 
@@ -2458,6 +2546,7 @@ def phase_atlas(torch, project_match, seq) -> dict:
     count_atlas(slam, ev)
     t0 = time.perf_counter()
     reset_launches(project_match)
+    watch = ProgramWatch(torch, project_match, "atlas (a), (b)").__enter__()
     with SearchRecorder(project_match, "merge") as rec:
         for s in range(ATLAS_MAP + ATLAS_BLANK):
             slam.process_frame(images[s], float(tss[s]))
@@ -2543,7 +2632,9 @@ def phase_atlas(torch, project_match, seq) -> dict:
             raised = True
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        watch.__exit__()
     b_s = time.perf_counter() - t0
+    kfw = watch.report(mono=True)  # (a)'s and (b)'s keyframes
     print(f"atlas (b): session saved (md5 {digest}) and loaded, {n_kf0} keyframes; relocalized at "
           f"frame {reloc_at} (the JAX run: {ATLAS_JAX['reloc_at']}), {s2.n_kf} keyframes at the end, "
           f"state {s2.state}; Sim(3) ATE {rmse_b:.5f} m over {n_b} poses; K1 launches "
@@ -2555,7 +2646,8 @@ def phase_atlas(torch, project_match, seq) -> dict:
     check(rmse_b <= MAP_ATE_LIMIT, f"atlas (b): Sim(3) ATE {rmse_b:.5f} m")
     check(raised, "atlas (b): a corrupted checkpoint loaded")
     b = dict(reloc_at=reloc_at, n_kf_loaded=n_kf0, n_kf_end=s2.n_kf, ate_sim3_m=rmse_b, ate_poses=n_b,
-             launches=b_launches, run_s=b_s)
+             launches=b_launches, run_s=b_s,
+             kf_program={k: v for k, v in kfw.items() if k.startswith("mkf_")})
     c = phase_atlas_vi(torch, project_match)
 
     # the merge site's searches against the plain version, and their times
@@ -2952,10 +3044,10 @@ def phase_stereo_vi(torch, project_match) -> dict:
     per_frame_run(frame, range(i, n_frames), first, lost)
     watch.__exit__()
     del slam.process_frame
-    progs = watch.report(frames=len(calls))
     torch.cuda.synchronize()
-    runner.timing = False
     launches = dict(project_match.LAUNCHES)
+    progs = watch.report(frames=len(calls))
+    runner.timing = False
     run_s = time.perf_counter() - t0
     steps = [a.elapsed_time(b) for name, a, b in runner.spans if isinstance(name, tuple)]
     nodes = {("step" if isinstance(k, tuple) else k): graph_nodes(g)
@@ -3027,8 +3119,8 @@ def phase_rgbd(torch, project_match) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         watch.__exit__()
-        progs = watch.report(frames=n)
         launches = dict(project_match.LAUNCHES)
+        progs = watch.report(frames=n)
         check(first and first[0] == 0, f"{name} initialized at frame {first[:1]}, not frame 0")
         check(not lost, f"{name}: frames without a pose: {lost}")
         check_stereo_accuracy(acc, ST_JAX[f"d_{name}_ate_m"], n, name, ST_SCALE_TOL)
@@ -3294,8 +3386,8 @@ def phase_fisheye_stereo(torch, project_match) -> dict:
                       range(FE_ST_FRAMES), first, lost)
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    progs = watch.report(frames=FE_ST_FRAMES)
     launches = dict(project_match.LAUNCHES)
+    progs = watch.report(frames=FE_ST_FRAMES)
     acc = traj_ate(slam, ts, t_wc, with_scale=False)
     without = FE_ST_FRAMES - acc["poses"]
     check(first, "the two-camera rig never initialized")
@@ -3359,8 +3451,8 @@ def phase_fisheye_vi(torch, project_match) -> dict:
             gyro=im["gyro"][i], dts=im["dts"][i]), range(FE_VI_FRAMES), first, lost)
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    progs = watch.report(frames=FE_VI_FRAMES)
     launches = dict(project_match.LAUNCHES)
+    progs = watch.report(frames=FE_VI_FRAMES)
     acc = traj_ate(slam, seq.timestamps, seq.t_wc, with_scale=False)
     check(first, "the two-camera inertial run never initialized")
     check(slam.imu_initialized and slam.imu_fix_scale,
@@ -3396,11 +3488,14 @@ def phase_rectified(torch, project_match) -> dict:
     reset_launches(project_match)
     first, lost = [], []
     t0 = time.perf_counter()
-    per_frame_run(lambda i: slam.process_frame(rectify.remap_bilinear(fish[i], smap),
-                                               float(ts[i])), range(FE_RECT_FRAMES), first, lost)
+    with ProgramWatch(torch, project_match, "fisheye (d)") as watch:
+        per_frame_run(lambda i: slam.process_frame(rectify.remap_bilinear(fish[i], smap),
+                                                   float(ts[i])),
+                      range(FE_RECT_FRAMES), first, lost)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(project_match.LAUNCHES)
+    kfw = watch.report(mono=True)
     remap_ms = cuda_ms(lambda: rectify.remap_bilinear(fish[0], smap), 50)
     acc = traj_ate(slam, ts, t_wc, with_scale=True)
     check(first, "the rectified route never initialized")
@@ -3414,7 +3509,8 @@ def phase_rectified(torch, project_match) -> dict:
           f"{FE_JAX['d_ate_m']:.5f} m); remap {remap_ms * 1e3:.1f} us a frame (median of 50, CUDA "
           f"events); {slam.n_kf} keyframes; K1 launches {launches}")
     return dict(init_frame=first[0], lost=lost, keyframes=slam.n_kf, remap_ms=remap_ms,
-                frames_per_s=FE_RECT_FRAMES / secs, launches=launches, **acc)
+                frames_per_s=FE_RECT_FRAMES / secs, launches=launches,
+                kf_program={k: v for k, v in kfw.items() if k.startswith("mkf_")}, **acc)
 
 
 def phase_fisheye(torch, project_match) -> dict:
@@ -3587,17 +3683,21 @@ def surface_clients(sock: str, tmp: str, out_path: str) -> None:
 
 class SurfaceCounters:
     """Phase 17's instrumentation, the same on every replay it compares:
-    K1's launch counts by site (zeroed on entry, read on exit), the
-    tracking passes and fusing keyframes they must equal, the first search
-    at each site (for the kernel-vs-plain check) and the wall time of each
-    ``process_frame`` call (for phase 7's steady rate)."""
+    K1's launch counts by site (zeroed on entry, read on exit, before the
+    keyframe program's report), the tracking passes and fusing keyframes
+    they must equal, the keyframe program's keyframes (``ProgramWatch``,
+    whose comparisons run at the exit) beside any eager ``keyframe_work``,
+    the first search at each site (for the kernel-vs-plain check) and the
+    wall time of each ``process_frame`` call (for phase 7's steady rate)."""
 
-    def __init__(self, project_match):
-        self.pm = project_match
+    def __init__(self, project_match, what: str = "surface"):
+        self.pm, self.what = project_match, what
         self.passes = self.n_fusing = self.n_work = 0
         self.frames = []  # (ms, tracked, wall start) a process_frame call
 
     def __enter__(self):
+        import torch
+
         from orb_slam3_ros_tpu_torch.models import kf_work, system
 
         self._saved = (kf_work.keyframe_work, system.MonoSlam._track_res,
@@ -3624,16 +3724,23 @@ class SurfaceCounters:
         reset_launches(self.pm)
         self.rec_t = SearchRecorder(self.pm, "track").__enter__()
         self.rec_f = SearchRecorder(self.pm, "fuse").__enter__()
+        self.watch = ProgramWatch(torch, self.pm, self.what).__enter__()
         return self
 
     def __exit__(self, *exc):
         from orb_slam3_ros_tpu_torch.models import kf_work, system
 
+        self.watch.__exit__(*exc)
         self.rec_f.__exit__(*exc)
         self.rec_t.__exit__(*exc)
         kf_work.keyframe_work = self._saved[0]
         system.MonoSlam._track_res, system.MonoSlam.process_frame = self._saved[1:]
         self.launches = dict(self.pm.LAUNCHES)
+        if exc[0] is None:
+            self.kfw = self.watch.report(mono=True)
+            self.n_work += self.kfw["mono_keyframes"]
+            self.n_fusing += self.kfw["fusing_keyframes"]
+            self.extra = self.kfw["warmup_launches"]
 
     def _steady(self) -> list:
         """The frames after the first tracked one and ``WARM`` more (phase
@@ -3663,16 +3770,18 @@ class SurfaceCounters:
         return 1e3 / float(np.median(self.steady_ms()))
 
     def check_launches(self, what: str) -> None:
-        check(self.launches == {"track": self.passes, "fuse": 2 * self.n_fusing, "sim3": 0,
-                                "merge": 0},
+        x = self.extra
+        check(self.launches == {"track": self.passes + x["track"],
+                                "fuse": 2 * self.n_fusing + x["fuse"], "sim3": 0, "merge": 0},
               f"{what}: matcher launches {self.launches}, expected {self.passes} from tracking "
-              f"and {2 * self.n_fusing} from fusion")
+              f"and {2 * self.n_fusing} from fusion, plus the keyframe program's capture "
+              f"warm-ups {x}")
 
 
 def surface_replay(project_match, tmp: str, control: bool, argv=None):
     """One phase 17 replay through ``run_synth.run`` (``argv``: its flags,
-    by default the native feed's) under ``SurfaceCounters``; with
-    ``control`` the clients of ``surface_clients`` run beside it, in a
+    by default the native feed's) under ``SurfaceCounters``;
+    with ``control`` the clients of ``surface_clients`` run beside it, in a
     process started here and ended before this returns. Returns (the
     system, the sequence, the summary, the counters, the clients' results)."""
     from orb_slam3_ros_tpu_torch import run_synth
@@ -3686,7 +3795,7 @@ def surface_replay(project_match, tmp: str, control: bool, argv=None):
             "chip_smoke.surface_clients(*sys.argv[2:])", here, os.path.join(tmp, "slam.sock"),
             tmp, out_path])
     try:
-        with SurfaceCounters(project_match) as cnt:
+        with SurfaceCounters(project_match, f"surface {os.path.basename(tmp)}") as cnt:
             slam, seq, summary, _ = run_synth.run(
                 run_synth.parse_args(argv or surface_args(tmp, control)), surface_kw())
         if proc is not None:
@@ -3932,8 +4041,6 @@ def phase_scale_out(torch) -> dict:
     in this process over NCCL (one rank: every sum is over one rank, so no
     collective runs), at world 2 as two processes on this card over gloo
     (NCCL takes one rank a card) and, with two cards, over NCCL."""
-    import torch.distributed as dist
-
     from orb_slam3_ros_tpu_torch.parallel import multihost, problems, scale_out
 
     t0 = time.perf_counter()
@@ -3950,7 +4057,7 @@ def phase_scale_out(torch) -> dict:
         try:
             out["nccl1"], _ = scale_out.run(multihost.global_mesh(), trees, check=True)
         finally:
-            dist.destroy_process_group()
+            multihost.shutdown()
         print_scale("world 1 (NCCL, in process, no collective)", out["nccl1"])
         out["gloo2"] = scale_workers(torch, 2, "gloo", ["cuda:0", "cuda:0"], probs, tmp)
         print_scale("world 2 (gloo, two processes on one card)", out["gloo2"])
@@ -3974,7 +4081,7 @@ def phase_split(torch, project_match, mp: dict, seq) -> dict:
     t0 = time.perf_counter()
     slam = make_slam(seq, devices[1], devices=devices)
     check(slam._replica is not None and not slam._chunkable(), "MonoSlam(devices=...) is not split")
-    with SurfaceCounters(project_match) as cnt:
+    with SurfaceCounters(project_match, "split") as cnt:
         init_at = None
         for i in range(MAP_FRAMES):
             out = slam.process_frame(seq.images[i], float(seq.timestamps[i]))
@@ -4212,8 +4319,8 @@ def phase_kb8_rig_vi(torch, project_match) -> dict:
             gyro=im["gyro"][i], dts=im["dts"][i]), range(n), first, lost)
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    progs = watch.report(frames=n)
     launches = dict(project_match.LAUNCHES)
+    progs = watch.report(frames=n)
     acc = traj_ate(slam, seq.timestamps, seq.t_wc, with_scale=False)
     print(f"kb8 (b): FisheyeStereoInertialSlam() (cam_model {slam.cam_model!r}, {FE_BASE} m rig "
           f"yawed {FE_YAW} rad) {FE_W}x{FE_H}, {n} frames per frame in {secs:.1f} s: "
@@ -4287,16 +4394,23 @@ def phase_kb8_loop(torch, project_match) -> dict:
     imgs, _ = kb8_views(torch, synth.make_room(seed=5), R_wc, t_wc)
     truth = SimpleNamespace(timestamps=ts, t_wc=t_wc)
     t0 = time.perf_counter()
+    watch = ProgramWatch(torch, project_match, "kb8 (c)").__enter__()
     open_slam = kb8_loop_run(torch, imgs, ts, close=False)
     rmse_open = ate(open_slam, truth, len(open_slam.get_trajectory()), with_scale=True)
     reset_launches(project_match)
     t1 = time.perf_counter()
     times = {"closure": [], "pgo": []}
-    with SearchRecorder(project_match, "sim3") as rec:
-        slam = kb8_loop_run(torch, imgs, ts, close=True, times=times)
+    try:
+        with SearchRecorder(project_match, "sim3") as rec:
+            slam = kb8_loop_run(torch, imgs, ts, close=True, times=times)
+    finally:
+        watch.__exit__()
     torch.cuda.synchronize()
     loop_s, secs = time.perf_counter() - t1, time.perf_counter() - t0
     launches = dict(project_match.LAUNCHES)
+    kfw = watch.report(mono=True)
+    check(all(r["prog"].cfg.cam_model == "kb8" for r in watch.mkf),
+          "kb8 loop: a keyframe program not on the KB8 camera")
     lc = slam.loop_closer
     rmse = ate(slam, truth, len(slam.get_trajectory()), with_scale=True)
     times = {k: [round(x, 1) for x in v] for k, v in times.items()}
@@ -4315,7 +4429,8 @@ def phase_kb8_loop(torch, project_match) -> dict:
     k1 = site_kernel(torch, project_match, rec, "kb8 (c) SearchBySim3 on KB8 projections")
     return dict(closures=lc.closures, ate_sim3_m=rmse, ate_open_m=rmse_open, keyframes=slam.n_kf,
                 gba=slam.gba_counts, sim3_searches=lc.sim3_searches, closure_ms=times,
-                launches=launches, run_s=loop_s, seconds=secs, k1=k1)
+                launches=launches, run_s=loop_s, seconds=secs, k1=k1,
+                kf_program={k: v for k, v in kfw.items() if k.startswith("mkf_")})
 
 
 def phase_kb8_atlas(torch, project_match) -> dict:
@@ -4335,6 +4450,7 @@ def phase_kb8_atlas(torch, project_match) -> dict:
     reset_launches(project_match)
     t0 = time.perf_counter()
     rec = SearchRecorder(project_match, "merge").__enter__()
+    watch = ProgramWatch(torch, project_match, "kb8 (d)").__enter__()
     try:
         for s in range(ATLAS_MAP + ATLAS_BLANK):
             slam.process_frame(images[s], float(tss[s]))
@@ -4355,10 +4471,12 @@ def phase_kb8_atlas(torch, project_match) -> dict:
                 back, back_ts = frames[s - 1], float(tss[s])
         slam.flush()
     finally:
+        watch.__exit__()
         rec.__exit__()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(project_match.LAUNCHES)
+    kfw = watch.report(mono=True)
     route = "switch" if ev["switch"] else "weld" if ev["weld"] else None
     rmse, n_ate = atlas_ate(slam, seq, tss, frames, back_ts) if back is not None else (np.inf, 0)
     print(f"kb8 (d): the blackout through the KB8 camera {FE_W}x{FE_H}: {archived} map(s) archived; "
@@ -4378,7 +4496,8 @@ def phase_kb8_atlas(torch, project_match) -> dict:
           if rec.args is not None else None)
     return dict(archived=archived, tracked_at=tracked_at, back_at=back, route=route,
                 weld_attempts=ev["attempts"], ate_sim3_m=rmse, ate_poses=n_ate,
-                grow_searches=slam.atlas.grow_searches, launches=launches, seconds=secs, k1=k1)
+                grow_searches=slam.atlas.grow_searches, launches=launches, seconds=secs, k1=k1,
+                kf_program={k: v for k, v in kfw.items() if k.startswith("mkf_")})
 
 
 def site_kernel(torch, project_match, rec, what: str) -> dict:
@@ -4427,9 +4546,10 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
     """Phase 20: ``MonoSlam`` at its default, the pipelined one-frame lag,
     per frame over phase 7's sequence and configuration: each OK frame one
     replay of the frame graph, frame i-1 drained after frame i's dispatch,
-    the keyframe work queued with its results deferred. Counts the
-    synchronizing calls of every frame's dispatch and every keyframe's
-    queued work, in the run; CUDA events around every replay."""
+    the keyframe work queued with its results deferred, as replays of the
+    keyframe program (``ProgramWatch``). Counts the synchronizing calls of
+    every frame's dispatch and every keyframe's queued work (but the
+    captures'), in the run; CUDA events around every replay."""
     from orb_slam3_ros_tpu_torch.models import kf_work, system
 
     t0 = time.perf_counter()
@@ -4451,7 +4571,12 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
         return out
 
     def counted_queue(*args):
-        syncs["keyframe"].append(counting_syncs(torch, queue, *args)[1])
+        k0 = len(watch.mkf)
+        n = counting_syncs(torch, queue, *args)[1]
+        # the program's run counts its own (a nested count ends the outer one)
+        new = watch.mkf[k0:]
+        if not any(r["capturing"] for r in new):
+            syncs["keyframe"].append(n + sum(r["syncs"] for r in new))
 
     def counted_work(*args, **kw):
         nonlocal fusing
@@ -4460,6 +4585,7 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
 
     slam._dispatch, slam._queue_keyframe, kf_work.keyframe_work = (counted_dispatch,
                                                                    counted_queue, counted_work)
+    watch = ProgramWatch(torch, project_match, "pipelined").__enter__()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(project_match)
@@ -4477,10 +4603,14 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
         last = slam.flush()
         flush_ms = (time.perf_counter() - t_flush) * 1e3
     finally:
+        watch.__exit__()
         slam._dispatch, slam._queue_keyframe, kf_work.keyframe_work = dispatch, queue, work
     torch.cuda.synchronize()
-    launches = dict(project_match.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    launches = dict(project_match.LAUNCHES)
+    kfw = watch.report(mono=True)
+    fusing += kfw["fusing_keyframes"]
+    extra = kfw["warmup_launches"]
     counts = dict(slam.pipe_counts)
     traj = list(slam.trajectory)
     check(init_at == mp["init_frame"], f"initialized at frame {init_at}, phase 7 at "
@@ -4503,11 +4633,15 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
     runs = sum(prog.runs.values())
     check(prog.graphs and runs == counts["dispatches"] == ok_calls,
           f"{runs} frame-graph replays, {counts['dispatches']} dispatches, {ok_calls} OK frames")
-    fuse_pred = 2 * fusing + prog.warmup_launches["fuse"]
-    track_pred = passes + prog.warmup_launches["track"]
+    fuse_pred = 2 * fusing + prog.warmup_launches["fuse"] + extra["fuse"]
+    track_pred = passes + prog.warmup_launches["track"] + extra["track"]
     check(launches == {"track": track_pred, "fuse": fuse_pred, "sim3": 0, "merge": 0},
           f"K1 launches {launches}, expected {track_pred} from the frame graphs (passes {passes} "
-          f"+ {prog.warmup_launches['track']} warm-up) and {fuse_pred} from fusion")
+          f"+ {prog.warmup_launches['track']} warm-up) and {fuse_pred} from fusion (the keyframe "
+          f"program's capture warm-ups {extra} included)")
+    check(kfw["mkf_deferred"] == kfw["mono_keyframes"] == counts["kf_deferred"],
+          f"{kfw['mkf_deferred']} deferred program keyframes of {kfw['mono_keyframes']}, "
+          f"{counts['kf_deferred']} deferred")
     check(syncs["dispatch"] and not any(syncs["dispatch"]) and syncs["keyframe"]
           and not any(syncs["keyframe"]),
           f"synchronizing calls: dispatches {sorted(set(syncs['dispatch']))}, keyframes "
@@ -4535,7 +4669,8 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
           f"{counts['kf_deferred']}; map copies {prog.map_copies}; syncs in a dispatch 0 over "
           f"{len(syncs['dispatch'])}, in a keyframe's queued work 0 over {len(syncs['keyframe'])}; "
           f"graph = eager to {worst:.3g}; K1 {launches} (passes {passes}, fusing keyframes "
-          f"{fusing}, warm-up {prog.warmup_launches}); peak device memory {peak / 2**20:.1f} MiB; "
+          f"{fusing}, warm-up {prog.warmup_launches}, the keyframe program's {extra}); peak device "
+          f"memory {peak / 2**20:.1f} MiB; "
           f"phase 20 {time.perf_counter() - t0:.1f} s")
     return dict(init_frame=init_at, poses=len(traj), ate_sim3_m=rmse, frames_per_s=fps,
                 phase7_frames_per_s=mp["frames_per_s"], chunk_frames_per_s=mc["frames_per_s"],
@@ -4548,6 +4683,7 @@ def phase_pipelined(torch, project_match, mp: dict, mc: dict, seq, card: str) ->
                 sync_free_keyframes=len(syncs["keyframe"]),
                 graph_vs_eager=worst, launches=launches, passes=passes, fusing_keyframes=fusing,
                 warmup_launches=dict(prog.warmup_launches), peak_mem_mib=peak / 2**20,
+                kf_program={k: v for k, v in kfw.items() if k.startswith("mkf_")},
                 phase_s=time.perf_counter() - t0)
 
 
@@ -4640,10 +4776,9 @@ def phase_vi_pipelined(torch, project_match, vi: dict, seq, im, card: str) -> di
     progs = {"visual": fp, "vi": vp}
     replays = {k: sum(p.runs.values()) for k, p in progs.items()}
     passes = {k: sum(len(name[1]) * n for name, n in p.runs.items()) for k, p in progs.items()}
-    # the keyframe program's capture warm-ups and the plain keyframe it was
-    # held against launch K1 too
+    # the keyframe program's capture warm-ups launch K1 too
     warm = {site: fp.warmup_launches[site] + vp.warmup_launches[site]
-            + kfw["warmup_launches"][site] + kfw["cmp_launches"][site] for site in launches}
+            + kfw["warmup_launches"][site] for site in launches}
     want = {"track": passes["visual"] + passes["vi"] + warm["track"],
             "fuse": 2 * fusing + warm["fuse"], "sim3": 0, "merge": 0}
     nones = [i for i in range(init_at, n_frames) if outs[i] is None]

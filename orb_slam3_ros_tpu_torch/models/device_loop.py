@@ -48,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import ba, orb
+from ..ops import orb
 from . import local_mapping, map_updates, tracking
 from .chunk_runner import ChunkRunner, admit_keyframe_points, frame_row, prep_frame
 from .map_state import MapState, kf_index
@@ -170,20 +170,31 @@ def _kf_feats(fr: dict) -> orb.Features:
     )
 
 
-def kf_insert(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
-    """Keyframe segment 1: insert the keyframe at its tracked pose (with
-    its features' u_r in a stereo chunk) and admit its new points
-    (``admit_keyframe_points``)."""
-    m, kf_id = c.m, fr["kf_id"]
+def insert_admit(m: MapState, fr: dict, n_pts, cfg):
+    """Insert the keyframe ``fr`` describes (``fr["kf_id"]``, its pose,
+    timestamp and features; with ``cfg.stereo`` its features' u_r), then
+    admit its new points from slot ``n_pts`` on
+    (``chunk_runner.admit_keyframe_points``; depth first with
+    ``cfg.stereo``). What the chunk's ``kf_insert`` and the per-frame
+    keyframe program (``kf_program``) share. Returns (map, points admitted
+    as a 0-d tensor)."""
+    kf_id = fr["kf_id"]
     m = map_updates.insert_keyframe(
         m, kf_id, fr["kf_R"], fr["kf_t"], fr["kf_ts"], _kf_feats(fr), fr["f_pt"],
         ur=fr["f_ur"] if cfg.stereo else None,
     )
-    m, n_new = admit_keyframe_points(
+    return admit_keyframe_points(
         m, kf_id, fr["kf_R"], fr["kf_t"], fr["f_xy"], fr["f_valid"],
-        fr["f_depth"] if cfg.stereo else None, c.n_pts, m.P - c.n_pts, cfg.cam_params,
+        fr["f_depth"] if cfg.stereo else None, n_pts, m.P - n_pts, cfg.cam_params,
         cfg.max_depth, cfg.cam_model,
     )
+
+
+def kf_insert(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
+    """Keyframe segment 1: insert the keyframe at its tracked pose (with
+    its features' u_r in a stereo chunk) and admit its new points
+    (``insert_admit``)."""
+    m, n_new = insert_admit(c.m, fr, c.n_pts, cfg)
     return c._replace(m=m, n_pts=c.n_pts + n_new)
 
 
@@ -196,22 +207,23 @@ def kf_fuse(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
     return c._replace(m=m)
 
 
+def covis_ba(m: MapState, kf_id, cfg: ChunkConfig):
+    """The covisibility window around keyframe ``kf_id``, its local BA
+    (stopping at rel_tol 1e-3 on the device), the write-back, the outlier
+    observations unbound, then point culling with ``kf_id + 1`` keyframes.
+    What the chunk's ``kf_ba`` and the per-frame keyframe program
+    (``kf_program``) share. Returns (map, LM iterations run as a 0-d int32
+    tensor)."""
+    window = local_mapping.select_covis_window(m, kf_id, cfg.ba_window, cfg.ba_fixed)
+    m, iters = local_mapping.local_ba(m, window, cfg.cam_params, cfg.local_ba_iters, cfg.bf,
+                                      cfg.cam_model, on_device=True)
+    return map_updates.cull_points(m, kf_id + 1), iters
+
+
 def kf_ba(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:
-    """Keyframe segment 3: the covisibility window around the new keyframe,
-    its local BA (stopping at rel_tol 1e-3 on the device), the write-back,
-    the outlier observations unbound and point culling."""
-    m, kf_id = c.m, fr["kf_id"]
-    window_ids, fixed, entry_valid = local_mapping.select_covis_window(
-        m, kf_id, cfg.ba_window, cfg.ba_fixed
-    )
-    prob, sel = local_mapping.build_local_ba(
-        m, window_ids, fixed, cfg.cam_params, bf=cfg.bf, entry_valid=entry_valid
-    )
-    res = ba.bundle_adjust(prob, n_iters=cfg.local_ba_iters, rel_tol=1e-3, on_device=True,
-                           cam_model=cfg.cam_model)
-    m = local_mapping.apply_local_ba(m, window_ids, sel, res, entry_valid)
-    m = local_mapping.drop_ba_outlier_obs(m, window_ids, res, entry_valid)
-    return c._replace(m=map_updates.cull_points(m, kf_id + 1))
+    """Keyframe segment 3: the covisibility local BA and point culling
+    (``covis_ba``)."""
+    return c._replace(m=covis_ba(c.m, fr["kf_id"], cfg)[0])
 
 
 def kf_stats(c: LoopCarry, fr: dict, cfg: ChunkConfig) -> LoopCarry:

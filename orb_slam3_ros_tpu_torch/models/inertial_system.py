@@ -831,12 +831,10 @@ class InertialSlam(MonoSlam):
         self._start_replica_copy()
 
     def _forget_frame_maps(self) -> None:
-        """Graph replays wrote the map in place, behind torch's version
-        counters: the frame programs copy it in afresh at their next
-        dispatch."""
-        for prog in (self._frame_prog, self._vi_prog):
-            if prog is not None:
-                prog.forget_map()
+        """``MonoSlam._forget_frame_maps``, the VI frame program's too."""
+        super()._forget_frame_maps()
+        if self._vi_prog is not None:
+            self._vi_prog.forget_map()
 
     def _take_kf_state(self, kf_id: int, buf: np.ndarray) -> None:
         """Host state from a keyframe's packed (v, bg, ba, R, t)."""

@@ -130,6 +130,7 @@ from . import device_loop, kf_work, local_mapping, map_state, map_updates, track
 from .atlas import Atlas
 from .chunk_runner import read_host, read_rows
 from .frame_program import FrameConfig, FrameProgram, HostCopy
+from .kf_program import KFInputs, KeyframeProgram
 from .loop_closing import LoopCloser
 from .replica import MapReplica
 
@@ -357,6 +358,9 @@ class MonoSlam:
         # startup, System.cc:114).
         self.set_vocabulary(retrieval.default_vocabulary())
         self._mono_runner = None  # the chunk loop's runner, made at the first chunk
+        # The keyframe program (its buffers hold the map after a keyframe),
+        # made at the first keyframe that runs it.
+        self._kf_prog = None
 
         # Motion model (velocity = T_cur * T_last^-1), kept on the host.
         self.R_cur = np.eye(3, dtype=np.float32)
@@ -963,8 +967,7 @@ class MonoSlam:
         # to densify keyframes into weak-parallax windows).
         runner.load(self.map, up[:24], n_kf0, self.n_pts, lkf, -1)
         rows, kf_ids = runner.run_chunk(stack, off, up[24:].reshape(C, 2), self._sched_lean, n_kf0)
-        if self._frame_prog is not None:
-            self._frame_prog.forget_map()  # the step graphs wrote the map in place
+        self._forget_frame_maps()  # the step graphs wrote the map in place
         c = runner.carry()
         self.map = c.m
         # The chunk's one read: its rows, the end pose and motion model, the counters.
@@ -1309,14 +1312,18 @@ class MonoSlam:
 
     def _insert_keyframe(self, feats, ts, track_res):
         """Insert the current frame as keyframe ``n_kf`` and run its mapping
-        work, then read back (admitted points, BA-refined pose) at once;
-        then the loop-closure check of the new keyframe. Pipelined without
-        an Atlas the work is queued instead (``_queue_keyframe``) and its
-        results absorbed later (``_apply_kf_async``). Deferred results of
-        the keyframe before are absorbed first. A new keyframe stops a
-        global BA in flight after its current dispatch (the JAX package's
-        bound on the staleness of the snapshot). When split, the replica's
-        refresh starts after all of it."""
+        work, then read back (admitted points, BA-refined pose, BA
+        iterations) at once; then the loop-closure check of the new
+        keyframe. Pipelined without an Atlas the work is queued instead
+        (``_queue_keyframe``) and its results absorbed later
+        (``_apply_kf_async``). Deferred results of the keyframe before are
+        absorbed first. A new keyframe stops a global BA in flight after its
+        current dispatch (the JAX package's bound on the staleness of the
+        snapshot). When split, the replica's refresh starts after all of it.
+        Where the JAX package runs its fused keyframe program
+        (``_fused_keyframe``) the work is the keyframe program
+        (``kf_program``: on the card replays of its graphs), else the eager
+        ``kf_work.keyframe_work``."""
         self._apply_kf_async(force=True)
         self.abort_gba()
         kf_id = self.n_kf
@@ -1329,19 +1336,23 @@ class MonoSlam:
             self._set_ref_cache(kf_id, self.R_cur, self.t_cur)
             self._start_replica_copy()
             return
-        dev = self.device
         feats, feat_pt = self._to_map_dev((feats, track_res.feat_pt))
-        self.map, n_new, iters = self._keyframe_work(
-            kf_id, ts, feats, feat_pt, torch.as_tensor(self.R_cur, device=dev),
-            torch.as_tensor(self.t_cur, device=dev), on_device=False,
-        )
+        if self._fused_keyframe(kf_id):
+            buf = self._run_kf_program(kf_id, ts, feats, feat_pt, self.R_cur, self.t_cur)
+            iters = int(buf[13])
+        else:
+            dev = self.device
+            self.map, n_new, iters = self._keyframe_work(
+                kf_id, ts, feats, feat_pt, torch.as_tensor(self.R_cur, device=dev),
+                torch.as_tensor(self.t_cur, device=dev), on_device=False,
+            )
+            buf = torch.cat([
+                n_new.to(torch.float32).reshape(1), self.map.kf_R[kf_id].reshape(9),
+                self.map.kf_t[kf_id],
+            ]).cpu().numpy()
         self.ba_iters.append(iters)
         self.n_kf += 1
         self.last_kf_frame = self.frame_id
-        buf = torch.cat([
-            n_new.to(torch.float32).reshape(1), self.map.kf_R[kf_id].reshape(9),
-            self.map.kf_t[kf_id],
-        ]).cpu().numpy()
         self.n_pts += int(buf[0])
         self.R_cur = buf[1:10].reshape(3, 3).copy()
         self.t_cur = buf[10:13].copy()
@@ -1353,6 +1364,39 @@ class MonoSlam:
         # the (possibly loop-corrected or welded) pose of the newest keyframe
         self._set_ref_cache(self.n_kf - 1, self.R_cur, self.t_cur)
         self._start_replica_copy()
+
+    def _fused_keyframe(self, kf_id: int) -> bool:
+        """Whether keyframe ``kf_id`` runs the keyframe program: the JAX
+        package's gate of its fused program (the covisibility window, past
+        the initial pair, and this class's own local BA; a subclass with
+        another BA flavour runs the stages eagerly)."""
+        return (self.covis_ba and kf_id >= 2
+                and type(self)._run_local_ba is MonoSlam._run_local_ba)
+
+    def _kf_program(self) -> KeyframeProgram:
+        if self._kf_prog is None:
+            m = self.map
+            self._kf_prog = KeyframeProgram(self._chunk_config(), self.device, m.K, m.N, m.P)
+        return self._kf_prog
+
+    def _run_kf_program(self, kf_id: int, ts: float, feats, feat_pt, R, t, defer: bool = False):
+        """Keyframe ``kf_id`` through the keyframe program at pose (R, t)
+        (host arrays, or tensors on the map device), on the map device; the
+        program's buffers become the system's map. Returns the packed (points
+        admitted, R, t, BA iterations): numpy, or with ``defer`` a
+        ``HostCopy`` of them."""
+        inp = KFInputs(kf_id=kf_id, R=R, t=t, ts=ts, n_pts=self.n_pts, feats=feats,
+                       feat_pt=feat_pt)
+        self.map, packed = self._kf_program().run(self.map, inp, defer=defer)
+        self._forget_frame_maps()
+        return packed
+
+    def _forget_frame_maps(self) -> None:
+        """Graph replays wrote the map in place, behind torch's version
+        counters: the frame program copies it in afresh at its next
+        dispatch."""
+        if self._frame_prog is not None:
+            self._frame_prog.forget_map()
 
     def _keyframe_work(self, kf_id: int, ts: float, feats, feat_pt, R, t, on_device: bool):
         """``kf_work.keyframe_work`` of keyframe ``kf_id`` at pose (R, t) on
@@ -1373,22 +1417,27 @@ class MonoSlam:
 
     def _queue_keyframe(self, kf_id: int, ts: float, feats, track_res) -> None:
         """The deferred keyframe (the JAX package's pipelined branch,
-        system.py:1589-1606): its work queued with no host read (the local
-        BA in its device form; the pose is the frame's tracked pose on the
-        device, the same values as the host's copy), then (admitted points,
-        refined pose, BA iterations) copied to the host without a wait."""
+        system.py:1589-1606): its work queued with no host read (the keyframe
+        program, or the eager work with the local BA in its device form; the
+        pose is the frame's tracked pose on the device, the same values as
+        the host's copy), then (admitted points, refined pose, BA
+        iterations) copied to the host without a wait."""
         # No host read may hide in here (an ``int()`` of a tensor, a ``.cpu()``,
         # an upload from pageable memory): the pose is the device copy, not
         # the host's R_cur / t_cur, and the counts stay 0-d tensors.
         feats, feat_pt, R, t = self._to_map_dev((feats, track_res.feat_pt, track_res.R,
                                                  track_res.t))
-        self.map, n_new, iters = self._keyframe_work(kf_id, ts, feats, feat_pt, R, t,
-                                                     on_device=True)
-        f32 = torch.float32
-        self._kf_async = (kf_id, HostCopy(torch.cat([
-            n_new.to(f32).reshape(1), self.map.kf_R[kf_id].reshape(9), self.map.kf_t[kf_id],
-            iters.to(f32).reshape(1),
-        ])))
+        if self._fused_keyframe(kf_id):
+            host = self._run_kf_program(kf_id, ts, feats, feat_pt, R, t, defer=True)
+        else:
+            self.map, n_new, iters = self._keyframe_work(kf_id, ts, feats, feat_pt, R, t,
+                                                         on_device=True)
+            f32 = torch.float32
+            host = HostCopy(torch.cat([
+                n_new.to(f32).reshape(1), self.map.kf_R[kf_id].reshape(9),
+                self.map.kf_t[kf_id], iters.to(f32).reshape(1),
+            ]))
+        self._kf_async = (kf_id, host)
         self.pipe_counts["kf_deferred"] += 1
 
     def _apply_kf_async(self, force: bool = False) -> None:

@@ -47,13 +47,13 @@ import numpy as np
 import torch
 
 from ..ops import orb
-from .chunk_runner import GraphRegions, kf_segments
-from .frame_program import map_shapes, upload
+from .chunk_runner import kf_segments
+from .frame_program import upload
+from .kf_program import REGIONS, KeyframeRegions, KFCarry, store_map  # noqa: F401
 from .map_state import MapState, kf_index
 from .vi_device_loop import insert_admit, kf_cull, kf_fuse, kf_stats, window_ba
 
 PACKED_LEN = 22  # (n_new, v, bg, ba, R, t): the keyframe's one host read
-REGIONS = ("kf_insert", "kf_fuse", "kf_ba", "kf_stats", "kf_cull", "kf_end")
 
 
 class KFInputs(NamedTuple):
@@ -83,12 +83,6 @@ class KFInputs(NamedTuple):
         ]).astype(np.float32)
 
 
-class KFCarry(NamedTuple):
-    """What the chunk's fuse, stats and cull segments read and rebind."""
-
-    m: MapState
-
-
 def _state(buf: dict):
     """(KFCarry of the program's map, the keyframe as the chunk segments'
     ``fr``) from the buffers."""
@@ -102,18 +96,11 @@ def _state(buf: dict):
     return KFCarry(m=MapState(*(buf[f] for f in MapState._fields))), fr
 
 
-def _store(buf: dict, m: MapState) -> None:
-    """The map fields a region rebound, into their buffers."""
-    for f, v in zip(MapState._fields, m):
-        if v is not buf[f]:
-            buf[f].copy_(v)
-
-
 def kf_insert(buf: dict, cfg) -> None:
     c, fr = _state(buf)
     x = buf["x"]
     m, n_new = insert_admit(c.m, fr, x[3:6], x[6:9], x[9:12], x[2].to(torch.int32), cfg)
-    _store(buf, m)
+    store_map(buf, m)
     buf["n_new"].copy_(n_new)
 
 
@@ -123,7 +110,7 @@ def kf_ba(buf: dict, cfg) -> None:
     ids = x[24 : 24 + W].to(torch.int32)
     fixed = x[24 + W : 24 + 2 * W] > 0.5
     edge_ok = x[24 + 2 * W :] > 0.5
-    _store(buf, window_ba(c.m, ids, fixed, buf["blocks"], edge_ok, fr["kf_id"] + 1, cfg))
+    store_map(buf, window_ba(c.m, ids, fixed, buf["blocks"], edge_ok, fr["kf_id"] + 1, cfg))
 
 
 def kf_end(buf: dict, cfg) -> None:
@@ -140,33 +127,21 @@ def kf_end(buf: dict, cfg) -> None:
                                    row(m.kf_bg), row(m.kf_ba), row(m.kf_R), row(m.kf_t)]))
 
 
-def _segment(seg):
-    """A chunk segment that reads the carry's map and ``fr`` as a region."""
-
-    def run(buf: dict, cfg) -> None:
-        c, fr = _state(buf)
-        _store(buf, seg(c, fr, cfg).m)
-
-    return run
-
-
-BODIES = dict(kf_insert=kf_insert, kf_fuse=_segment(kf_fuse), kf_ba=kf_ba,
-              kf_stats=_segment(kf_stats), kf_cull=_segment(kf_cull), kf_end=kf_end)
-
-
-class VIKeyframeProgram(GraphRegions):
+class VIKeyframeProgram(KeyframeRegions):
     """The VI keyframe of one system (see the module docstring). ``cfg``: a
     ``vi_device_loop.VIChunkConfig`` (its window, cadences, camera, IMU
     calibration and depth variant ``stereo``); ``K``, ``N``, ``P``: the
     map's capacities. ``run`` does one keyframe."""
 
+    BODIES = dict(kf_insert=kf_insert, kf_ba=kf_ba, kf_end=kf_end)
+    SEGMENTS = dict(kf_fuse=kf_fuse, kf_stats=kf_stats, kf_cull=kf_cull)
+    state = staticmethod(_state)
+
     def __init__(self, cfg, device, K: int, N: int, P: int):
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, K, N, P)
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
-        self.buf = {f: torch.zeros(shape, dtype=dt, device=dev)
-                    for f, (shape, dt) in map_shapes(K, N, P).items()}
         self.buf.update(
             x=torch.zeros((24 + 3 * cfg.W - 1,), **f32),
             blocks=torch.zeros((cfg.W - 1, cfg.imu_cap_kf, 7), **f32),
@@ -179,27 +154,12 @@ class VIKeyframeProgram(GraphRegions):
         if cfg.stereo:
             self.buf.update(f_ur=torch.zeros((N,), **f32), f_depth=torch.zeros((N,), **f32))
 
-    def region(self, name):
-        body = BODIES[name]
-
-        def run(buf):
-            body(buf, self.cfg)
-
-        return run
-
-    @property
-    def map(self) -> MapState:
-        """The map in the program's buffers."""
-        return MapState(*(self.buf[f] for f in MapState._fields))
-
     def load(self, m: MapState, inp: KFInputs) -> None:
         """Put keyframe ``inp`` and map ``m`` into the buffers: the map's
         fields that are not the buffers already, the features on the
         device, the host values from pinned memory. No host read."""
+        self.load_map(m)
         b = self.buf
-        for f, v in zip(MapState._fields, m):
-            if v is not b[f]:
-                b[f].copy_(v)
         fe = inp.feats
         for k, v in (("f_xy", fe.xy), ("f_level", fe.level), ("f_angle", fe.angle),
                      ("f_desc", fe.desc_sign), ("f_valid", fe.valid), ("f_pt", inp.feat_pt)):
@@ -216,12 +176,7 @@ class VIKeyframeProgram(GraphRegions):
         captured first), then the one host read. Returns (the program's
         map, the packed [22] as numpy)."""
         self.load(m, inp)
-        if self.graphs:
-            for name in REGIONS:
-                if name not in self._graph:
-                    self._graph[name] = self._capture(self.region(name))
-        for name in kf_segments(self.cfg, inp.kf_id):
-            self._run(name)
+        self.replay(inp.kf_id)
         return self.map, self.buf["packed"].cpu().numpy()
 
 

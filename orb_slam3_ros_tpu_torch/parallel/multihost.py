@@ -15,13 +15,19 @@ Usage (one call per process, before building meshes):
                    process_id=int(os.environ["RANK"]))
     mesh = multihost.global_mesh()
 
-There is no single-process fallback: a rendezvous that fails raises.
+There is no single-process fallback: a rendezvous that fails raises. A
+process leaves the group with ``shutdown`` (the counterpart of
+``jax.distributed.shutdown``), which ``init`` also registers to run at exit:
+a rank that exited with its gloo pairs still open could abort in their
+teardown while another rank still talked to it.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import socket
+import sys
 
 import torch
 import torch.distributed as dist
@@ -30,7 +36,7 @@ from .. import resolve_device
 from . import dist_ba
 
 TIMEOUT_S = 300.0  # the rendezvous, and each collective, must finish within this
-_STATE: dict = {"device": None, "mesh": None}
+_STATE: dict = {"device": None, "mesh": None, "at_exit": False}
 
 
 def free_port() -> int:
@@ -48,7 +54,8 @@ def init(coordinator: str, num_processes: int, process_id: int, backend: str | N
     process drives one device, so the JAX package's ``local_device_count``
     has no counterpart here). ``backend``: "nccl" on a card by default,
     "gloo" on the CPU or when named. Raises when the rendezvous fails
-    within ``TIMEOUT_S`` seconds."""
+    within ``TIMEOUT_S`` seconds. Once joined, ``shutdown`` runs at the
+    process's exit unless it was called before."""
     dev = resolve_device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -59,6 +66,35 @@ def init(coordinator: str, num_processes: int, process_id: int, backend: str | N
         rank=process_id, timeout=datetime.timedelta(seconds=TIMEOUT_S),
     )
     _STATE.update(device=dev, mesh=None)
+    if not _STATE["at_exit"]:
+        atexit.register(_shutdown_at_exit)
+        _STATE["at_exit"] = True
+
+
+def shutdown(barrier: bool = True) -> None:
+    """Leave the process group: with ``barrier`` (a clean exit) a barrier
+    first, so that no rank closes its pairs while another still uses them,
+    then ``destroy_process_group``. Without it (a rank that failed, whose
+    peers may wait in a collective it will never join) the group goes at
+    once, which ends their wait. A no-op when this process is in no group
+    (never joined, or left already)."""
+    if not dist.is_initialized():
+        return
+    try:
+        if barrier and dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        elif barrier:
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        _STATE.update(device=None, mesh=None)
+
+
+def _shutdown_at_exit() -> None:
+    """``shutdown`` at the process's exit: with no barrier when an
+    exception ended the program (the interpreter left it in
+    ``sys.last_value``)."""
+    shutdown(barrier=getattr(sys, "last_value", None) is None)
 
 
 def global_mesh() -> dist_ba.Mesh:

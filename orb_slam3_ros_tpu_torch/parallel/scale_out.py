@@ -206,8 +206,10 @@ def main(argv=None) -> int:
     multihost.init(args.coordinator, args.world, args.rank, backend=args.backend, device=device)
     try:
         report, results = run(multihost.global_mesh(), trees, check=args.compare)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        multihost.shutdown(barrier=False)  # a peer may wait in a collective this rank left
+        raise
+    multihost.shutdown()
     if args.rank == 0:
         if args.out:
             os.makedirs(args.out, exist_ok=True)

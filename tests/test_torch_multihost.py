@@ -59,6 +59,42 @@ _BAD_RENDEZVOUS = textwrap.dedent(
 )
 
 
+_SHUTDOWN = textwrap.dedent(
+    """
+    import atexit
+    import sys
+    import torch.distributed as dist
+    from orb_slam3_ros_tpu_torch.parallel import multihost
+    port, mode = sys.argv[1], sys.argv[2]
+    # registered before init: runs after the hook init registers
+    atexit.register(lambda: print("AT_EXIT", dist.is_initialized(), flush=True))
+    multihost.init(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    print("JOINED", dist.is_initialized(), flush=True)
+    if mode == "called":
+        multihost.shutdown()
+        print("LEFT", dist.is_initialized(), flush=True)
+        multihost.shutdown()
+        print("AGAIN", dist.is_initialized(), flush=True)
+    """
+)
+
+_FAILED_RANK = textwrap.dedent(
+    """
+    import sys
+    import torch
+    import torch.distributed as dist
+    from orb_slam3_ros_tpu_torch.parallel import multihost
+    rank, port = int(sys.argv[1]), sys.argv[2]
+    multihost.init(f"127.0.0.1:{port}", 2, rank, device="cpu")
+    print("JOINED", rank, flush=True)
+    if rank == 1:
+        raise RuntimeError("rank 1 failed")
+    dist.all_reduce(torch.ones(4))  # waits for a rank that never joins it
+    print("REDUCED", flush=True)
+    """
+)
+
+
 def _env() -> dict:
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -113,3 +149,42 @@ def test_a_failed_rendezvous_raises(tmp_path, case):
         if held is not None:
             held.close()
     assert "RAISED" in out and "INITIALIZED False" in out, out
+
+
+@pytest.mark.parametrize("mode", ["called", "at exit"])
+def test_shutdown_leaves_the_group(tmp_path, mode):
+    """``multihost.shutdown`` leaves the process group, a second call is a
+    no-op, and ``init`` registers it to run at the process's exit."""
+    wf = tmp_path / "shutdown.py"
+    wf.write_text(_SHUTDOWN)
+    done = subprocess.run([sys.executable, str(wf), str(free_port()), mode], env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    out = done.stdout
+    assert done.returncode == 0, out + done.stderr[-3000:]
+    assert "JOINED True" in out and "AT_EXIT False" in out, out
+    if mode == "called":
+        assert "LEFT False" in out and "AGAIN False" in out, out
+
+
+def test_a_failed_rank_ends_its_peers_wait(tmp_path):
+    """A rank that dies of an exception leaves the group at exit with no
+    barrier: its peer, waiting in a collective, gets an error at once
+    instead of waiting out ``TIMEOUT_S`` (300 s) in a barrier against it."""
+    wf = tmp_path / "failed.py"
+    wf.write_text(_FAILED_RANK)
+    port = free_port()
+    procs = [
+        subprocess.Popen([sys.executable, str(wf), str(i), str(port)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, env=_env(), text=True)
+        for i in range(2)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=60)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(f"JOINED {i}" in out for i, out in enumerate(outs)), outs
+    assert procs[1].returncode != 0 and "rank 1 failed" in outs[1], outs[1][-3000:]
+    assert procs[0].returncode != 0 and "REDUCED" not in outs[0], outs[0][-3000:]

@@ -224,7 +224,6 @@ def test_loop_closure_syncs_the_replica(inertial, monkeypatch):
     refresh still in flight. The keyframe's own mapping work is stubbed:
     the map it leaves is the revisit map."""
     from orb_slam3_ros_tpu_torch.models import inertial_system as tis
-    from orb_slam3_ros_tpu_torch.models import kf_work
     from test_torch_loop_closing import CLOSER_KW, REVISIT, make_revisit_map
     from test_torch_loop_closing import SLAM_KW as LC_KW
     from torch_parity import torch_calib, torch_map
@@ -244,7 +243,13 @@ def test_loop_closure_syncs_the_replica(inertial, monkeypatch):
             [[0.0], tis._pack_kf_state(mp, inp.kf_id).cpu().numpy()])))
     else:
         slam = tsys.MonoSlam(enable_loop_closing=True, devices=SPLIT, pipelined=False, **LC_KW)
-        monkeypatch.setattr(kf_work, "keyframe_work", lambda mp, *a, **k: (mp, torch.tensor(0), 0))
+        from orb_slam3_ros_tpu_torch.models.kf_program import KeyframeProgram
+
+        # the keyframe program leaves the map as it is and reads the
+        # keyframe's pose back with no point admitted and no BA iteration
+        monkeypatch.setattr(KeyframeProgram, "run", lambda self, mp, inp, defer=False: (
+            mp, np.concatenate([[0.0], mp.kf_R[inp.kf_id].reshape(9).cpu().numpy(),
+                                mp.kf_t[inp.kf_id].cpu().numpy(), [0.0]])))
     for k, v in dict(CLOSER_KW, required_consistency=1).items():
         setattr(slam.loop_closer, k, v)
     slam.set_map(m, kf, int(m.pt_valid.sum()), m.kf_R[kf - 1].numpy(), m.kf_t[kf - 1].numpy())
