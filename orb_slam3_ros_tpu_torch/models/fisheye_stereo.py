@@ -28,13 +28,16 @@ Frames run one at a time, as RGB-D's do (the chunk gate does not admit a
 system with bf > 0 and no stereo chunk branch): a frame's front end (both
 extractions, the cross match and the virtual ``StereoMatch``, the JAX
 package's ``_frame_program``) is one CUDA graph replay on the card
-(``front_end_program``, "rig"), the tracking after it eager;
+(``front_end_program``, "rig"), then its tracking and the two-camera
+refinement (the JAX package's ``track_against_map`` and ``_twocam_refine``
+jits) one more (``track_program``, kind "rig"; "vi" once the inertial rig's
+IMU is initialized), with one host read;
 ``process_frames`` of [N, 2, H, W] pairs splits each pair into
 ``process_frame``. The stage timer names "extract+cross" and "track", the
 JAX package's; a keyframe emits a "keyframe" event, which the JAX
 package's rig omits. ``devices`` raises ``ValueError``, as in
 ``stereo_system``. Left out, as in the other ported systems: the JAX
-package's ``_warm_schedules``, its lag-1 VI chunk plumbing
+package's lag-1 VI chunk plumbing
 (``_drain_vi_chunk``, ``_vi_dev_state``; ROADMAP "Do not port") and its
 asynchronous keyframe apply (``_apply_kf_async``).
 """
@@ -59,7 +62,8 @@ def _twocam_refine(m, feats, feat_pt, cross_ok, uv_right, R0, t0, R_rl, t_rl, ca
     gives its left reprojection row; one whose left feature also
     cross-matched gives the right view's row through Tlr
     (EdgeSE3ProjectXYZToBody), at the left feature's pyramid level. One
-    table of 2N rows."""
+    table of 2N rows. Run inside the tracking program (``track_program``,
+    kind "rig")."""
     N = feats.xy.shape[0]
     pt = torch.clamp(feat_pt, 0, m.P - 1).long()
     bound = (feat_pt >= 0) & m.pt_valid[pt] & feats.valid
@@ -79,6 +83,8 @@ class FisheyeStereoSlam(MonoSlam):
     left-to-right extrinsic X_r = R_rl X_l + t_rl (``R_rl`` [3, 3], ``t_rl``
     [3]; identity and zero by default)."""
 
+    TRACK_KIND = "rig"
+
     def __init__(self, *args, R_rl=None, t_rl=None, **kw):
         if kw.get("devices") is not None:
             raise ValueError(SPLIT_REFUSED.format(type(self).__name__))
@@ -97,7 +103,7 @@ class FisheyeStereoSlam(MonoSlam):
         # out too shallow (the JAX package measured 15-25% with 40x).
         self.max_depth = 80.0 * max(self.baseline, 1e-6)
         self.bf = float(self.cam_params[0]) * self.baseline  # one read at construction
-        self._last_cross = None  # (CrossCamTriangulation, right pixels) of the frame
+        self._last_cross = None  # the frame's CrossCamTriangulation
         self._last_depth = None  # the cross match as a StereoMatch (virtual u_r)
         self._front_prog = None  # the front end (``front_end_program``), made at the first frame
 
@@ -115,14 +121,13 @@ class FisheyeStereoSlam(MonoSlam):
             ), self.device)
         fe = self._front_prog.run(img_left, img_right)
         feats, cross = fe.feats, fe.cross
-        self._last_cross = (cross, fe.uv_right)
+        self._last_cross = cross
         self._last_depth = fe.sm
         t0 = self._tic("extract+cross", t0)
         if self.state == NOT_INITIALIZED:
             out = self._fisheye_initialize(feats, cross, ts)
         elif self.state in (OK, RECENTLY_LOST):
-            self._predict_motion(ts)
-            out = self._track(feats, ts)
+            out = self._track(fe, ts, predict=True)
         else:
             out = self._try_relocalize(feats, ts)
         self._tic("track", t0)
@@ -169,15 +174,8 @@ class FisheyeStereoSlam(MonoSlam):
         self._log_pose(ts)
         return self._pose_mat()
 
-    def _track_post(self, feats, res, ts):
-        """The two-camera refinement of the visually tracked pose before the
-        standard bookkeeping."""
-        if self._last_cross is not None:
-            cross, uv_right = self._last_cross
-            r2 = _twocam_refine(self.map, feats, res.feat_pt, cross.ok, uv_right, res.R, res.t,
-                                self.R_rl, self.t_rl, self.cam_params, self.cam_model)
-            res = res._replace(R=r2.R, t=r2.t, n_inliers=r2.n_inliers)
-        return super()._track_post(feats, res, ts)
+    def _track_config(self):
+        return super()._track_config()._replace(R_rl=self.R_rl, t_rl=self.t_rl)
 
     def _insert_keyframe(self, feats, ts, track_res):
         """A keyframe with its virtual u_r; its cross-camera points into
@@ -188,7 +186,7 @@ class FisheyeStereoSlam(MonoSlam):
         kf_id = self.n_kf
         self._emit_keyframe(ts, kf_id)
         dev = self.device
-        cross, _ = self._last_cross
+        cross = self._last_cross
         cand = self._cross_candidates(cross)
         R = torch.as_tensor(self.R_cur, device=dev)
         t = torch.as_tensor(self.t_cur, device=dev)

@@ -206,12 +206,14 @@ def load_image(dst: torch.Tensor, img) -> None:
 
 
 class TrackingRegions(GraphRegions):
-    """What the speculative frame program and the VI frame program
-    (``vi_frame_program.VIFrameProgram``) share: the image, the map's point
-    fields tracking reads, the features and the tracking result as static
-    buffers (and a subclass's ``_own_buffers``), the map copied in only when
-    it changed, and the capture of one graph a tracking schedule. Regions
-    are ``("frame", schedule)``."""
+    """What the frame program, the VI frame program
+    (``vi_frame_program.VIFrameProgram``) and the tracking program
+    (``track_program.TrackProgram``) share: the map's point fields tracking
+    reads, the features and the tracking result as static buffers (and a
+    subclass's ``_own_buffers``: the frame programs' image among them), the
+    map copied in only when it changed, and the capture of one graph a
+    tracking schedule (the frame programs' regions ``("frame",
+    schedule)``)."""
 
     def __init__(self, cfg, device):
         super().__init__(cfg, device)
@@ -221,8 +223,6 @@ class TrackingRegions(GraphRegions):
         N, P = cfg.config.total_cap, cfg.P
         shapes = map_shapes(cfg.K, cfg.N, P)
         self.buf = dict(
-            img=torch.zeros((cfg.height, cfg.width),
-                            dtype=torch.uint8 if cfg.uint8 else torch.float32, device=dev),
             **{f: torch.zeros(shapes[f][0], dtype=shapes[f][1], device=dev)
                for f in FRAME_MAP_FIELDS},
             f_xy=torch.zeros((N, 2), **f32), f_level=torch.zeros((N,), **i32),
@@ -241,9 +241,15 @@ class TrackingRegions(GraphRegions):
         self.map_copies = 0  # dispatches that copied the map in
 
     def _own_buffers(self) -> dict:
-        """The program's inputs and outputs besides the image, the map, the
-        features and the tracking result."""
+        """The program's inputs and outputs besides the map, the features
+        and the tracking result."""
         raise NotImplementedError
+
+    def _image_buffer(self) -> torch.Tensor:
+        """[H, W]: float32, or uint8 under ``cfg.uint8``."""
+        cfg = self.cfg
+        return torch.zeros((cfg.height, cfg.width),
+                           dtype=torch.uint8 if cfg.uint8 else torch.float32, device=self.device)
 
     def forget_map(self) -> None:
         """Copy the map in at the next dispatch whatever its tensors' versions
@@ -284,11 +290,11 @@ class FrameProgram(TrackingRegions):
         self._host_pred = False  # whether ``x`` holds the host-prediction flag
 
     def _own_buffers(self) -> dict:
-        """The prediction's inputs ``x``, the packed host read and the
-        prediction."""
+        """The image, the prediction's inputs ``x``, the packed host read and
+        the prediction."""
         f32 = dict(dtype=torch.float32, device=self.device)
-        return dict(x=torch.zeros((X_LEN,), **f32), packed=torch.zeros((PACKED_LEN,), **f32),
-                    pred=torch.zeros((12,), **f32))
+        return dict(img=self._image_buffer(), x=torch.zeros((X_LEN,), **f32),
+                    packed=torch.zeros((PACKED_LEN,), **f32), pred=torch.zeros((12,), **f32))
 
     def region(self, name):
         schedule = name[1]

@@ -77,9 +77,12 @@ takes the newest keyframe's state.
 The stereo- and RGB-D-inertial systems (``stereo_system``) build on this
 class: their keyframes carry u_r and create close landmarks from depth
 (the keyframe program's depth variant), every VI-BA builds (u, v, u_r)
-rows with ``bf``, their frames reach the 15-dof refinement through
-``_track_post`` (monocular once the IMU is initialized, the stereo
-refinement before), and the stereo-inertial chunks take [2, H, W] pairs.
+rows with ``bf``, their frames are tracked by the tracking program
+(``track_program``) and refined by its "vi" kind once the IMU is
+initialized (``_track``: the IMU prediction on the device from the host's
+state, tracking, the preintegration at the anchor's bias and the 15-dof
+refinement, monocular; the stereo or two-camera refinement before), and the
+stereo-inertial chunks take [2, H, W] pairs.
 
 The ``on_frame`` events are ``MonoSlam``'s: a VI frame emits "frame" (no
 point-cloud events, as in the JAX package), a VI keyframe "keyframe", a
@@ -118,6 +121,7 @@ from ..utils import obslog
 from . import local_mapping, map_state, map_updates, vi_device_loop
 from .chunk_runner import admit_keyframe_points, read_host, read_rows
 from .system import LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, MonoSlam
+from .track_program import pack_x
 from .vi_frame_program import VIFrameConfig, VIFrameProgram
 from .vi_kf_program import KFInputs, VIKeyframeProgram
 
@@ -226,7 +230,6 @@ class InertialSlam(MonoSlam):
         self.time_recently_lost = time_recently_lost
         self._lost_since_ts = None
         self._vi_anchor = None  # (R_wb, p_wb, v, bg, ba) on the device
-        self._host_anchor = None  # the host's state a frame's IMU prediction started from
         self._vi_prior = None  # [15,15] anchor posterior cov on the device
         self.calib = imu_ops.ImuCalib(*(
             torch.as_tensor(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32))
@@ -470,15 +473,16 @@ class InertialSlam(MonoSlam):
     def _predict_motion(self, ts):
         """Seed the motion model with the IMU prediction (PredictStateIMU
         replaces constant velocity) on frames that go through the visual
-        tracker (``vi_tracking=False``; the stereo-inertial frames). The
-        body state the prediction starts from is kept as the frame's anchor
-        for ``_track_post``: ``v_cur`` becomes the predicted velocity here,
-        and an anchor rebuilt from the host after this call would pair the
+        tracker (``vi_tracking=False``). The two-view systems' VI frames
+        predict inside the tracking program (``_track``), from the host's
+        state before the prediction, which is also their anchor where the
+        device holds none: ``v_cur`` becomes the predicted velocity here, and
+        an anchor rebuilt from the host after this call would pair the
         previous pose with the current velocity (the JAX package does,
         ROADMAP "Known faults in the reference")."""
         if not self.imu_initialized or self._frame_imu[0] is None:
             return
-        R_wb, p_wb, v, bg, ba = self._host_anchor = self._body_state_from_host()
+        R_wb, p_wb, v, bg, ba = self._body_state_from_host()
         b = torch.cat([bg, ba])
         pre = self._preint_block(self._frame_block(), b)
         R2, p2, v2 = imu_ops.predict_state(R_wb, p_wb, v, b, pre)
@@ -612,36 +616,41 @@ class InertialSlam(MonoSlam):
         finally:
             self._frame_imu = saved
 
-    def _track_post(self, feats, res, ts, fetched=None):
-        """The 15-dof refinement of a visually tracked frame once the IMU is
-        initialized (the JAX package's ``InertialSlam._track_post``): the
-        path of frames whose features a subclass extracted (stereo, RGB-D),
-        seeded by the IMU-predicted motion model and velocity, anchored at
-        the state that prediction started from. Otherwise the parent's (the
-        stereo refinement of a stereo system), with ``fetched``, the
-        pipelined drain's host copy, where there is one."""
+    def _track_config(self):
+        return super()._track_config()._replace(calib=self.calib,
+                                                imu_cap_frame=self.imu_cap_frame)
+
+    def _track(self, fe, ts, predict: bool = False):
+        """A two-view frame's tracking (stereo, RGB-D, the rig): once the
+        IMU is initialized, on a frame with IMU samples, the tracking
+        program's "vi" kind (the JAX package's ``track_against_map`` and
+        ``InertialSlam._track_post``: with ``predict`` the IMU prediction
+        from the host's state, on the device, in place of
+        ``_predict_motion``; tracking; the frame's block preintegrated at the
+        anchor's bias and the 15-dof refinement), anchored at the previous
+        frame's refined state on the device or, where there is none, at the
+        host's state the prediction started from; then one host read and
+        ``_vi_post``. Otherwise ``MonoSlam``'s (the stereo or two-camera
+        refinement)."""
         if not (self.imu_initialized and self.vi_tracking) or self._frame_imu[0] is None:
-            if fetched is None:  # the rigs' parents (synchronous) take no ``fetched``
-                return super()._track_post(feats, res, ts)
-            return super()._track_post(feats, res, ts, fetched=fetched)
-        dev = self.device
-        anchor, self._host_anchor = self._vi_anchor or self._host_anchor, None
-        R_anc, p_anc, v_anc, bg_anc, ba_anc = anchor or self._body_state_from_host()
-        anc_Sigma = self._vi_prior
-        if anc_Sigma is None:
-            anc_Sigma = torch.zeros((15, 15), dtype=torch.float32, device=dev)
-        pre = self._preint_block(self._frame_block(), torch.cat([bg_anc, ba_anc]))
-        vires, R_cw, t_cw = _vi_refine(
-            self.map, feats, res.feat_pt, res.R, res.t,
-            torch.as_tensor(self.v_cur, dtype=torch.float32, device=dev), bg_anc, ba_anc,
-            R_anc, p_anc, v_anc, bg_anc, ba_anc, pre, anc_Sigma, self.cam_params,
-            self.calib.R_bc, self.calib.t_bc, self.cam_model,
-        )
-        buf = torch.cat([
-            vires.n_inliers.reshape(1).to(torch.float32), R_cw.reshape(9), t_cw,
-            vires.v_w, vires.bg, vires.ba,
-        ]).cpu().numpy()
-        return self._vi_post(feats, res, vires, ts, buf)
+            return super()._track(fe, ts, predict)
+        R_pred, t_pred = self._host_prediction()
+        host = np.concatenate([self.R_cur.reshape(-1), self.t_cur, self.v_cur, self.bg_cur,
+                               self.ba_cur])
+        prog = self._track_program()
+        x = pack_x(prog.cfg, R_pred, t_pred, self.n_kf, host=host,
+                   imu=self._imu_block(self._frame_imu))
+        out = prog.run("vi", self.map, fe, x, self._current_schedule(),
+                       warm=(self._sched_dense, self._sched_lean), anchor=self._vi_anchor,
+                       Sigma=self._vi_prior, predict=predict)
+        buf = out.host.get()
+        if predict:
+            # the host's motion model and velocity as ``_predict_motion`` leaves them
+            R_cw, t_cw = buf[22:31].reshape(3, 3), buf[31:34]
+            self.vel_R = R_cw @ self.R_cur.T
+            self.vel_t = t_cw - self.vel_R @ self.t_cur
+            self.v_cur = buf[34:37].copy()
+        return self._vi_post(fe.feats, out.res, out.vires, ts, buf[:22])
 
     def _vi_post(self, feats, res, vires, ts, buf):
         """The state ladder after a VI frame. ``buf`` [22]: the host copy of

@@ -17,8 +17,11 @@ RGB-D runs per frame, as in the JAX package. A frame taken one at a time
 runs its front end (both extractions and ``match_stereo``, or the
 extraction and the depth map sampled at the features: the JAX package's
 jitted ``_extract`` / ``_match_stereo``) as one CUDA graph replay on the
-card (``front_end_program``), the tracking after it eagerly. The inertial variants pair
-these with ``InertialSlam`` (IMU initialization with the scale held fixed:
+card (``front_end_program``), then its tracking and the stereo refinement
+(the JAX package's ``track_against_map`` and ``_stereo_refine`` jits) as one
+more (``track_program``, kind "stereo"; once the IMU is initialized the
+inertial variants' frames run its "vi" kind), with one host read. The
+inertial variants pair these with ``InertialSlam`` (IMU initialization with the scale held fixed:
 depth observes it); the stereo-inertial chunks run ``vi_device_loop``'s
 stereo branch.
 
@@ -26,11 +29,12 @@ The stage timer names the JAX package's stages: "extract+stereo" or
 "extract+depth", then "track". A keyframe emits a "keyframe" event through
 ``on_frame``, which the JAX package's stereo keyframe path omits.
 
-Left out, as the JAX package's compile and host helpers: the schedule
-warm-up (``_warm_schedules``) and the lag-1 VI chunk drain (ROADMAP "Do not
-port"). The two-device split (``devices``) raises ``ValueError`` at
-construction: the JAX package's classes raise it at their first tracked
-frame, where the stereo refinement reads the canonical map with the
+Left out, as the JAX package's host helper: the lag-1 VI chunk drain
+(ROADMAP "Do not port"); the tracking program captures both schedules'
+graphs at the first tracked frame, where the JAX package's
+``_warm_schedules`` compiles them. The two-device split (``devices``)
+raises ``ValueError`` at construction: the JAX package's classes raise it
+at their first tracked frame, where the stereo refinement reads the canonical map with the
 replica's tracking results (ROADMAP "Divergences"). The non-rectified
 fisheye rig is ``fisheye_stereo``.
 """
@@ -53,7 +57,8 @@ def _stereo_refine(m, feats, feat_pt, ur, R0, t0, cam_params, bf):
     """Re-optimize the tracked pose over mixed mono / stereo (u, v, u_r)
     edges gathered from the tracker's per-feature landmark bindings (the
     stereo branch of PoseOptimization, Optimizer.cc:816). ``ur``: each
-    feature's right-image x, -1 where it has none."""
+    feature's right-image x, -1 where it has none. Run inside the tracking
+    program (``track_program``, kind "stereo")."""
     pt = torch.clamp(feat_pt, 0, m.P - 1).long()
     valid = (feat_pt >= 0) & m.pt_valid[pt] & feats.valid
     inv_sigma2 = 1.2 ** (-2.0 * feats.level.to(torch.float32))
@@ -68,6 +73,8 @@ class StereoSlam(MonoSlam):
     ``depth_factor_far`` * baseline are not created from one view's depth
     (the reference's mThDepth)."""
 
+    TRACK_KIND = "stereo"
+
     def __init__(self, *args, baseline: float = 0.1, depth_factor_far: float = 40.0, **kw):
         if kw.get("devices") is not None:
             raise ValueError(SPLIT_REFUSED.format(type(self).__name__))
@@ -81,17 +88,6 @@ class StereoSlam(MonoSlam):
         self.max_depth = depth_factor_far * baseline
         self._last_depth = None  # the current frame's StereoMatch
         self._front_prog = None  # the front end, made at the first frame
-
-    def _track_post(self, feats, res, ts):
-        """Stereo refinement of the visually tracked pose before the
-        standard bookkeeping."""
-        sm = self._last_depth
-        if sm is not None:
-            ur = torch.where(sm.valid, sm.u_right, -1.0)
-            r2 = _stereo_refine(self.map, feats, res.feat_pt, ur, res.R, res.t,
-                                self.cam_params, self.bf)
-            res = res._replace(R=r2.R, t=r2.t, n_inliers=r2.n_inliers)
-        return super()._track_post(feats, res, ts)
 
     # ------------------------------------------------------------------
     def _front_end_config(self) -> FrontEndConfig:
@@ -119,8 +115,7 @@ class StereoSlam(MonoSlam):
         if self.state == NOT_INITIALIZED:
             out = self._stereo_initialize(feats, sm, ts)
         elif self.state in (OK, RECENTLY_LOST):
-            self._predict_motion(ts)
-            out = self._track(feats, ts)
+            out = self._track(fe, ts, predict=True)
         else:
             out = self._try_relocalize(feats, ts)
         self._tic("track", t0)
@@ -276,7 +271,7 @@ class RgbdSlam(StereoSlam):
         if self.state == NOT_INITIALIZED:
             out = self._stereo_initialize(feats, sm, ts)
         elif self.state in (OK, RECENTLY_LOST):
-            out = self._track(feats, ts)
+            out = self._track(fe, ts)
         else:
             out = self._try_relocalize(feats, ts)
         self._tic("track", t0)

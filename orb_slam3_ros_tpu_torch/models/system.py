@@ -32,7 +32,11 @@ loop thread). With an Atlas the keyframe work stays synchronous, as in the
 JAX package. A frame that is not OK drains first and then recovers: a
 frame that finds tracking OK again is tracked at once on the dense
 schedule; otherwise it initializes or relocalizes. ``pipelined=False``
-tracks every frame at once and returns its own pose.
+tracks every frame at once and returns its own pose: the frame program
+runs the frame from the host's prediction (the JAX package's
+``_fused_track``; on the card one CUDA graph replay a schedule, captured
+right after initialization) and its (inliers, R, t) are read at once, one
+host read a frame.
 
 A map can also be loaded and tracked in localization mode (``set_map`` /
 ``load_map`` + ``activate_localization_mode``).
@@ -70,7 +74,9 @@ chunk's new keyframes at its boundary) tries to weld the active map into
 the oldest archived one.
 
 Stereo and RGB-D (``stereo_system``) subclass this class: they extract
-their own frames and go through ``_track``; ``bf`` (fx * baseline, 0 here)
+their own frames and go through ``_track`` (the tracking and refinement
+program, ``track_program``: on the card one CUDA graph replay a frame);
+``bf`` (fx * baseline, 0 here)
 gives every BA the (u, v, u_r) rows of their keyframes, and
 ``_chunk_stereo`` lets the chunk loop take [2, H, W] stereo pairs.
 
@@ -129,10 +135,11 @@ from ..ops import ba_pcg, cameras, matching, orb, pnp, ransac, retrieval
 from . import device_loop, kf_work, local_mapping, map_state, map_updates, tracking
 from .atlas import Atlas
 from .chunk_runner import read_host, read_rows
-from .frame_program import FrameConfig, FrameProgram, HostCopy
+from .frame_program import FrameConfig, FrameOut, FrameProgram, HostCopy
 from .kf_program import KFInputs, KeyframeProgram
 from .loop_closing import LoopCloser
 from .replica import MapReplica
+from .track_program import TrackConfig, TrackProgram, pack_x
 
 # The stereo, RGB-D and two-camera systems refuse ``devices``: the JAX
 # package's raise ValueError("Received incompatible devices ...") at their first
@@ -318,6 +325,9 @@ class MonoSlam:
         self._pending = None
         self._kf_async = None
         self._frame_prog = None
+        # The two-view systems' tracking program (``_track``), made at their
+        # first tracked frame.
+        self._track_prog = None
         self.pipe_counts = {"dispatches": 0, "drains": 0, "ready": 0, "kf_deferred": 0}
         # fx * baseline of the stereo / RGB-D residuals (0: monocular, no u_r rows)
         self.bf = 0.0
@@ -593,20 +603,19 @@ class MonoSlam:
         if self.pipelined:
             return self._process_frame_pipelined(img, ts)
         t0 = time.perf_counter()
-        feats = orb.extract(torch.as_tensor(img, dtype=torch.float32, device=self.track_device),
-                            self.config)
         if self.state in (NOT_INITIALIZED, LOST):
-            feats = self._to_map_dev(feats)  # initialization and relocalization map side
+            img = torch.as_tensor(img, dtype=torch.float32, device=self.track_device)
+            # initialization and relocalization map side
+            feats = self._to_map_dev(orb.extract(img, self.config))
             t0 = self._tic("extract", t0)
             if self.state == NOT_INITIALIZED:
                 out = self._try_initialize(feats, ts)
             else:
                 out = self._try_relocalize(feats, ts)
         else:
-            self._predict_motion(ts)
-            res = self._track_res(feats)
+            f = self._track_frame(img, ts, self._current_schedule())
             t0 = self._tic("extract+track", t0)
-            out = self._track_post(feats, res, ts)
+            out = self._track_post(f.feats, f.res, ts, fetched=f.host.get())
         self._tic("frame", t0)
         self.frame_id += 1
         return out
@@ -617,7 +626,7 @@ class MonoSlam:
         measure it. On the card a stage's time is the host's time to enqueue
         its work plus any host read inside it, so device time lands in the
         stage that reads: in ``process_frame`` the tracked frame's one read
-        is in "frame", not in "extract+track".
+        is in "frame", not in "extract+track" (the frame program's replay).
 
         The stage names are the JAX package's, at its boundaries where the
         port has one. ``MonoSlam.process_frame``: "extract" (a frame that
@@ -628,8 +637,8 @@ class MonoSlam:
         frames: "extract+stereo" / "extract+depth" / "extract+cross" (both
         views' extraction and their match), then "track". The port's eager
         path splits differently from the JAX package's programs in one
-        place: its extraction runs before the state test, so "extract" and
-        "extract+track" both start at the frame's upload. Pipelined (the
+        place: "extract" and "extract+track" both start at the frame's
+        upload. Pipelined (the
         default): "dispatch" (frame i's upload, map copy and program, with no
         wait), then "frame" (frame i-1's drain: the wait for its copy, the
         keyframe decision, queued keyframe work, events), or "extract" and
@@ -652,18 +661,62 @@ class MonoSlam:
         for name, (mean, std, n) in sorted(self.timing_summary().items(), key=lambda kv: -kv[1][0]):
             print(f"  {name:24s} {mean * 1e3:9.2f} +- {std * 1e3:7.2f}  [{n}]", file=out)
 
-    def _track(self, feats: orb.Features, ts: float):
-        """Track ``feats`` against the map from the motion model's
-        prediction, then ``_track_post`` (the stereo and RGB-D systems call
-        it with the features they extracted themselves)."""
-        return self._track_post(feats, self._track_res(feats), ts)
+    # The two-view systems' tracking program kind ("stereo" or "rig";
+    # ``track_program``); None: the system tracks through the frame program.
+    TRACK_KIND = None
+
+    def _track_config(self) -> TrackConfig:
+        m = self.map
+        return TrackConfig(
+            config=self.config, cam_params=self.cam_params, width=self.width,
+            height=self.height, track_window=self.track_window, track_cap=self.track_cap,
+            cam_model=self.cam_model, K=m.K, N=m.N, P=m.P, visual=self.TRACK_KIND, bf=self.bf,
+        )
+
+    def _track_program(self) -> TrackProgram:
+        if self._track_prog is None:
+            self._track_prog = TrackProgram(self._track_config(), self.device)
+        return self._track_prog
+
+    def _track(self, fe, ts: float, predict: bool = False):
+        """A two-view frame's tracking: its front end ``fe``
+        (``front_end_program.FrontEnd``) tracked against the map and the
+        pose refined by the tracking program (``track_program``: on the card
+        one CUDA graph replay of the system's kind and schedule, both
+        schedules captured at the first tracked frame), from the motion
+        model's prediction (with ``predict``, ``_predict_motion`` first: the
+        stereo and rig frames); then ``_track_post`` on the refined pose,
+        read at once: one host read a frame."""
+        if predict:
+            self._predict_motion(ts)
+        R_pred, t_pred = self._host_prediction()
+        prog = self._track_program()
+        out = prog.run(self.TRACK_KIND, self.map, fe, pack_x(prog.cfg, R_pred, t_pred, self.n_kf),
+                       self._current_schedule(), warm=(self._sched_dense, self._sched_lean))
+        return self._track_post(fe.feats, out.res, ts, fetched=out.host.get())
+
+    def _host_prediction(self):
+        """The motion model's prediction (R, t) of this frame, numpy."""
+        return self.vel_R @ self.R_cur, self.vel_R @ self.t_cur + self.vel_t
+
+    def _track_frame(self, img, ts: float, schedule: tuple) -> FrameOut:
+        """Frame ``img`` through the frame program from the host's motion
+        model (the JAX package's ``_fused_track``: extraction and tracking;
+        on the card one CUDA graph replay), on the track device against the
+        replica when split. No host read."""
+        self._predict_motion(ts)
+        if self._replica is not None:
+            self._replica.note_frame()
+        R_pred, t_pred = self._host_prediction()
+        return self._frame_program().dispatch(img, self._tmap(), self.n_kf, schedule,
+                                              host=(R_pred, t_pred, self.R_cur, self.t_cur))
 
     def _track_res(self, feats: orb.Features) -> tracking.TrackResult:
         """``track_against_map`` from the motion model's prediction (on the
-        track device against the replica when split)."""
+        track device against the replica when split): the plain function of
+        the frame program's tracking."""
         dev = self.track_device
-        R_pred = self.vel_R @ self.R_cur
-        t_pred = self.vel_R @ self.t_cur + self.vel_t
+        R_pred, t_pred = self._host_prediction()
         tm = self._tmap()
         if self._replica is not None:
             self._replica.note_frame()
@@ -713,7 +766,10 @@ class MonoSlam:
             self._frame_prog = FrameProgram(FrameConfig(
                 config=self.config, cam_params=self._track_cam, width=self.width,
                 height=self.height, track_window=self.track_window, track_cap=self.track_cap,
-                cam_model=self.cam_model, uint8=self.transfer_uint8, K=m.K, N=m.N, P=m.P,
+                cam_model=self.cam_model, K=m.K, N=m.N, P=m.P,
+                # a synchronous frame takes the float image, as the JAX
+                # package's _fused_track does
+                uint8=self.transfer_uint8 and self.pipelined,
             ), self.track_device)
         return self._frame_prog
 
@@ -722,17 +778,13 @@ class MonoSlam:
         no host read: predicted on the device from the pending frame ``prev``
         (a dispatched dict), or from the host's motion model when there is
         none. Returns the dispatched frame (its ``FrameOut``, ts, frame id)."""
-        if self._replica is not None:
-            self._replica.note_frame()
-        prog = self._frame_program()
         if prev is not None:
-            out = prog.dispatch(img, self._tmap(), self.n_kf, schedule, prev=prev["out"])
+            if self._replica is not None:
+                self._replica.note_frame()
+            out = self._frame_program().dispatch(img, self._tmap(), self.n_kf, schedule,
+                                                 prev=prev["out"])
         else:
-            self._predict_motion(ts)
-            R_pred = self.vel_R @ self.R_cur
-            t_pred = self.vel_R @ self.t_cur + self.vel_t
-            out = prog.dispatch(img, self._tmap(), self.n_kf, schedule,
-                                host=(R_pred, t_pred, self.R_cur, self.t_cur))
+            out = self._track_frame(img, ts, schedule)
         self.pipe_counts["dispatches"] += 1
         return dict(out=out, ts=ts, idx=self.frame_id)
 
@@ -1122,10 +1174,9 @@ class MonoSlam:
         self._init_fail_count = 0
         self._create_initial_map(feats, ts, idx.cpu().numpy(), res)
         self.state = OK
-        if self.pipelined:
-            # the frame graph of each schedule now, not at a live frame
-            self._frame_program().warm((self._sched_dense, self._sched_lean), self._tmap(),
-                                       self.n_kf, self.R_cur, self.t_cur)
+        # the frame graph of each schedule now, not at a live frame
+        self._frame_program().warm((self._sched_dense, self._sched_lean), self._tmap(),
+                                   self.n_kf, self.R_cur, self.t_cur)
         self._log_pose(ts)
         return self._pose_mat()
 
@@ -1393,10 +1444,11 @@ class MonoSlam:
 
     def _forget_frame_maps(self) -> None:
         """Graph replays wrote the map in place, behind torch's version
-        counters: the frame program copies it in afresh at its next
-        dispatch."""
-        if self._frame_prog is not None:
-            self._frame_prog.forget_map()
+        counters: the frame and tracking programs copy it in afresh at their
+        next run."""
+        for prog in (self._frame_prog, self._track_prog):
+            if prog is not None:
+                prog.forget_map()
 
     def _keyframe_work(self, kf_id: int, ts: float, feats, feat_pt, R, t, on_device: bool):
         """``kf_work.keyframe_work`` of keyframe ``kf_id`` at pose (R, t) on

@@ -5,10 +5,11 @@
 Both compute the contract of ``matching.search_by_projection``'s dense path
 in the JAX package (``hamming.masked_best2`` + ``hamming.mutual_nn``),
 exactly, ties included. ``project_match`` picks the route by where its
-tensors lie: CPU tensors take ``project_match_reference``; CUDA tensors
-always launch the kernel, or raise. A search on the card is one kernel
-launch and allocates only its output: the kernel's scratch state lives in
-a persistent workspace that every call leaves as it found it.
+tensors lie: CPU tensors take ``project_match_reference`` on their valid
+rows; CUDA tensors always launch the kernel, or raise. A search on the
+card is one kernel launch and allocates only its output: the kernel's
+scratch state lives in a persistent workspace that every call leaves as
+it found it.
 """
 
 from __future__ import annotations
@@ -99,6 +100,24 @@ def project_match_reference(
         proj_uv, proj_valid, proj_level, radius, feat_xy, feat_level, feat_valid, level_slack
     )
     return hamming.mutual_nn(dist, mask, max_dist=max_dist, ratio=ratio)
+
+
+def valid_rows_reference(*args, **kw):
+    """The CPU's search: ``project_match_reference`` on the valid landmark
+    rows only (``args`` in its order). An invalid row matches nothing and
+    is no column's best, since all its pairs are masked, and the kept rows
+    keep their order, so the result equals the dense call's."""
+    proj_valid = args[1]
+    rows = torch.nonzero(proj_valid)[:, 0]
+    if rows.numel() == proj_valid.numel():
+        return project_match_reference(*args, **kw)
+    idx = torch.full(proj_valid.shape, -1, dtype=torch.int32)
+    dist = torch.full(proj_valid.shape, hamming.INVALID_DIST, dtype=torch.int32)
+    if rows.numel():
+        idx[rows], dist[rows] = project_match_reference(
+            *(a[rows] for a in args[:5]), *args[5:], **kw
+        )
+    return idx, dist
 
 
 def split_ranges(N: int, splits: int) -> list[tuple[int, int]]:
@@ -317,14 +336,15 @@ def project_match(
 ):
     """(match_idx [P] int32, match_dist [P] int32) of the projection search.
 
-    CPU tensors go through ``project_match_reference``; CUDA tensors through
-    the kernel (``project_match_cuda``, which counts the launch under
-    ``site``), which raises on what it does not take and never falls back."""
+    CPU tensors go through ``project_match_reference`` on their valid rows
+    (``valid_rows_reference``); CUDA tensors through the kernel
+    (``project_match_cuda``, which counts the launch under ``site``), which
+    raises on what it does not take and never falls back."""
     args = (
         proj_uv, proj_valid, proj_level, proj_sign, radius,
         feat_xy, feat_level, feat_valid, feat_sign,
     )
     kw = dict(level_slack=level_slack, max_dist=max_dist, ratio=ratio)
     if proj_uv.device.type == "cpu":
-        return project_match_reference(*args, **kw)
+        return valid_rows_reference(*args, **kw)
     return project_match_cuda(*args, **kw, site=site)

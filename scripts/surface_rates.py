@@ -1,7 +1,9 @@
 """Phase 17's frame rates, repeated in one process on the card.
 
-``chip_smoke.py`` phase 17 holds the control socket's run (b) to 90% of
-the native feed's run (a). This script gives that ratio's spread, and
+``chip_smoke.py`` phase 17 holds the host part of the control socket's
+run (b) (a median frame less its frame-graph replay's span, times the
+host's speed) to ``SURF_HOST_RATIO`` of the native feed's run (a)
+around it. This script gives that ratio's spread, and
 splits the gap to phase 7's plain loop by what each replay adds. It runs
 phase 7 once, then ``--rounds`` rounds of the replays ``--kinds`` names,
 each of phase 7's sequence and configuration through ``run_synth.run``
@@ -21,6 +23,9 @@ over it, which phase 17 (b) is held to, and the CPU seconds of the run's
 process, of its SLAM thread and of the clients' process, and of the SLAM
 thread inside the control server (publishing, ``poll``, each command);
 per kind the mean, min and max;
+the frame graph's replays by region and their median device ms; the
+host part of the median frame (``host_ms``) and that times the host's
+speed (``host_work``, M probe iterations);
 and for each ``server`` or ``socket`` run its ratio to the mean of the
 nearest ``feed`` runs before and after it, as phase 17 holds (b). First it measures how many lines of (b)'s event mix a
 subscriber that never reads takes before the server drops it. Long output
@@ -182,8 +187,12 @@ def main(argv=None) -> int:
                                slam_thread_cpu_s=time.thread_time() - thr0,
                                clients_cpu_s=_cpu(resource.RUSAGE_CHILDREN) - _cpu_of(kids0),
                                server_thread=clock.report(),
-                               host_rate=probe.rate(*cnt.steady_window()))
+                               host_rate=probe.rate(*cnt.steady_window()),
+                               frame_graph_runs=cnt.kfw.get("track_by_region"),
+                               frame_graph_ms_p50=cnt.kfw.get("track_graph_ms_p50"))
                     run["per_rate"] = run["median_fps"] / run["host_rate"] * 1e6
+                    run["host_ms"] = cnt.split_ms()[0]
+                    run["host_work"] = run["host_ms"] * run["host_rate"] / 1e6
                     print(json.dumps(run))
                     run["frame_ms"] = cnt.steady_ms()  # the JSON file only
                     runs.append(run)
@@ -191,7 +200,8 @@ def main(argv=None) -> int:
         shutil.rmtree(root)
     print(f"phase 7 (plain loop, no instrumentation): {mp['frames_per_s']:.3f} frames/s steady")
     for kind in dict.fromkeys(kinds):
-        for key in ("fps", "steady_fps", "median_fps", "host_rate", "per_rate"):
+        for key in ("fps", "steady_fps", "median_fps", "host_rate", "per_rate",
+                    "frame_graph_ms_p50", "host_ms", "host_work"):
             v = [x[key] for x in runs if x["kind"] == kind]
             print(f"{kind:7s} {key:10s} mean {sum(v) / len(v):.3f} min {min(v):.3f} "
                   f"max {max(v):.3f} over {len(v)}")
@@ -203,7 +213,7 @@ def main(argv=None) -> int:
         if x["kind"] not in ("server", "socket") or not before or not after:
             continue
         a1, a2 = runs[before[-1]], runs[after[0]]
-        for key in ("median_fps", "per_rate", "fps"):
+        for key in ("median_fps", "per_rate", "fps", "frame_graph_ms_p50", "host_work"):
             ratios.setdefault(f"{x['kind']} {key}", []).append(x[key] / ((a1[key] + a2[key]) / 2))
     for name, v in ratios.items():
         print(f"{name} / mean of the feed runs around it, by round: {[round(y, 4) for y in v]}, "

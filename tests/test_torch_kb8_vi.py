@@ -458,7 +458,14 @@ def _split_run(seq, im, frames, devices, mp):
     replica_reads = []
 
     def probe(m, *a, **k):
-        replica_reads.append(slam._replica is not None and any(m is b for b in slam._replica._bufs))
+        # a frame tracks the frame or the VI frame program's copy of the
+        # map: where that copy was made from
+        src = m.pt_X
+        for prog in (slam._frame_prog, slam._vi_prog):
+            if prog is not None and src is prog.buf["pt_X"]:
+                src = prog._map_src["pt_X"][0]
+        replica_reads.append(slam._replica is not None
+                             and any(src is b.pt_X for b in slam._replica._bufs))
         assert k.get("cam_model") == "kb8"
         return TRACK(m, *a, **k)
 

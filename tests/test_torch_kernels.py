@@ -89,6 +89,26 @@ class _FakeLib:
         return 1 if self.fail else 0
 
 
+@pytest.mark.parametrize(
+    "seed,P,N,valid",
+    [(0, 96, 130, "some"), (1, 37, 64, "some"), (2, 48, 80, "none"), (3, 40, 72, "all")],
+)
+def test_cpu_search_on_valid_rows_equals_dense(seed, P, N, valid):
+    # The CPU's search runs the plain version on the valid rows only: equal
+    # to the dense plain call, ties across rows and columns included.
+    d = make_search_case(seed, P=P, N=N, tie_columns=(N // 2,))
+    if valid != "some":
+        d["proj_valid"][:] = valid == "all"
+    args = _kernel_args(d, torch.device("cpu"))
+    assert {"some": 0 < int(args[1].sum()) < P, "none": not args[1].any(),
+            "all": bool(args[1].all())}[valid]
+    for kw in ({}, dict(level_slack=0, max_dist=35, ratio=1.0)):
+        ic, dc = tpm.project_match(*args, **kw)
+        ir, dr = tpm.project_match_reference(*args, **kw)
+        assert torch.equal(ic, ir) and torch.equal(dc, dr)
+        assert valid == "none" or (ir >= 0).sum() > 0
+
+
 def test_workspace_cache_lifetime(monkeypatch):
     # One workspace a key, filled once; a failed fill is not kept; the cache
     # holds the newest _MAX_WORKSPACES; drop_workspaces() forgets them all.

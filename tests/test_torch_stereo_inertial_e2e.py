@@ -97,7 +97,7 @@ def runs():
         tres = _run(tslam, seq, imu)
     finally:
         tss._stereo_refine = stereo_refine
-    return dict(jax=jres, port=tres, system=tslam, refines=refines, calls=calls, imu=imu)
+    return dict(jax=jres, port=tres, system=tslam, refines=refines, calls=calls, imu=imu, seq=seq)
 
 
 # Both initialize at frame 0 and track every frame, IMU initialized with the
@@ -151,14 +151,21 @@ def test_refinement_anchored_before_the_prediction(runs):
     # state the prediction started from (the previous pose with its own
     # velocity), not one rebuilt from the host with the new velocity (the
     # JAX package's fault, ROADMAP "Known faults in the reference").
+    # The prediction and the refinement run in the tracking program's "vi"
+    # kind: its anchor buffers hold the state the refinement started from.
     slam = copy.deepcopy(runs["system"])
-    im = runs["imu"]
+    im, seq, i = runs["imu"], runs["seq"], N_FRAMES - 1
     slam._vi_anchor = None  # as after a keyframe
+    slam.last_kf_frame = slam.frame_id  # no keyframe at this frame
     v_before = slam.v_cur.copy()
-    slam._record_frame_imu(99.0, im["acc"][5], im["gyro"][5], im["dts"][5])
-    slam._predict_motion(99.0)
-    assert np.abs(slam.v_cur - v_before).max() > 1e-3  # the prediction moved it
-    np.testing.assert_allclose(slam._host_anchor[2].numpy(), v_before, atol=1e-6)
+    slam._record_frame_imu(99.0, im["acc"][i], im["gyro"][i], im["dts"][i])
+    fe = slam._front_end().run(seq.images[i], seq.images_right[i])
+    slam._track(fe, 99.0, predict=True)
+    prog = slam._track_prog
+    v_pred = prog.buf["packed"][34:37].numpy()
+    assert np.abs(v_pred - v_before).max() > 1e-3  # the prediction moved it
+    np.testing.assert_allclose(prog.buf["anc_v"].numpy(), v_before, atol=1e-6)
+    assert prog.anchors["host"] >= 1
 
 
 def _port_kf_work(args, kw):

@@ -60,10 +60,16 @@ class SharedExtraction:
 
 def tracked_maps(slam, log: list):
     """Wrap ``tracking.track_against_map`` to log, per call, whether it read
-    the replica's buffer and whether that equals the canonical map."""
+    the replica's buffer and whether that equals the canonical map. A frame
+    tracks the frame program's copy of the map: it stands for the map the
+    copy was made from."""
 
     def probe(m, *a, **kw):
         rep = slam._replica
+        prog = slam._frame_prog
+        if prog is not None and m.pt_X is prog.buf["pt_X"]:
+            src = prog._map_src["pt_X"][0]
+            m = next(b for b in ([] if rep is None else rep._bufs) + [slam.map] if b.pt_X is src)
         on_replica = rep is not None and any(m is b for b in rep._bufs) and m is not slam.map
         same = all(torch.equal(getattr(m, f), getattr(slam.map, f))
                    for f in ("kf_valid", "kf_R", "kf_t", "pt_valid", "pt_X", "kf_obs"))
@@ -173,11 +179,11 @@ def test_jax_per_frame_replica_stays_one_keyframe_behind():
 
     tslam = tsys.MonoSlam(cam_params=cam, devices=SPLIT, pipelined=False, **SLAM_KW)
 
-    def port_track(feats):
+    def port_track(img, ts, schedule):
         seen["port"] = int(tslam._tmap().kf_valid.sum())
         raise Stop
 
-    tslam._track_res = port_track
+    tslam._track_frame = port_track
     tslam.state = tsys.OK
     tslam.map.kf_valid[0] = True
     tslam._start_replica_copy()
@@ -271,11 +277,11 @@ def test_loop_closure_syncs_the_replica(inertial, monkeypatch):
     class Stop(Exception):
         pass
 
-    def track(feats):
+    def track(img, ts, schedule):
         seen["same"] = _equal_maps(slam._tmap(), slam.map)
         raise Stop
 
-    slam._track_res = track
+    slam._track_frame = track
     with pytest.raises(Stop):
         slam.process_frame(np.zeros((LC_KW["height"], LC_KW["width"]), np.float32), kf + 1.0)
     assert seen["same"] and rep.counts["max_stale"] == 0

@@ -40,12 +40,12 @@ def run(seq, imu, devices, mp):
         return timed_stage(stage, fn, **k)
 
     def probe(m, *a, **k):
-        # a VI frame tracks the VI frame program's copy of the map: where
-        # that copy was made from
-        prog = slam._vi_prog
+        # a frame tracks the frame or the VI frame program's copy of the
+        # map: where that copy was made from
         src = m.pt_X
-        if prog is not None and src is prog.buf["pt_X"]:
-            src = prog._map_src["pt_X"][0]
+        for prog in (slam._frame_prog, slam._vi_prog):
+            if prog is not None and src is prog.buf["pt_X"]:
+                src = prog._map_src["pt_X"][0]
         reads.append((slam.imu_initialized, slam._replica is not None
                       and any(src is b.pt_X for b in slam._replica._bufs)))
         return TRACK(m, *a, **k)
